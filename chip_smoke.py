@@ -6,7 +6,9 @@
 Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
   1. card and build: the card's name and power limit, the build time;
   2. kernel checks: each kernel against its plain PyTorch version on the
-     card, at the shapes the serving path gives it, with its tolerance;
+     card, at the shapes the serving and training paths give it, with its
+     tolerance (K1-K4 forward, K5 the BiGRU backward, K6 the mask-head
+     backward);
   3. round trip: STFT features then masked iSTFT with all-ones masks
      reconstructs the waveform;
   4. end to end: the torch_multi preset at full width (2-layer BiGRU-300,
@@ -15,9 +17,18 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      zeroed just before and read just after; outputs finite and close to
      the same model's plain path (kernel flags off);
   5. CLI: run.separate on two synthetic wavs writes four wavs;
-  6. timing: CUDA-event medians of each kernel, its plain version and a
-     one-call library yardstick, the end-to-end batch and request times,
-     and a torch.profiler breakdown of one batch and one request.
+  6. train step: one torch_multi step at full width on the card (the
+     kernel route) against the same step on a CPU copy of the model and
+     batch (the same autograd.Functions on their plain halves): loss,
+     grad norm and every parameter's update;
+  7. trainer: run.train --preset torch_multi --epochs 1 --epoch-size 8 on
+     a bank of 2 utterances per speaker, with the launch counters zeroed
+     just before and read just after; every step's loss finite, the eval
+     SI-SDR finite, and the launches of one step printed;
+  8. timing: CUDA-event medians of each kernel, its plain version and a
+     one-call library yardstick, the end-to-end batch, request and train
+     step times, and a torch.profiler breakdown of one batch, one request
+     and one train step.
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
 those lines; so does a machine without CUDA.
@@ -39,6 +50,8 @@ SEED = 0
 N_SAMPLES = 40000           # 5 s at 8 kHz: the reference utterance
 BATCH = 16                  # the serving batch (bench.py)
 REQUESTS = 8                # B=1 requests
+TRAIN_STEPS = 8             # steps of the trainer run
+BANK_UTTS = 2               # utterances per speaker in its synthetic bank
 
 # Published H100 SXM peaks (NVIDIA data sheet), for the bound column.
 HBM_BYTES_PER_S = 3.35e12
@@ -47,7 +60,17 @@ BF16_TC_FLOPS = 989e12      # tensor cores, dense bf16
 
 TOL = {"stft_features": 1e-4, "gru_fwd": 1e-4, "gru_fwd_bf16": 2e-2,
        "maskhead_fwd": 2e-2, "masked_istft": 1e-4, "round_trip": 1e-4,
-       "end_to_end_rel": 2e-2}
+       "end_to_end_rel": 2e-2,
+       # relative L2 of each output against the plain version. K5 f32:
+       # summation order only. K5 bf16: da_w rounds to bf16 before both
+       # products, so one flipped rounding carries back through the steps.
+       # K6: the recomputed g differs by summation order, which can flip
+       # one bf16 rounding of de or dacc (2^-8 relative).
+       "gru_bwd": 1e-4, "gru_bwd_bf16": 5e-2, "maskhead_bwd": 1e-2,
+       # train step, kernel route on the card against the plain halves on
+       # the CPU: the CPU test's bars (tests/test_torch_train.py), set by
+       # the bf16 mask head
+       "train_loss_rel": 2e-2, "train_update_rel": 5e-2}
 
 
 def fail(msg: str) -> None:
@@ -65,6 +88,21 @@ def check(name: str, err: float, tol: float) -> float:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def check_rel(name: str, got, ref, tol: float) -> float:
+    """Gate on the relative L2 error; returns the max abs error."""
+    rel, err = rel_l2(got, ref), max_err(got, ref)
+    ok = bool(np.isfinite(rel)) and rel <= tol
+    print(f"check {name}: rel_l2={rel:.3e} max_abs_err={err:.3e} "
+          f"tol_rel={tol:.0e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{name} relative L2 error {rel} exceeds {tol}")
+    return err
 
 
 def device_ms(torch, fn, iters: int = 20) -> float:
@@ -219,6 +257,38 @@ def main() -> int:
         k14.masked_ola_cuda(*k4_args), k14.masked_ola_plain(*k4_args)),
         TOL["masked_istft"])
 
+    # K5 at the training shapes (T=313, D=2, B=16, H=300): the backward of
+    # the forward just checked, on that forward's own hs
+    dhs = tensor(rng.standard_normal((T, 2, BATCH, H)))
+    k5_args = {}
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x5, w5, g5 = xp.to(dt), wh.to(dt), dhs.to(dt)
+        hs = k2.gru_scan_cuda(x5, w5, bhn)
+        k5_args[label] = (x5, w5, bhn,
+                          torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]), g5)
+        got = k2.gru_scan_bwd_cuda(*k5_args[label])
+        ref = k2.gru_scan_bwd_plain(*k5_args[label])
+        tol = TOL["gru_bwd" if dt == torch.float32 else "gru_bwd_bf16"]
+        err = max(check_rel(f"K5 gru_bwd {label} {name}", g, r, tol)
+                  for name, g, r in zip(("dxp", "dU", "db_n"), got, ref))
+        if dt == torch.float32:
+            errs["gru_bwd"] = err
+
+    # K6 at the training shapes (B=16, T=313, F=129, E=50, K=2), on K3's
+    # own bf16 masks; dW, dh and db follow from dacc by plain products
+    masks6 = k3.fused_dot_masks_cuda(hb, wb, bias, qb, F, E, torch.bfloat16)
+    dout6 = tensor(rng.standard_normal((BATCH, K, T, F)), torch.bfloat16)
+    k6_args = (hb, wb, bias, qb, masks6, dout6, F, E)
+    dacc, dq = k3.fused_dot_masks_bwd_cuda(*k6_args)
+    dacc_p, dq_p = k3.fused_dot_masks_bwd_plain(*k6_args)
+    errs["maskhead_bwd"] = max(
+        [check_rel("K6 maskhead_bwd dacc", dacc, dacc_p, TOL["maskhead_bwd"]),
+         check_rel("K6 maskhead_bwd dq", dq, dq_p, TOL["maskhead_bwd"])]
+        + [check_rel(f"K6 maskhead_bwd {name}", g, r, TOL["maskhead_bwd"])
+           for name, g, r in zip(("dh", "dW", "db"),
+                                 k3.dacc_products(hb, wb, dacc),
+                                 k3.dacc_products(hb, wb, dacc_p))])
+
     # ---- 3. round trip ----------------------------------------------------
     ones = torch.ones((BATCH, 1, T, F), device=dev)
     _, re1, im1 = k14.stft_features(wav, L, hop, cfg.window)
@@ -245,9 +315,9 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
     print(f"main path launches: {launches}", flush=True)
-    missing = [n for n in cuda_lib.KERNELS if not launches.get(n)]
+    missing = [n for n in cuda_lib.SERVING_KERNELS if not launches.get(n)]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"kernels never launched on the serving path: {missing}")
     ref16 = separate_waveforms(model, wav, plain_cfg, spk, length=N_SAMPLES)
     refs1 = [separate_waveforms(model, w, plain_cfg, s, length=N_SAMPLES)
              for w, s in reqs]
@@ -282,7 +352,113 @@ def main() -> int:
             fail(f"CLI wrote {wrote}, expected 4 wavs")
         print(f"CLI: wrote {len(wrote)} wavs", flush=True)
 
-    # ---- 6. timing ----------------------------------------------------------
+    # ---- 6. train step: kernel route on the card against the CPU --------
+    import copy
+
+    from dl4ss_tpu_torch.data.synth import (featurize, make_synthetic_bank,
+                                            sample_mixtures)
+    from dl4ss_tpu_torch.train.state import create_train_state
+    from dl4ss_tpu_torch.train.steps import make_fused_step, make_train_step
+    from dl4ss_tpu_torch.weights import export_jax_params, flatten_tree
+
+    def leaves(m):
+        return dict(flatten_tree(export_jax_params(m)))
+
+    t0 = time.perf_counter()
+    bank = torch.as_tensor(make_synthetic_bank(
+        SEED, cfg.num_speakers, BANK_UTTS, N_SAMPLES), device=dev)
+    bank_s = time.perf_counter() - t0
+    feats = featurize(sample_mixtures(torch.Generator().manual_seed(SEED),
+                                      bank, cfg), cfg)
+    twin = copy.deepcopy(model).to("cpu")
+    before = leaves(model)
+    step = make_train_step(cfg)
+    t0 = time.perf_counter()
+    _, met_g = step(create_train_state(cfg, model=model), feats)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, met_c = step(create_train_state(cfg, model=twin, device="cpu"),
+                    {k: v.cpu() for k, v in feats.items()})
+    t_cpu = time.perf_counter() - t0
+    for key in ("loss", "grad_norm"):
+        got, ref = float(met_g[key]), float(met_c[key])
+        rel = abs(got - ref) / abs(ref)
+        print(f"train step {key}: card {got:.6f} cpu {ref:.6f} rel {rel:.3e} "
+              f"tol {TOL['train_loss_rel']:.0e}", flush=True)
+        if not (np.isfinite(got) and rel <= TOL["train_loss_rel"]):
+            fail(f"train step {key} differs: card {got}, cpu {ref}")
+    after_g, after_c = leaves(model), leaves(twin)
+    worst = 0.0
+    for name, ref in after_c.items():
+        want, got = ref - before[name], after_g[name] - before[name]
+        if not np.any(want):
+            if np.any(got):
+                fail(f"train step moved {name}, which the CPU step left")
+            continue
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        worst = max(worst, rel)
+        if not rel <= TOL["train_update_rel"]:
+            fail(f"train step update of {name}: rel L2 {rel}")
+    print(f"train step updates: {len(after_c)} leaves, worst rel L2 "
+          f"{worst:.3e} tol {TOL['train_update_rel']:.0e} (card step "
+          f"{t_card:.2f} s incl. warm-up, CPU step {t_cpu:.2f} s)", flush=True)
+
+    # ---- 7. trainer: run.train at full width -----------------------------
+    from dl4ss_tpu_torch.run import train as train_cli
+    from dl4ss_tpu_torch.train import loop as train_loop
+
+    step_losses = []
+
+    def recording(*args, **kwargs):
+        fused = make_fused_step(*args, **kwargs)
+
+        def run(state, bank_):
+            state, metrics = fused(state, bank_)
+            step_losses.append(float(metrics["loss"]))
+            return state, metrics
+        return run
+
+    train_loop.make_fused_step = recording
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics_path = os.path.join(tmp, "metrics.jsonl")
+        torch.cuda.synchronize()
+        cuda_lib.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        state = train_cli.main([
+            "--preset", "torch_multi", "--epochs", "1", "--epoch-size",
+            str(TRAIN_STEPS), "--utts", str(BANK_UTTS), "--seed", str(SEED),
+            "--metrics", metrics_path, "--device", "cuda"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = dict(cuda_lib.LAUNCHES)
+        with open(metrics_path) as fh:
+            record = json.loads(fh.read().splitlines()[-1])
+    train_loop.make_fused_step = make_fused_step
+    print(f"trainer: {TRAIN_STEPS} steps + eval in {train_s:.2f} s (bank "
+          f"{bank_s:.2f} s to make), losses {step_losses}, eval SI-SDR "
+          f"{record.get('si_sdr')} dB, launches {train_launches}", flush=True)
+    if len(step_losses) != TRAIN_STEPS or not np.isfinite(step_losses).all():
+        fail(f"trainer losses {step_losses}")
+    if not np.isfinite(record.get("si_sdr", np.nan)):
+        fail(f"trainer eval SI-SDR {record.get('si_sdr')}")
+    missing = [n for n in cuda_lib.TRAINING_KERNELS
+               if not train_launches.get(n)]
+    if missing:
+        fail(f"kernels never launched on the training path: {missing}")
+    launches.update({n: train_launches[n] for n in ("gru_bwd",
+                                                     "maskhead_bwd")})
+    # one step in steady state: the step before it updated W, so K3 packs
+    # the new version once
+    fused = make_fused_step(cfg)
+    fused(state, bank)
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.clear()
+    fused(state, bank)
+    torch.cuda.synchronize()
+    print(f"launches per train step: {dict(cuda_lib.LAUNCHES)}", flush=True)
+
+    # ---- 8. timing ----------------------------------------------------------
     B, D = BATCH, 2
     hann = torch.hann_window(L, periodic=True, device=dev)
     spec = torch.complex(masks * re[:, None], masks * im[:, None])
@@ -396,6 +572,72 @@ def main() -> int:
                   flush=True)
             for name, n, ms in rows:
                 print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
+
+    # the training kernels: K5 per layer (f32, as torch_multi trains; the
+    # cuDNN yardstick is nn.GRU's backward) and K6
+    gru_x = torch.randn((B, T, d2), device=dev, requires_grad=True)
+    gru_out, _ = gru(gru_x)
+    gru_dout = torch.randn_like(gru_out)
+    gru_leaves = [gru_x, *gru.parameters()]
+    x5, w5, b5, hp5, g5 = k5_args["f32"]
+    train_rows = {
+        "gru_bwd": dict(
+            source="dl4ss_tpu_torch/csrc/gru_bwd.cu",
+            replaces="dl4ss_tpu/ops/pallas_rnn.py:164",
+            kernel=lambda: k2.gru_scan_bwd_cuda(*k5_args["f32"]),
+            plain=lambda: k2.gru_scan_bwd_plain(*k5_args["f32"]),
+            library=lambda: torch.autograd.grad(gru_out, gru_leaves,
+                                                gru_dout, retain_graph=True),
+            # xp, hprev, dhs, U, b_n in; dxp, dU, db_n out. Per row and
+            # step three products of 2*H*3H (the gate recompute, the carry
+            # and dU) and ~30 element operations per unit
+            bytes=4 * (2 * x5.numel() + hp5.numel() + g5.numel()
+                       + 2 * w5.numel() + 2 * b5.numel()),
+            t_ops=T * D * B * (3 * 2 * H * 3 * H + 30 * H) / F32_FLOPS),
+        "maskhead_bwd": dict(
+            source="dl4ss_tpu_torch/csrc/maskhead_bwd.cu",
+            replaces="dl4ss_tpu/ops/pallas_maskhead.py:186",
+            kernel=lambda: k3.fused_dot_masks_bwd_cuda(*k6_args),
+            plain=lambda: k3.fused_dot_masks_bwd_plain(*k6_args),
+            library=None,
+            # h, W, q, masks, dout (bf16) and the bias in; dacc (bf16) and
+            # dq out. The recomputed projection on the tensor cores; per
+            # (b, t, f, e) the tanh and bias, dg (2K), dacc (3) and the dq
+            # column sums (2K); per (b, k, t, f) de (3)
+            bytes=2 * (hb.numel() + wb.numel() + qb.numel() + masks6.numel()
+                       + dout6.numel() + dacc.numel())
+            + 4 * (bias.numel() + dq.numel()),
+            t_ops=2 * B * T * d2 * F * E / BF16_TC_FLOPS
+            + ((4 * K + 5) * B * T * F * E + 3 * B * K * T * F) / F32_FLOPS),
+    }
+    for name, r in train_rows.items():
+        ms = device_ms(torch, r["kernel"], 5 if name == "gru_bwd" else 20)
+        plain_ms = device_ms(torch, r["plain"], 2 if name == "gru_bwd" else 5)
+        lib_ms = (device_ms(torch, r["library"], 10)
+                  if r["library"] else None)
+        bound_ms, bound_by = bound(r["bytes"], r["t_ops"])
+        kernels.append(dict(
+            name=name, route="cuda", source=r["source"],
+            replaces=r["replaces"], launches=launches[name],
+            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, library {lib_ms} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+    bf16_ms = device_ms(torch, lambda: k2.gru_scan_bwd_cuda(
+        *k5_args["bf16"]), 5)
+    print(f"time gru_bwd bf16 per layer: {bf16_ms:.4f} ms", flush=True)
+    # the training step, sample -> featurize -> forward -> backward -> Adam
+    step_ms = host_ms(torch, lambda: fused(state, bank), 10)
+    busy, prow = profile_ms(torch, lambda: fused(state, bank), top=12)
+    print(f"profile B={BATCH} train step: device busy {busy:.3f} ms of "
+          f"{step_ms:.3f} ms wall (idle {1 - busy / step_ms:.1%})",
+          flush=True)
+    for name, n, ms in prow:
+        print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
+    print(f"train: {step_ms:.3f} ms per B={BATCH} step (median of 10 "
+          f"synchronised steps, {BATCH / step_ms * 1e3:.1f} mixtures/s)",
+          flush=True)
     print(f"end to end: {batch_ms:.3f} ms per B={BATCH} batch "
           f"({BATCH / batch_ms * 1e3:.1f} mixtures/s), {req_ms:.3f} ms per "
           f"B=1 request; plain path {plain_batch_ms:.3f} ms per B={BATCH} "

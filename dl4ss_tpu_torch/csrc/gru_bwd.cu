@@ -1,0 +1,333 @@
+// K5 — BiGRU backward (backpropagation through time), both directions.
+//
+// Replaces dl4ss_tpu/ops/pallas_rnn.py::_gru_bwd_kernel (the Pallas body of
+// pallas_gru_scan's VJP, _gru_bwd_vjp). It takes what that VJP hands its
+// kernel: xp (T, D, B, 3H), U (D, H, 3H), b_n (D, 1, H), hprev (T, D, B, H)
+// (hs one step late, zero at t = 0) and dhs (T, D, B, H). Per step, in
+// reverse, it recomputes the forward gates from hprev and
+//   dh   = carry + dhs_t
+//   dn = dh(1-z)   dz = dh(hprev-n)   da_n = dn(1-n^2)   dr = da_n*hn
+//   dhn = da_n*r   da_z = dz z(1-z)   da_r = dr r(1-r)
+//   dxp_t = [da_r, da_z, da_n]        da_w_t = [da_r, da_z, dhn]
+//   carry = dh*z + da_w_t . U^T
+// and over all steps dU = sum_t hprev_t^T . da_w_t and db_n = sum dhn. The
+// third gate of dxp gets da_n while the recurrent product gets dhn = da_n*r:
+// n's pre-activation reaches h only through r*(h.U_n + b_n). Dtypes follow
+// _gru_bwd_vjp: bf16 inputs give bf16 dxp and round da_w to bf16 before
+// both products; the carry, dU and db_n stay f32.
+//
+// Bound on the H100: at H=300, B=16, T=313 one layer's arithmetic is ~16
+// GFLOP (the gate recompute, the carry product and dU, 5.4 GFLOP each),
+// ~0.24 ms at the f32 CUDA-core rate. As for K2 (gru_fwd.cu), the 313
+// dependent steps set the time: each costs a launch and two passes over U.
+//
+// Design: one kernel per step t (a C loop, one ctypes call per layer).
+// Each step needs two reductions that span a whole row: the gate
+// recompute hprev_t . U (over H) and the carry's da_w_{t+1} . U^T (over
+// 3H). A block owns K5_JT hidden units j of one direction for K5_BT batch
+// rows, as K2's blocks do: it stages hprev_t and da_w_{t+1} for its rows in
+// shared memory, its K5_KW warps split each reduction with lane j reading
+// U[k, {j, H+j, 2H+j}] and U^T[g, j] (U^T is built once per call, so both
+// reads are coalesced across j), and each thread then finishes one
+// (row, unit): the carry from the step before, the gates, dxp_t, da_w_t and
+// dh*z for the next step. The step kernel for t thus finishes the carry of
+// step t+1 from the da_w_{t+1} the previous launch left. dU and db_n are
+// taken after the loop from the stored da_w and dhn by two kernels of this
+// file, each output summed by one thread in a fixed order: deterministic,
+// with no atomics and no library product.
+#include "dl4ss_common.cuh"
+
+namespace {
+
+constexpr int K5_JT = 32;   // hidden units per block: one per lane
+constexpr int K5_KW = 16;   // warps splitting each reduction
+constexpr int K5_BT = 16;   // batch rows per block
+constexpr int K5_THREADS = 32 * K5_KW;
+static_assert(K5_BT * K5_JT == K5_THREADS, "one (row, unit) per thread");
+
+template <typename T>
+__global__ void __launch_bounds__(K5_THREADS) gru_bwd_step_kernel(
+    const T* __restrict__ xp_t,       // (D, B, 3H) projections at step t
+    const T* __restrict__ wh,         // (D, H, 3H) U
+    const T* __restrict__ wht,        // (D, 3H, H) U transposed
+    const float* __restrict__ bhn,    // (D, H) candidate bias b_n
+    const T* __restrict__ hprev_t,    // (D, B, H)
+    const T* __restrict__ dhs_t,      // (D, B, H)
+    const T* __restrict__ daw_next,   // (D, B, 3H) da_w_{t+1}; null at T-1
+    float* __restrict__ dhz,          // (D, B, H) dh*z of step t+1, then t
+    T* __restrict__ dxp_t,            // (D, B, 3H)
+    T* __restrict__ daw_t,            // (D, B, 3H)
+    float* __restrict__ dhn_t,        // (D, B, H)
+    int B, int H) {
+  extern __shared__ float smem[];
+  const int G = 3 * H;
+  float* hsh = smem;                   // (K5_BT, H) rows of hprev_t
+  float* dsh = hsh + K5_BT * H;        // (K5_BT, 3H) rows of da_w_{t+1}
+  float* red = dsh + K5_BT * G;        // (K5_KW, K5_BT, 3, K5_JT) partials
+  const int d = blockIdx.y;
+  const int b0 = blockIdx.z * K5_BT;
+  const int nb = min(K5_BT, B - b0);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const bool has_next = daw_next != nullptr;
+  for (int i = threadIdx.x; i < K5_BT * H; i += K5_THREADS) {
+    const int r = i / H, k = i % H;
+    hsh[i] = r < nb ? dl4ss::to_f32(hprev_t[((size_t)d * B + b0 + r) * H + k])
+                    : 0.0f;
+  }
+  if (has_next)
+    for (int i = threadIdx.x; i < K5_BT * G; i += K5_THREADS) {
+      const int r = i / G, g = i % G;
+      dsh[i] = r < nb
+                   ? dl4ss::to_f32(daw_next[((size_t)d * B + b0 + r) * G + g])
+                   : 0.0f;
+    }
+  __syncthreads();
+
+  const int j = blockIdx.x * K5_JT + lane;   // this lane's unit in the loops
+  {  // gate pre-activations a = hprev_t . U at columns j, H+j, 2H+j
+    float acc[K5_BT][3];
+#pragma unroll
+    for (int r = 0; r < K5_BT; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.0f;
+    if (j < H) {
+      const int kc = (H + K5_KW - 1) / K5_KW;
+      const int k_lo = warp * kc, k_hi = min(H, k_lo + kc);
+      const T* U = wh + (size_t)d * H * G;
+#pragma unroll 4
+      for (int k = k_lo; k < k_hi; ++k) {
+        const T* Uk = U + (size_t)k * G;
+        const float ur = dl4ss::to_f32(Uk[j]);
+        const float uz = dl4ss::to_f32(Uk[H + j]);
+        const float un = dl4ss::to_f32(Uk[2 * H + j]);
+#pragma unroll
+        for (int r = 0; r < K5_BT; ++r) {
+          const float hk = hsh[r * H + k];
+          acc[r][0] = fmaf(hk, ur, acc[r][0]);
+          acc[r][1] = fmaf(hk, uz, acc[r][1]);
+          acc[r][2] = fmaf(hk, un, acc[r][2]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < K5_BT; ++r)
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        red[((warp * K5_BT + r) * 3 + g) * K5_JT + lane] = acc[r][g];
+  }
+  __syncthreads();
+
+  // from here on thread -> (row rr, unit jo)
+  const int rr = threadIdx.x / K5_JT, jj = threadIdx.x % K5_JT;
+  const int jo = blockIdx.x * K5_JT + jj;
+  float a[3] = {0.0f, 0.0f, 0.0f};
+  for (int w = 0; w < K5_KW; ++w)
+#pragma unroll
+    for (int g = 0; g < 3; ++g) a[g] += red[((w * K5_BT + rr) * 3 + g) * K5_JT + jj];
+  float c = 0.0f;                 // (da_w_{t+1} . U^T)[row, jo]
+  if (has_next) {
+    __syncthreads();              // every thread has read its partials
+    float acc[K5_BT];
+#pragma unroll
+    for (int r = 0; r < K5_BT; ++r) acc[r] = 0.0f;
+    if (j < H) {
+      const int gc = (G + K5_KW - 1) / K5_KW;
+      const int g_lo = warp * gc, g_hi = min(G, g_lo + gc);
+      const T* Ut = wht + (size_t)d * G * H;
+#pragma unroll 4
+      for (int g = g_lo; g < g_hi; ++g) {
+        const float u = dl4ss::to_f32(Ut[(size_t)g * H + j]);
+#pragma unroll
+        for (int r = 0; r < K5_BT; ++r)
+          acc[r] = fmaf(dsh[r * G + g], u, acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < K5_BT; ++r) red[(warp * K5_BT + r) * K5_JT + lane] = acc[r];
+    __syncthreads();
+    for (int w = 0; w < K5_KW; ++w) c += red[(w * K5_BT + rr) * K5_JT + jj];
+  }
+  if (rr >= nb || jo >= H) return;
+
+  const size_t row = (size_t)d * B + b0 + rr;
+  const T* x = xp_t + row * G;
+  const float hp = hsh[rr * H + jo];
+  const float r = dl4ss::sigmoid(dl4ss::to_f32(x[jo]) + a[0]);
+  const float z = dl4ss::sigmoid(dl4ss::to_f32(x[H + jo]) + a[1]);
+  const float hn = a[2] + bhn[(size_t)d * H + jo];
+  const float n = tanhf(dl4ss::to_f32(x[2 * H + jo]) + r * hn);
+  const size_t u = row * H + jo;
+  const float dh = (has_next ? dhz[u] + c : 0.0f) + dl4ss::to_f32(dhs_t[u]);
+  const float dn = dh * (1.0f - z);
+  const float dz = dh * (hp - n);
+  const float da_n = dn * (1.0f - n * n);
+  const float dr = da_n * hn;
+  const float dhn = da_n * r;
+  const float da_z = dz * z * (1.0f - z);
+  const float da_r = dr * r * (1.0f - r);
+  T* dx = dxp_t + row * G;
+  dl4ss::store(dx + jo, da_r);
+  dl4ss::store(dx + H + jo, da_z);
+  dl4ss::store(dx + 2 * H + jo, da_n);
+  T* dw = daw_t + row * G;
+  dl4ss::store(dw + jo, da_r);
+  dl4ss::store(dw + H + jo, da_z);
+  dl4ss::store(dw + 2 * H + jo, dhn);
+  dhz[u] = dh * z;
+  dhn_t[u] = dhn;
+}
+
+// ut[d, g, k] = u[d, k, g] for u (D, H, 3H), through 32 x 32 shared tiles.
+template <typename T>
+__global__ void transpose_kernel(const T* __restrict__ u, T* __restrict__ ut,
+                                 int H, int G) {
+  __shared__ float tile[32][33];     // bf16 -> f32 -> bf16 is exact
+  const int d = blockIdx.z;
+  const int g0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+  const T* src = u + (size_t)d * H * G;
+  T* dst = ut + (size_t)d * H * G;
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int k = k0 + i, g = g0 + threadIdx.x;
+    if (k < H && g < G)
+      tile[i][threadIdx.x] = dl4ss::to_f32(src[(size_t)k * G + g]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int g = g0 + i, k = k0 + threadIdx.x;
+    if (k < H && g < G) dl4ss::store(dst + (size_t)g * H + k, tile[threadIdx.x][i]);
+  }
+}
+
+// dU[d, k, g] = sum over n = (t, b) of hprev[t, d, b, k] * da_w[t, d, b, g],
+// in f32: a 64 x 64 output tile per block, 4 x 4 outputs per thread, the n
+// axis walked in slices of 16 through shared memory in a fixed order.
+constexpr int DU_T = 64, DU_N = 16, DU_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(DU_THREADS) gru_bwd_du_kernel(
+    const T* __restrict__ hprev,   // (T, D, B, H)
+    const T* __restrict__ daw,     // (T, D, B, 3H)
+    float* __restrict__ du,        // (D, H, 3H)
+    int steps, int D, int B, int H) {
+  __shared__ float as[DU_N][DU_T], bs[DU_N][DU_T];
+  const int G = 3 * H;
+  const int g0 = blockIdx.x * DU_T, k0 = blockIdx.y * DU_T, d = blockIdx.z;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int n_total = steps * B;
+  float acc[4][4] = {};
+  for (int n0 = 0; n0 < n_total; n0 += DU_N) {
+    for (int i = threadIdx.x; i < DU_N * DU_T; i += DU_THREADS) {
+      const int nn = i / DU_T, cc = i % DU_T, n = n0 + nn;
+      const size_t row = ((size_t)(n / B) * D + d) * B + n % B;
+      const bool live = n < n_total;
+      as[nn][cc] = live && k0 + cc < H ? dl4ss::to_f32(hprev[row * H + k0 + cc])
+                                       : 0.0f;
+      bs[nn][cc] = live && g0 + cc < G ? dl4ss::to_f32(daw[row * G + g0 + cc])
+                                       : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int nn = 0; nn < DU_N; ++nn) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = as[nn][ty + 16 * i];
+        bv[i] = bs[nn][tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int l = 0; l < 4; ++l) acc[i][l] = fmaf(av[i], bv[l], acc[i][l]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      const int k = k0 + ty + 16 * i, g = g0 + tx + 16 * l;
+      if (k < H && g < G) du[((size_t)d * H + k) * G + g] = acc[i][l];
+    }
+}
+
+// db_n[d, j] = sum over (t, b) of dhn[t, d, b, j]: 8 warps each sum every
+// eighth (t, b) for 32 units, then one warp adds the 8 partials in order.
+__global__ void gru_bwd_dbn_kernel(const float* __restrict__ dhn,
+                                   float* __restrict__ dbn, int steps, int D,
+                                   int B, int H) {
+  __shared__ float part[8][32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int d = blockIdx.y, j = blockIdx.x * 32 + lane;
+  float s = 0.0f;
+  if (j < H)
+    for (int n = warp; n < steps * B; n += 8)
+      s += dhn[(((size_t)(n / B) * D + d) * B + n % B) * H + j];
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && j < H) {
+    float total = 0.0f;
+    for (int w = 0; w < 8; ++w) total += part[w][lane];
+    dbn[(size_t)d * H + j] = total;
+  }
+}
+
+template <typename T>
+cudaError_t run(const void* xp, const void* wh, const void* bhn,
+                const void* hprev, const void* dhs, void* dxp, void* du,
+                void* dbn, void* wht, void* daw, void* dhz, void* dhn,
+                int steps, int D, int B, int H, cudaStream_t stream) {
+  const int G = 3 * H;
+  const T* U = static_cast<const T*>(wh);
+  T* Ut = static_cast<T*>(wht);
+  transpose_kernel<T><<<dim3((G + 31) / 32, (H + 31) / 32, D), dim3(32, 8),
+                        0, stream>>>(U, Ut, H, G);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const dim3 grid((H + K5_JT - 1) / K5_JT, D, (B + K5_BT - 1) / K5_BT);
+  const size_t smem = ((size_t)K5_BT * 4 * H +
+                       (size_t)K5_KW * K5_BT * 3 * K5_JT) * sizeof(float);
+  err = dl4ss::allow_smem(gru_bwd_step_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const T* x = static_cast<const T*>(xp);
+  const T* hp = static_cast<const T*>(hprev);
+  const T* dh = static_cast<const T*>(dhs);
+  T* dx = static_cast<T*>(dxp);
+  T* dw = static_cast<T*>(daw);
+  float* dn = static_cast<float*>(dhn);
+  const size_t sg = (size_t)D * B * G, sh = (size_t)D * B * H;
+  for (int t = steps - 1; t >= 0; --t) {
+    gru_bwd_step_kernel<T><<<grid, K5_THREADS, smem, stream>>>(
+        x + t * sg, U, Ut, static_cast<const float*>(bhn), hp + t * sh,
+        dh + t * sh, t + 1 < steps ? dw + (t + 1) * sg : nullptr,
+        static_cast<float*>(dhz), dx + t * sg, dw + t * sg, dn + t * sh, B, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+
+  gru_bwd_du_kernel<T><<<dim3((G + DU_T - 1) / DU_T, (H + DU_T - 1) / DU_T, D),
+                         DU_THREADS, 0, stream>>>(
+      hp, dw, static_cast<float*>(du), steps, D, B, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gru_bwd_dbn_kernel<<<dim3((H + 31) / 32, D), 256, 0, stream>>>(
+      dn, static_cast<float*>(dbn), steps, D, B, H);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// xp, hprev, dhs (T, D, B, *) and wh (D, H, 3H) in f32, or all in bf16
+// (bf16 != 0); bhn (D, 1, H) f32 -> dxp (T, D, B, 3H) in the input dtype,
+// du (D, H, 3H) and dbn (D, 1, H) in f32. Scratch from the caller: wht
+// (D, 3H, H) and daw (T, D, B, 3H) in the input dtype, dhz (D, B, H) and
+// dhn (T, D, B, H) in f32.
+extern "C" int dl4ss_gru_bwd(const void* xp, const void* wh, const void* bhn,
+                             const void* hprev, const void* dhs, void* dxp,
+                             void* du, void* dbn, void* wht, void* daw,
+                             void* dhz, void* dhn, int steps, int D, int B,
+                             int H, int bf16, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  return bf16 ? run<__nv_bfloat16>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, wht,
+                                   daw, dhz, dhn, steps, D, B, H, s)
+              : run<float>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, wht, daw,
+                           dhz, dhn, steps, D, B, H, s);
+}

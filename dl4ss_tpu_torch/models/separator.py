@@ -44,6 +44,14 @@ class Separator(nn.Module):
         self.embedding = init_embedding(cfg, generator, device)
         self.mask_head = init_mask_head(cfg, generator, device)
 
+    def forward(self, feat, cfg: Config, spk_idx=None, queries=None,
+                mix_ri=None) -> "SeparatorOutput":
+        """`separate` on this module's parameters, so that
+        `torch.func.functional_call` can run it on substituted ones (the
+        trainer's bf16 casts of the f32 masters)."""
+        return separate(self, feat, cfg, spk_idx=spk_idx, queries=queries,
+                        mix_ri=mix_ri)
+
 
 def _check_ported(cfg: Config) -> None:
     if cfg.is_self_tune or cfg.use_discriminator:

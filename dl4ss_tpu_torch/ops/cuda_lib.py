@@ -32,8 +32,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("stft_features.cu", "gru_fwd.cu", "maskhead_fwd.cu",
-           "masked_istft.cu")
-HEADERS = ("dl4ss_common.cuh",)
+           "masked_istft.cu", "gru_bwd.cu", "maskhead_bwd.cu")
+HEADERS = ("dl4ss_common.cuh", "maskhead_tile.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -46,11 +46,17 @@ SIGNATURES = {
     "maskhead_fwd": "pppppiiiiiii",
     "maskhead_pack": "ppiiii",       # K3's weight layout, once per W version
     "masked_istft": "pppppppiiiiiiii",
+    "gru_bwd": "ppppppppppppiiiii",
+    "maskhead_bwd": "pppppppppiiiiii",
 }
-# The ports of the TPU kernels, which the serving path launches every call.
-KERNELS = ("stft_features", "gru_fwd", "maskhead_fwd", "masked_istft")
+# The ports of the TPU kernels that a serving call launches every time, and
+# those a training step does (its loss resynthesises through the plain
+# iSTFT, as in JAX).
+SERVING_KERNELS = ("stft_features", "gru_fwd", "maskhead_fwd", "masked_istft")
+TRAINING_KERNELS = ("stft_features", "gru_fwd", "maskhead_fwd", "gru_bwd",
+                    "maskhead_bwd")
 # Plain C queries (no launch, no stream): ints in, a 64-bit count out.
-QUERIES = {"maskhead_packed_size": "iii"}
+QUERIES = {"maskhead_packed_size": "iii", "maskhead_bwd_partials": "iiiiii"}
 
 LAUNCHES: collections.Counter = collections.Counter()
 

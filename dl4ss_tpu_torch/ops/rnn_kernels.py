@@ -1,18 +1,42 @@
-"""K2, the BiGRU forward recurrence: CUDA kernel and plain version.
+"""K2 and K5, the BiGRU forward recurrence and its backward: CUDA kernels and
+plain versions.
 
-Ports `pallas_gru_scan`'s forward (dl4ss_tpu/ops/pallas_rnn.py). `gru_scan`
-sends a CPU tensor to the plain PyTorch loop and a CUDA tensor to the
-hand-written kernel (csrc/gru_fwd.cu); there is no fallback between them.
-Unlike the TPU kernel, the hidden width needs no 128-lane padding.
+Ports `pallas_gru_scan` (dl4ss_tpu/ops/pallas_rnn.py) with its custom VJP.
+`gru_scan` is a `torch.autograd.Function`: its forward sends a CPU tensor
+to the plain PyTorch loop and a CUDA tensor to the hand-written kernel
+(csrc/gru_fwd.cu), its backward likewise to the plain reverse loop or to
+csrc/gru_bwd.cu; there is no fallback between them. Unlike the TPU kernels,
+the hidden width needs no 128-lane padding.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from dl4ss_tpu_torch.ops import cuda_lib
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+class _GruScan(torch.autograd.Function):
+    """pallas_gru_scan with its VJP: saves (xp, wh, bh_n, hs) as
+    `_gru_fwd_vjp` does and rebuilds h_prev in the backward."""
+
+    @staticmethod
+    def forward(ctx, xp, wh, bh_n):
+        hs = gru_scan_cuda(xp, wh, bh_n) if xp.is_cuda else \
+            gru_scan_plain(xp, wh, bh_n)
+        ctx.save_for_backward(xp, wh, bh_n, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        xp, wh, bh_n, hs = ctx.saved_tensors
+        hprev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        bwd = gru_scan_bwd_cuda if xp.is_cuda else gru_scan_bwd_plain
+        return bwd(xp, wh, bh_n, hprev, dhs.contiguous())
 
 
 def gru_scan(xp: torch.Tensor, wh: torch.Tensor, bh_n: torch.Tensor
@@ -22,10 +46,9 @@ def gru_scan(xp: torch.Tensor, wh: torch.Tensor, bh_n: torch.Tensor
     candidate bias -> hs (T, D, B, H) in xp's dtype, with h0 = 0.
 
     f32 inputs compute in f32; bf16 inputs keep bf16 operands and carry
-    with f32 accumulation, as the JAX kernel does."""
-    if xp.is_cuda:
-        return gru_scan_cuda(xp, wh, bh_n)
-    return gru_scan_plain(xp, wh, bh_n)
+    with f32 accumulation, as the JAX kernel does. Differentiable: the
+    backward is K5 on the card."""
+    return _GruScan.apply(xp, wh, bh_n)
 
 
 def gru_scan_plain(xp: torch.Tensor, wh: torch.Tensor, bh_n: torch.Tensor
@@ -62,3 +85,70 @@ def gru_scan_cuda(xp: torch.Tensor, wh: torch.Tensor, bh_n: torch.Tensor
     cuda_lib.launch("gru_fwd", xp.device, xp, wh, bh_n, hs, t, d, b, hidden,
                     int(xp.dtype == torch.bfloat16))
     return hs
+
+
+def gru_scan_bwd_plain(xp, wh, bh_n, hprev, dhs
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's plain version: `_gru_bwd_kernel`'s math as a loop run in
+    reverse. hprev (T, D, B, H) is hs one step late (zero at t = 0); dhs
+    (T, D, B, H) in xp's dtype. Returns dxp (T, D, B, 3H) in xp's dtype, dU
+    (D, H, 3H) accumulated in f32 and cast to wh's dtype, and db_n
+    (D, 1, H). In bf16, da_w is rounded to bf16 before both products."""
+    t, d, b, g3 = xp.shape
+    hidden = g3 // 3
+    w = wh.float()
+    dxp = torch.empty_like(xp)
+    du = torch.zeros((d, hidden, g3), dtype=torch.float32, device=xp.device)
+    dbn = torch.zeros((d, 1, hidden), dtype=torch.float32, device=xp.device)
+    carry = torch.zeros((d, b, hidden), dtype=torch.float32, device=xp.device)
+    for s in reversed(range(t)):
+        hp = hprev[s].float()
+        a = torch.bmm(hp, w)                              # gate recompute
+        x = xp[s].float()
+        rz = torch.sigmoid(x[..., :2 * hidden] + a[..., :2 * hidden])
+        r, z = rz[..., :hidden], rz[..., hidden:]
+        hn = a[..., 2 * hidden:] + bh_n
+        n = torch.tanh(x[..., 2 * hidden:] + r * hn)
+        dh = carry + dhs[s].float()
+        dn = dh * (1.0 - z)
+        dz = dh * (hp - n)
+        da_n = dn * (1.0 - n * n)
+        dr = da_n * hn
+        dhn = da_n * r
+        da_z = dz * z * (1.0 - z)
+        da_r = dr * r * (1.0 - r)
+        # xp sees (da_r, da_z, da_n); the recurrent product (da_r, da_z, dhn)
+        dxp[s] = torch.cat([da_r, da_z, da_n], dim=-1).to(xp.dtype)
+        da_w = torch.cat([da_r, da_z, dhn], dim=-1).to(dhs.dtype).float()
+        carry = dh * z + torch.bmm(da_w, w.transpose(1, 2))
+        du += torch.bmm(hp.transpose(1, 2), da_w)
+        dbn += dhn.sum(dim=1, keepdim=True)
+    return dxp, du.to(wh.dtype), dbn.to(bh_n.dtype)
+
+
+def gru_scan_bwd_cuda(xp, wh, bh_n, hprev, dhs
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5 on the card: csrc/gru_bwd.cu, one ctypes call per layer that
+    transposes U, launches one step kernel per time step in reverse, then
+    reduces dU and db_n. Same contract as `gru_scan_bwd_plain`."""
+    t, d, b, g3 = xp.shape
+    if g3 % 3:
+        raise ValueError(f"xp's last axis must be 3H, got {g3}")
+    hidden = g3 // 3
+    cuda_lib.check(xp, "xp", _DTYPES)
+    cuda_lib.check(wh, "wh", (xp.dtype,), (d, hidden, g3))
+    cuda_lib.check(bh_n, "bh_n", (torch.float32,), (d, 1, hidden))
+    cuda_lib.check(hprev, "hprev", (xp.dtype,), (t, d, b, hidden))
+    cuda_lib.check(dhs, "dhs", (xp.dtype,), (t, d, b, hidden))
+    dev = xp.device
+    dxp = torch.empty_like(xp)
+    du = torch.empty((d, hidden, g3), dtype=torch.float32, device=dev)
+    dbn = torch.empty((d, 1, hidden), dtype=torch.float32, device=dev)
+    wht = torch.empty((d, g3, hidden), dtype=xp.dtype, device=dev)
+    daw = torch.empty_like(xp)
+    dhz = torch.empty((d, b, hidden), dtype=torch.float32, device=dev)
+    dhn = torch.empty((t, d, b, hidden), dtype=torch.float32, device=dev)
+    cuda_lib.launch("gru_bwd", dev, xp, wh, bh_n, hprev, dhs, dxp, du, dbn,
+                    wht, daw, dhz, dhn, t, d, b, hidden,
+                    int(xp.dtype == torch.bfloat16))
+    return dxp, du.to(wh.dtype), dbn

@@ -182,16 +182,45 @@ def masked_resynthesis(re: torch.Tensor, im: torch.Tensor,
     with the magnitude division cancelled. re/im (B, T, F) are the mixture
     spectrum halves, masks (B, K, T, F) -> (B, K, length). Under
     cfg.use_pallas_stft the mask apply + iDFT + window + overlap-add run in
-    the masked-iSTFT kernel (ops/stft_kernels.py).
+    the masked-iSTFT kernel (ops/stft_kernels.py), whose backward
+    recomputes through this plain iSTFT, as `_fused_mr_bwd` does in JAX.
     """
     if cfg.use_pallas_stft:
-        from dl4ss_tpu_torch.ops.stft_kernels import masked_istft
-        return masked_istft(re, im, masks, cfg.frame_length, cfg.frame_shift,
-                            window=cfg.window, center=cfg.center,
-                            length=length)
+        return _MaskedResynthesis.apply(re, im, masks, cfg, length)
+    return _plain_masked_resynthesis(re, im, masks, cfg, length)
+
+
+def _plain_masked_resynthesis(re, im, masks, cfg, length):
     spec = torch.complex(re, im)[:, None]
     return istft(masks.float() * spec, cfg.frame_length, cfg.frame_shift,
                  window=cfg.window, center=cfg.center, length=length)
+
+
+class _MaskedResynthesis(torch.autograd.Function):
+    """The masked-iSTFT kernel forward; a backward that recomputes through
+    the algebraically identical plain iSTFT (one extra forward: the kernel
+    has no backward of its own, in JAX either)."""
+
+    @staticmethod
+    def forward(ctx, re, im, masks, cfg, length):
+        from dl4ss_tpu_torch.ops.stft_kernels import masked_istft
+        ctx.save_for_backward(re, im, masks)
+        ctx.args = (cfg, length)
+        return masked_istft(re, im, masks, cfg.frame_length, cfg.frame_shift,
+                            window=cfg.window, center=cfg.center,
+                            length=length)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = [t.detach().requires_grad_(need)
+                 for t, need in zip(ctx.saved_tensors,
+                                    ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            out = _plain_masked_resynthesis(*saved, *ctx.args)
+        wanted = [t for t in saved if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (*(next(grads) if t.requires_grad else None for t in saved),
+                None, None)
 
 
 def magnitude_and_phase(spec: torch.Tensor, eps: float = 1e-8

@@ -42,7 +42,13 @@ def stft_features(x: torch.Tensor, frame_length: int = 256,
     One pass emits the magnitude feature and the spectrum halves that
     `masked_istft` resynthesises from, so the serving path never forms a
     phasor. The reflect pad is a torch op before the kernel, as in JAX.
+    The kernel has no backward (nor has the JAX one): on the card an input
+    that requires grad raises rather than giving a detached result.
     """
+    if x.is_cuda and x.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("stft_features: the STFT feature kernel (K1) has "
+                           "no backward; pass an input that does not "
+                           "require grad")
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f"stft_features wants (B, N) float32, got "
                          f"{tuple(x.shape)} {x.dtype}")

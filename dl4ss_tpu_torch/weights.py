@@ -1,4 +1,5 @@
-"""Load a JAX parameter pytree into the port's modules.
+"""Load a JAX parameter pytree into the port's modules, and export them
+back as one.
 
 The JAX package keeps parameters as nested dicts and lists of arrays
 (`init_separator`'s pytree); the port's modules name their parameters after
@@ -49,3 +50,31 @@ def load_jax_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
         for name, arr in leaves.items():
             params[name].copy_(torch.from_numpy(arr))
     return module
+
+
+def _nest(flat: Dict[str, Any]) -> Any:
+    """Dotted names -> nested dicts, lists where every key is an index."""
+    tree: Dict[str, Any] = {}
+    for name, leaf in flat.items():
+        node = tree
+        *path, last = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return listify(tree)
+
+
+def export_jax_params(module: nn.Module) -> Dict[str, Any]:
+    """The module's parameters as a JAX-style pytree of float32 numpy
+    arrays (nested dicts, lists for layer stacks): the inverse of
+    `load_jax_params`, so a tree round-trips leaf for leaf."""
+    return _nest({name: p.detach().float().cpu().numpy()
+                  for name, p in module.named_parameters()})

@@ -138,7 +138,7 @@ def test_wrappers_route_cuda_tensors_to_the_kernels(dev):
     before = dict(cuda_lib.LAUNCHES)
     out = separate_waveforms(model, wav, cfg, spk, length=cfg.max_len)
     assert out.shape == (2, 2, cfg.max_len)
-    for name in cuda_lib.KERNELS:
+    for name in cuda_lib.SERVING_KERNELS:
         assert cuda_lib.LAUNCHES[name] > before.get(name, 0), name
     plain = separate_waveforms(
         model, wav, cfg.replace(use_pallas_rnn=False, use_pallas_stft=False,
@@ -146,3 +146,104 @@ def test_wrappers_route_cuda_tensors_to_the_kernels(dev):
         length=cfg.max_len)
     assert float((out - plain).norm() / plain.norm()) < 2e-2
 
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@pytest.mark.parametrize("t,b,h", [(7, 1, 37), (5, 17, 300), (3, 2, 8),
+                                   (12, 3, 45)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_k5_gru_bwd(dev, t, b, h, dtype, tol):
+    """K5 against its plain version on the forward's own hs. f32: only
+    the summation order differs (1e-4). bf16: da_w is rounded to bf16
+    before both products, so an order difference can flip one rounding
+    and carry it back through the steps (5e-2, the repo's gradient bar
+    for bf16 kernels)."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    rng = np.random.default_rng(6)
+    s = 1 / np.sqrt(h)
+    xp = _t(rng.standard_normal((t, 2, b, 3 * h)), dev, dtype)
+    wh = _t(rng.uniform(-s, s, (2, h, 3 * h)), dev, dtype)
+    bhn = _t(rng.uniform(-s, s, (2, 1, h)), dev)
+    hs = k.gru_scan_cuda(xp, wh, bhn)
+    hprev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+    dhs = _t(rng.standard_normal((t, 2, b, h)), dev, dtype)
+    got = k.gru_scan_bwd_cuda(xp, wh, bhn, hprev, dhs)
+    ref = k.gru_scan_bwd_plain(xp, wh, bhn, hprev, dhs)
+    for name, g, r in zip(("dxp", "dU", "db_n"), got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("b,t,d,f,e,k", [(1, 70, 24, 13, 5, 3),
+                                         (2, 129, 600, 129, 50, 2),
+                                         (3, 5, 40, 7, 16, 1),
+                                         (2, 33, 37, 10, 20, 2)])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_k6_maskhead_bwd(dev, b, t, d, f, e, k, w_dtype):
+    """K6 against its plain version. dacc: the recomputed g differs from
+    the plain matmul by f32 summation order, which can flip one bf16
+    rounding of de or dacc (one bf16 step, 2^-8 relative): 1e-2. dq sums
+    bf16-rounded column sums over every tile: 1e-2 relative L2."""
+    from dl4ss_tpu_torch.ops import maskhead_kernels as m
+    rng = np.random.default_rng(7)
+    s = 1 / np.sqrt(d)
+    h = _t(rng.uniform(-1, 1, (b, t, d)), dev, torch.bfloat16)
+    w = _t(rng.uniform(-s, s, (d, f * e)), dev, w_dtype)
+    bias = _t(rng.uniform(-s, s, f * e), dev)
+    q = _t(rng.standard_normal((b, k, e)), dev, torch.bfloat16)
+    masks = m.fused_dot_masks_cuda(h, w, bias, q, f, e, torch.bfloat16)
+    dout = _t(rng.standard_normal((b, k, t, f)), dev, torch.bfloat16)
+    args = (h, w, bias, q, masks, dout, f, e)
+    (dacc, dq), (dacc_p, dq_p) = m.fused_dot_masks_bwd_cuda(*args), \
+        m.fused_dot_masks_bwd_plain(*args)
+    assert dacc.shape == dacc_p.shape == (b, t, f * e)
+    assert dacc.dtype == dacc_p.dtype == torch.bfloat16
+    assert dq.shape == dq_p.shape == (b, k, e) and dq.dtype == torch.float32
+    torch.testing.assert_close(dacc.float(), dacc_p.float(), atol=1e-2,
+                               rtol=1e-2)
+    assert _rel(dq, dq_p) < 1e-2
+
+
+def test_backward_launches_k5_k6_and_matches_the_plain_route(dev):
+    """A loss through the separator on the kernel route launches K5 and K6
+    in its backward, reaches every encoder, projection and embedding
+    parameter, and agrees with the same model on the plain route (kernel
+    flags off) within the bf16 mask head's 5e-2 relative L2."""
+    from dl4ss_tpu_torch import preset
+    from dl4ss_tpu_torch.models import init_separator, separate
+    from dl4ss_tpu_torch.ops import cuda_lib
+    cfg = preset("synth_tiny").replace(use_pallas_rnn=True,
+                                       use_pallas_maskhead=True)
+    model = init_separator(cfg, torch.Generator().manual_seed(0), dev)
+    feat = _t(np.abs(np.random.default_rng(8).standard_normal(
+        (2, 31, cfg.freq_bins))), dev)
+    spk = torch.tensor([[0, 1], [2, 3]], device=dev)
+    grads = []
+    for c in (cfg, cfg.replace(use_pallas_rnn=False,
+                               use_pallas_maskhead=False)):
+        model.zero_grad()
+        before = dict(cuda_lib.LAUNCHES)
+        separate(model, feat, c, spk_idx=spk).pred.square().mean().backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+        if c is cfg:
+            for name in ("gru_bwd", "maskhead_bwd"):
+                assert cuda_lib.LAUNCHES[name] > before.get(name, 0), name
+    assert set(grads[0]) == set(grads[1])
+    for name, g in grads[0].items():
+        assert _rel(g, grads[1][name]) < 5e-2, name
+
+
+def test_k1_refuses_an_input_that_requires_grad(dev):
+    """K1 has no backward (nor has the JAX kernel): on the card it raises
+    rather than return features cut off from the graph."""
+    from dl4ss_tpu_torch.ops.stft_kernels import stft_features
+    x = torch.zeros((1, 1000), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        stft_features(x)
+    with torch.no_grad():
+        assert stft_features(x)[0].shape == (1, 8, 129)

@@ -83,3 +83,60 @@ def test_crm_head_raises_until_ported():
     with pytest.raises(NotImplementedError, match="P9"):
         apply_mask_head(init_mask_head(cfg, device="cpu"), torch.zeros((1, 2, 3, 100)),
                         torch.zeros((1, 1, 100)), cfg)
+
+
+@pytest.mark.parametrize("t", [37, 170])
+def test_fused_dot_masks_grads_match_jax(t):
+    """Gradients w.r.t. (h, W, b, q) of <masks, cot>: the port's
+    autograd.Function (K6's plain version for dacc and dq, then the plain
+    products for dW, dh and db) against jax.grad of fused_dot_masks, whose
+    backward is the Pallas `_bwd_kernel` in interpret mode. t=170 spans
+    three 64-row backward tiles, so dq sums bf16-rounded per-tile column
+    sums. Both sides round at the same points; the bar is the JAX kernel's
+    own gradient test's (tests/test_pallas.py): rtol 5e-2, atol 4e-2."""
+    h, w, b, q, f, e = _inputs(4, t=t)
+    cot = np.random.default_rng(5).standard_normal((2, 3, t, f)).astype(
+        np.float32)
+
+    def loss(hh, ww, bb, qq):
+        return jnp.sum(fused_dot_masks(hh, ww, bb, qq, f, e) * cot)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2, 3))(*map(jnp.asarray,
+                                                    (h, w, b, q)))
+    leaves = [torch.as_tensor(a).requires_grad_() for a in (h, w, b, q)]
+    (k3(*leaves, f, e) * torch.as_tensor(cot)).sum().backward()
+    for name, leaf, r in zip(("h", "W", "b", "q"), leaves, ref):
+        assert leaf.grad.dtype == torch.float32, name
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(r),
+                                   rtol=5e-2, atol=4e-2, err_msg=name)
+
+
+def test_k6_plain_matches_pallas_bwd_kernel():
+    """K6's plain version against the Pallas backward kernel's own outputs
+    (`_bwd_vjp` before its outer products: dh = dacc W^T, so dacc is
+    compared through dh, and dq directly) on bf16 operands, at two time
+    tiles: same rounding points, 1e-2 relative L2."""
+    from dl4ss_tpu.ops.pallas_maskhead import _bwd_vjp
+    from dl4ss_tpu_torch.ops.maskhead_kernels import fused_dot_masks_bwd_plain
+    h, w, b, q, f, e = _inputs(6, t=100)
+    masks = np.random.default_rng(7).uniform(0, 1, (2, 3, 100, f)).astype(
+        np.float32)
+    dout = np.random.default_rng(8).standard_normal(masks.shape).astype(
+        np.float32)
+    bf = jnp.bfloat16
+    res = (jnp.asarray(h, bf), jnp.asarray(w), jnp.asarray(b),
+           jnp.asarray(q, bf), jnp.asarray(masks, bf))
+    dh_ref, _, _, dq_ref = _bwd_vjp(f, e, 64, res, jnp.asarray(dout, bf))
+    tb = torch.bfloat16
+    dacc, dq = fused_dot_masks_bwd_plain(
+        torch.as_tensor(h).to(tb), torch.as_tensor(w), torch.as_tensor(b),
+        torch.as_tensor(q).to(tb), torch.as_tensor(masks).to(tb),
+        torch.as_tensor(dout).to(tb), f, e)
+    assert dacc.dtype == tb and dq.dtype == torch.float32
+    dh = torch.matmul(dacc.float(), torch.as_tensor(w).to(tb).float().T)
+
+    def rel(a, r):
+        r = np.asarray(r, np.float32)
+        return np.linalg.norm(a.numpy() - r) / np.linalg.norm(r)
+    assert rel(dh, dh_ref) < 1e-2
+    assert rel(dq, dq_ref) < 1e-2

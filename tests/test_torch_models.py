@@ -198,3 +198,31 @@ def test_kernel_wrappers_reject_cpu_tensors():
         rnn_kernels.gru_scan_cuda(torch.zeros((2, 2, 1, 6)),
                                   torch.zeros((2, 2, 6)),
                                   torch.zeros((2, 1, 2)))
+
+
+@pytest.mark.parametrize("compute_bf16", [False, True])
+def test_kernel_route_backward_reaches_every_parameter(compute_bf16):
+    """A loss on the kernel route (every kernel flag on; the same
+    autograd.Functions that launch K2/K5 and K3/K6 on the card run their
+    plain halves here) gives a non-zero gradient to every encoder,
+    projection and embedding parameter, in f32 and in bf16 compute. It
+    guards against a kernel output coming back detached from the graph."""
+    cfg = preset("synth_tiny").replace(**FLAGS)
+    model = init_separator(cfg, torch.Generator().manual_seed(0), "cpu")
+    wav = torch.rand((2, cfg.max_len), generator=torch.Generator()
+                     .manual_seed(1)) * 2 - 1
+    from dl4ss_tpu_torch.ops.stft_kernels import stft_features
+    feat, _, _ = stft_features(wav)
+    dtype = torch.bfloat16 if compute_bf16 else torch.float32
+    params = {n: p.to(dtype) for n, p in model.named_parameters()}
+    out = torch.func.functional_call(
+        model, params, (feat.to(dtype), cfg),
+        dict(spk_idx=torch.tensor([[0, 1], [2, 3]])))
+    out.pred.float().square().mean().backward()
+    reached = {n: p.grad for n, p in model.named_parameters()
+               if n.startswith(("encoder.", "embedding."))}
+    assert any(n.startswith("encoder.rnn.") for n in reached)
+    assert {"encoder.proj.w", "encoder.proj.b", "embedding.table"} <= set(
+        reached)
+    for name, grad in reached.items():
+        assert grad is not None and bool(grad.abs().sum() > 0), name

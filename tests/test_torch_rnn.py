@@ -14,7 +14,7 @@ from dl4ss_tpu.ops.rnn import bidirectional_rnn as jax_birnn
 from dl4ss_tpu.ops.rnn import rnn_init as jax_rnn_init
 from dl4ss_tpu_torch.ops import rnn_kernels
 from dl4ss_tpu_torch.ops.rnn import bidirectional_rnn, rnn_init
-from dl4ss_tpu_torch.weights import load_jax_params
+from dl4ss_tpu_torch.weights import flatten_tree, load_jax_params
 
 ATOL = 1e-5
 
@@ -88,3 +88,86 @@ def test_bf16_kernel_route_keeps_dtype():
     assert out.dtype == torch.bfloat16
     # bf16 operands and carry with f32 accumulation
     torch.testing.assert_close(out.float(), ref, atol=3e-2, rtol=0)
+
+
+def _gru_scan_inputs(t, b, h, seed, dtype):
+    rng = np.random.default_rng(seed)
+    s = 1 / np.sqrt(h)
+    xp = rng.standard_normal((t, 2, b, 3 * h)).astype(np.float32)
+    wh = rng.uniform(-s, s, (2, h, 3 * h)).astype(np.float32)
+    bhn = rng.uniform(-s, s, (2, 1, h)).astype(np.float32)
+    dhs = rng.standard_normal((t, 2, b, h)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jax_in = (jnp.asarray(xp, jdt), jnp.asarray(wh, jdt), jnp.asarray(bhn),
+              jnp.asarray(dhs, jdt))
+    torch_in = (torch.as_tensor(xp).to(dtype), torch.as_tensor(wh).to(dtype),
+                torch.as_tensor(bhn), torch.as_tensor(dhs).to(dtype))
+    return jax_in, torch_in
+
+
+def _gru_scan_grads(xp, wh, bhn, dhs):
+    """(dxp, dU, db_n) of <gru_scan(xp, wh, bhn), dhs> through the port's
+    autograd.Function (K5's plain version on CPU tensors)."""
+    leaves = [a.detach().requires_grad_() for a in (xp, wh, bhn)]
+    hs = rnn_kernels.gru_scan(*leaves)
+    return torch.autograd.grad(hs, leaves, dhs)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_gru_scan_bwd_matches_pallas_vjp(dtype, tol):
+    """K5's plain version (the gru_scan backward) against jax.vjp of
+    pallas_gru_scan, whose backward is the Pallas `_gru_bwd_kernel` in
+    interpret mode, at T=7, B=3, H=16. f32: summation order only, 1e-4.
+    bf16: both round da_w to bf16 before the two products and keep dxp in
+    bf16, so one flipped rounding carries back through the steps: 5e-2,
+    the repo's bar for bf16 kernel gradients."""
+    (jxp, jwh, jbhn, jdhs), tin = _gru_scan_inputs(7, 3, 16, 5, dtype)
+    hs, vjp = jax.vjp(pallas_gru_scan, jxp, jwh, jbhn)
+    ref = vjp(jdhs)
+    ours = _gru_scan_grads(*tin)
+    for name, g, r, arg in zip(("dxp", "dU", "db_n"), ours, ref, tin):
+        assert g.dtype == arg.dtype and tuple(g.shape) == r.shape, name
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(r, np.float32), atol=tol,
+                                   rtol=tol, err_msg=name)
+
+
+def test_gru_scan_bwd_matches_autograd_of_plain_loop():
+    """The hand-written reverse loop against torch autograd through the
+    forward loop `gru_scan_plain`, f32: summation order only, 1e-5."""
+    _, (xp, wh, bhn, dhs) = _gru_scan_inputs(9, 4, 12, 6, torch.float32)
+    leaves = [a.clone().requires_grad_() for a in (xp, wh, bhn)]
+    ref = torch.autograd.grad(rnn_kernels.gru_scan_plain(*leaves), leaves,
+                              dhs)
+    for name, g, r in zip(("dxp", "dU", "db_n"), _gru_scan_grads(
+            xp, wh, bhn, dhs), ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5, msg=name)
+
+
+def test_birnn_kernel_route_grads_match_jax():
+    """Gradients of a 2-layer BiGRU on the kernel route (input projection
+    and direction flip as torch ops, the recurrence through gru_scan and
+    K5's plain version) against jax.grad of the JAX stack with
+    use_pallas=True (the Pallas forward and backward kernels in interpret
+    mode), for every parameter and the input. f32 both sides: 1e-4."""
+    jl, tl = _stack("gru", 9, 6, 2, seed=7)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((3, 11, 9)).astype(np.float32)
+    cot = rng.standard_normal((3, 11, 12)).astype(np.float32)
+
+    def loss(params, xx):
+        out = jax_birnn(params, xx, "gru", use_pallas=True)
+        return jnp.sum(out * jnp.asarray(cot))
+
+    ref_p, ref_x = jax.grad(loss, argnums=(0, 1))(jl, jnp.asarray(x))
+    xt = torch.as_tensor(x).requires_grad_()
+    out = bidirectional_rnn(tl, xt, "gru", use_pallas=True)
+    (out * torch.as_tensor(cot)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_x), atol=1e-4)
+    grads = {n: p.grad for n, p in tl.named_parameters()}
+    ref = dict(flatten_tree(jax.tree_util.tree_map(np.asarray, ref_p)))
+    assert set(grads) == set(ref)
+    for name, want in ref.items():
+        np.testing.assert_allclose(grads[name].numpy(), want, atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
