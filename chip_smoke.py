@@ -8,27 +8,37 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the shapes the serving and training paths give it, with its
      tolerance (K1-K4 forward, K5 the BiGRU backward, K6 the mask-head
-     backward);
-  3. round trip: STFT features then masked iSTFT with all-ones masks
-     reconstructs the waveform;
+     backward, K7 and K8 the BiLSTM forward and backward at the classifier
+     width 300 and at 600, K9 and K10 the packed STFT and iSTFT);
+  3. round trips: STFT features then masked iSTFT with all-ones masks, and
+     the packed STFT then iSTFT through the public `ops` exports,
+     reconstruct the waveform;
   4. end to end: the torch_multi preset at full width (2-layer BiGRU-300,
-     F*E = 129*50), random weights from a seed — one B=16 batch and 8 B=1
-     requests through serve.separate_waveforms, with the launch counters
-     zeroed just before and read just after; outputs finite and close to
-     the same model's plain path (kernel flags off);
-  5. CLI: run.separate on two synthetic wavs writes four wavs;
-  6. train step: one torch_multi step at full width on the card (the
-     kernel route) against the same step on a CPU copy of the model and
-     batch (the same autograd.Functions on their plain halves): loss,
-     grad norm and every parameter's update;
-  7. trainer: run.train --preset torch_multi --epochs 1 --epoch-size 8 on
-     a bank of 2 utterances per speaker, with the launch counters zeroed
+     F*E = 129*50, 2-layer BiLSTM-300 classifier), random weights from a
+     seed — one B=16 batch and 8 B=1 requests through
+     serve.separate_waveforms with given speakers, then the same with no
+     speakers given (the classifier selects them), each with the launch
+     counters zeroed just before and read just after; outputs finite and
+     close to the same model's plain path (kernel flags off), the selected
+     speakers equal to the plain path's;
+  5. CLI: run.separate on two synthetic wavs writes four wavs with
+     --speakers, and 2 x recursive_max_steps wavs with --mode recursive;
+  6. train steps: one torch_multi joint step, then one classifier step, at
+     full width on the card (the kernel route) against the same step on a
+     CPU copy of the model and batch (the same autograd.Functions on their
+     plain halves): loss, grad norm or accuracy, and every parameter's
+     update;
+  7. trainers: run.train --preset torch_multi --epochs 1 --epoch-size 4
+     and run.classify --epochs 1 --epoch-size 8 --eval-batches 2 on a bank
+     of 2 utterances per speaker, each with the launch counters zeroed
      just before and read just after; every step's loss finite, the eval
-     SI-SDR finite, and the launches of one step printed;
+     SI-SDR finite, the metric report printed, and the launches of one
+     step printed;
   8. timing: CUDA-event medians of each kernel, its plain version and a
      one-call library yardstick, the end-to-end batch, request and train
-     step times, and a torch.profiler breakdown of one batch, one request
-     and one train step.
+     step times with given and with classifier-selected speakers, and a
+     torch.profiler breakdown of one batch, one request and one step of
+     each trainer.
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
 those lines; so does a machine without CUDA.
@@ -50,7 +60,10 @@ SEED = 0
 N_SAMPLES = 40000           # 5 s at 8 kHz: the reference utterance
 BATCH = 16                  # the serving batch (bench.py)
 REQUESTS = 8                # B=1 requests
-TRAIN_STEPS = 8             # steps of the trainer run
+TRAIN_STEPS = 4             # steps of the joint trainer run
+CLASSIFY_STEPS = 8          # steps of the classifier trainer run
+EVAL_BATCHES = 2            # held-out batches of its metric report
+WIDE = 600                  # the TDAA classifier's BiLSTM width
 BANK_UTTS = 2               # utterances per speaker in its synthetic bank
 
 # Published H100 SXM peaks (NVIDIA data sheet), for the bound column.
@@ -70,7 +83,16 @@ TOL = {"stft_features": 1e-4, "gru_fwd": 1e-4, "gru_fwd_bf16": 2e-2,
        # train step, kernel route on the card against the plain halves on
        # the CPU: the CPU test's bars (tests/test_torch_train.py), set by
        # the bf16 mask head
-       "train_loss_rel": 2e-2, "train_update_rel": 5e-2}
+       "train_loss_rel": 2e-2, "train_update_rel": 5e-2,
+       # K7 / K8 follow K2 / K5: summation order only in f32; in bf16 one
+       # flipped rounding of h (forward) or da (backward) carries on
+       # through the steps
+       "lstm_fwd": 1e-4, "lstm_fwd_bf16": 2e-2,
+       "lstm_bwd": 1e-4, "lstm_bwd_bf16": 5e-2,
+       "stft_ri": 1e-4, "istft_ri": 1e-4,
+       # selected speakers are compared where the plain path's top-k
+       # probabilities are further apart than this
+       "selection_gap": 1e-3}
 
 
 def fail(msg: str) -> None:
@@ -188,7 +210,7 @@ def main() -> int:
     from dl4ss_tpu_torch.ops import rnn_kernels as k2
     from dl4ss_tpu_torch.ops import stft_kernels as k14
     from dl4ss_tpu_torch.ops.stft import reflect_pad
-    from dl4ss_tpu_torch.serve import separate_waveforms
+    from dl4ss_tpu_torch.serve import select_and_separate, separate_waveforms
 
     # ---- 1. card and build ------------------------------------------------
     smi = subprocess.run(
@@ -289,6 +311,55 @@ def main() -> int:
                                  k3.dacc_products(hb, wb, dacc),
                                  k3.dacc_products(hb, wb, dacc_p))])
 
+    # K7 and K8 at the classifier's shapes (T=313, D=2, B=16, H=300), f32
+    # and bf16, and once at H=600 (the TDAA classifier width): the backward
+    # runs on the forward's own hs and cs
+    def lstm_case(hidden, dt):
+        sc = 1.0 / np.sqrt(hidden)
+        x7 = tensor(0.5 * rng.standard_normal((T, 2, BATCH, 4 * hidden)), dt)
+        w7 = tensor(rng.uniform(-sc, sc, (2, hidden, 4 * hidden)), dt)
+        g7 = tensor(rng.standard_normal((T, 2, BATCH, hidden)), dt)
+        hs7, cs7 = k2.lstm_scan_cuda(x7, w7)
+        zeros = torch.zeros_like(hs7[:1])
+        return (x7, w7), (hs7, cs7), (
+            x7, w7, torch.cat([zeros, hs7[:-1]]),
+            torch.cat([zeros, cs7[:-1]]), cs7, g7)
+
+    k7_args, k8_args = {}, {}
+    for label, hidden, dt in (("f32", H, torch.float32),
+                              ("bf16", H, torch.bfloat16),
+                              (f"f32 H={WIDE}", WIDE, torch.float32)):
+        k7_args[label], got7, k8_args[label] = lstm_case(hidden, dt)
+        suffix = "_bf16" if dt == torch.bfloat16 else ""
+        err7 = max(check(f"K7 lstm_fwd {label} {name}", max_err(g, r),
+                         TOL["lstm_fwd" + suffix])
+                   for name, g, r in zip(
+                       ("hs", "cs"), got7,
+                       k2.lstm_scan_plain(*k7_args[label])))
+        err8 = max(check_rel(f"K8 lstm_bwd {label} {name}", g, r,
+                             TOL["lstm_bwd" + suffix])
+                   for name, g, r in zip(
+                       ("dxp", "dU"), k2.lstm_scan_bwd_cuda(*k8_args[label]),
+                       k2.lstm_scan_bwd_plain(*k8_args[label])))
+        if label == "f32":
+            errs["lstm_fwd"], errs["lstm_bwd"] = err7, err8
+
+    # K9 (centered and not) and K10 at B=16, N=40000; K9's packed halves
+    # are K1's Re and Im
+    ri_c = k14.stft_ri_cuda(xpad, L, hop, cfg.window)
+    errs["stft_ri"] = max(
+        check("K9 stft_ri centered", max_err(
+            ri_c, k14.stft_ri_plain(xpad, L, hop, cfg.window)),
+            TOL["stft_ri"]),
+        check("K9 stft_ri uncentered", max_err(
+            k14.stft_ri_cuda(wav, L, hop, cfg.window),
+            k14.stft_ri_plain(wav, L, hop, cfg.window)), TOL["stft_ri"]))
+    check("K9 packed halves against K1's Re and Im", max_err(
+        ri_c, torch.cat([re, im], dim=-1)), TOL["stft_ri"])
+    errs["istft_ri"] = check("K10 istft_ri", max_err(
+        k14.istft_ola_cuda(ri_c, L, hop, cfg.window),
+        k14.istft_ola_plain(ri_c, L, hop, cfg.window)), TOL["istft_ri"])
+
     # ---- 3. round trip ----------------------------------------------------
     ones = torch.ones((BATCH, 1, T, F), device=dev)
     _, re1, im1 = k14.stft_features(wav, L, hop, cfg.window)
@@ -297,6 +368,25 @@ def main() -> int:
         fail(f"round trip length {rec.shape[-1]} != {(T - 1) * hop}")
     check("round trip K1->K4", max_err(rec, wav[:, :rec.shape[-1]]),
           TOL["round_trip"])
+    # the packed STFT and iSTFT have no caller in the package: their path
+    # is the public `ops` exports, driven here as a user would
+    from dl4ss_tpu_torch import ops
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.clear()
+    rec2 = ops.istft_kernel(ops.stft_kernel(wav, L, hop, cfg.window), L, hop,
+                            cfg.window, length=N_SAMPLES)
+    torch.cuda.synchronize()
+    dsp_launches = dict(cuda_lib.LAUNCHES)
+    print(f"public STFT/iSTFT launches: {dsp_launches}", flush=True)
+    if dsp_launches != {"stft_ri": 1, "istft_ri": 1}:
+        fail(f"ops.stft_kernel / ops.istft_kernel launched {dsp_launches}")
+    if tuple(rec2.shape) != (BATCH, N_SAMPLES):
+        fail(f"round trip K9->K10 shape {tuple(rec2.shape)}")
+    n_rec = (T - 1) * hop       # past it the signal was never framed
+    check("round trip K9->K10", max_err(rec2[:, :n_rec], wav[:, :n_rec]),
+          TOL["round_trip"])
+    if bool(rec2[:, n_rec:].any()):
+        fail("round trip K9->K10: the tail past (T-1)*hop is not zero")
 
     # ---- 4. end to end: torch_multi at full width -------------------------
     model = init_separator(cfg, torch.Generator().manual_seed(SEED), dev)
@@ -315,6 +405,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
     print(f"main path launches: {launches}", flush=True)
+    launches.update(dsp_launches)
     missing = [n for n in cuda_lib.SERVING_KERNELS if not launches.get(n)]
     if missing:
         fail(f"kernels never launched on the serving path: {missing}")
@@ -335,6 +426,65 @@ def main() -> int:
         if not rel <= TOL["end_to_end_rel"]:
             fail(f"end to end {name} differs from the plain path: {rel}")
 
+    # classifier-selected speakers: the same batch and requests with no
+    # speakers given
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.clear()
+    sel16 = separate_waveforms(model, wav, cfg, length=N_SAMPLES)
+    sels1 = [separate_waveforms(model, w, cfg, length=N_SAMPLES)
+             for w, _ in reqs]
+    torch.cuda.synchronize()
+    sel_launches = dict(cuda_lib.LAUNCHES)
+    print(f"classifier-selected path launches: {sel_launches}", flush=True)
+    calls = 1 + REQUESTS
+    want = {"stft_features": calls, "gru_fwd": cfg.encoder_layers * calls,
+            "lstm_fwd": cfg.classifier_layers * calls, "maskhead_fwd": calls,
+            "masked_istft": calls}
+    got = {n: sel_launches.get(n, 0) for n in cuda_lib.SELECTION_KERNELS}
+    if got != want:
+        fail(f"classifier-selected path launched {got}, expected {want}")
+    launches["lstm_fwd"] = sel_launches["lstm_fwd"]
+    from dl4ss_tpu_torch.models import classify_speakers
+    from dl4ss_tpu_torch.ops.stft import spectral_feature_cfg
+    compared = 0
+    for name, mix, got_wav in ([(f"B={BATCH}", wav, sel16)] + [
+            (f"B=1 #{i}", w, o) for i, ((w, _), o)
+            in enumerate(zip(reqs, sels1))]):
+        shape = (mix.shape[0], K, N_SAMPLES)
+        if tuple(got_wav.shape) != shape or not bool(
+                torch.isfinite(got_wav).all()):
+            fail(f"selected {name}: shape {tuple(got_wav.shape)} (want "
+                 f"{shape}) or non-finite values")
+        # the plain path's probabilities say which rows have a clear top-k
+        with torch.inference_mode():
+            probs = classify_speakers(
+                model, spectral_feature_cfg(mix, plain_cfg)[0], plain_cfg)
+        ranked = probs.sort(dim=-1, descending=True).values
+        clear = ((ranked[:, :K] - ranked[:, 1:K + 1]).min(dim=-1).values
+                 > TOL["selection_gap"])
+        _, spk_k = select_and_separate(model, mix, cfg, length=N_SAMPLES)
+        ref_wav, spk_p = select_and_separate(model, mix, plain_cfg,
+                                             length=N_SAMPLES)
+        if not torch.equal(spk_k[clear], spk_p[clear]):
+            fail(f"selected {name}: kernel route picked {spk_k.tolist()}, "
+                 f"plain route {spk_p.tolist()}")
+        compared += int(clear.sum())
+        forced = separate_waveforms(model, mix, cfg, spk_p, length=N_SAMPLES)
+        same = bool(torch.equal(spk_k, spk_p))
+        rel = float((forced - ref_wav).norm() / ref_wav.norm())
+        print(f"selected {name}: speakers {spk_k[0].tolist()} "
+              f"(plain {spk_p[0].tolist()}, {int(clear.sum())} of "
+              f"{mix.shape[0]} rows clear), rel_l2_vs_plain={rel:.3e} with "
+              f"the plain path's speakers forced, tol_rel="
+              f"{TOL['end_to_end_rel']:.0e}", flush=True)
+        if not rel <= TOL["end_to_end_rel"]:
+            fail(f"selected {name} differs from the plain path: {rel}")
+        if same and max_err(forced, got_wav) > 1e-6:
+            fail(f"selected {name}: the selected run and the run forced to "
+                 f"the same speakers differ")
+    print(f"selection: {compared} of {BATCH + REQUESTS} rows had a clear "
+          f"top-{K} (gap > {TOL['selection_gap']:.0e}) and agree", flush=True)
+
     # ---- 5. CLI -----------------------------------------------------------
     from dl4ss_tpu_torch.data.wavio import write_wav
     from dl4ss_tpu_torch.run import separate as separate_cli
@@ -351,6 +501,32 @@ def main() -> int:
         if len(wrote) != 4:
             fail(f"CLI wrote {wrote}, expected 4 wavs")
         print(f"CLI: wrote {len(wrote)} wavs", flush=True)
+        from dl4ss_tpu_torch.data.wavio import read_wav
+        rec_dir = os.path.join(tmp, "recursive")
+        torch.cuda.synchronize()
+        cuda_lib.LAUNCHES.clear()
+        separate_cli.main([*paths, "--mode", "recursive", "--out", rec_dir,
+                           "--device", "cuda"])
+        torch.cuda.synchronize()
+        rec_launches = dict(cuda_lib.LAUNCHES)
+        wrote = sorted(os.listdir(rec_dir))
+        steps = cfg.recursive_max_steps
+        if len(wrote) != 2 * steps:
+            fail(f"recursive CLI wrote {wrote}, expected {2 * steps} wavs")
+        for name in wrote:
+            data, _ = read_wav(os.path.join(rec_dir, name))
+            if data.shape != (N_SAMPLES,) or not np.isfinite(data).all():
+                fail(f"recursive CLI: {name} has shape {data.shape} or "
+                     f"non-finite samples")
+        # both wavs ride one batch: every peel step runs the encoder (K2)
+        # and the classifier (K7), one launch per layer
+        want = {"gru_fwd": cfg.encoder_layers * steps,
+                "lstm_fwd": cfg.classifier_layers * steps}
+        got = {n: rec_launches.get(n, 0) for n in want}
+        print(f"recursive CLI: wrote {wrote}, launches {rec_launches}",
+              flush=True)
+        if got != want:
+            fail(f"recursive CLI launched {got}, expected {want}")
 
     # ---- 6. train step: kernel route on the card against the CPU --------
     import copy
@@ -358,7 +534,9 @@ def main() -> int:
     from dl4ss_tpu_torch.data.synth import (featurize, make_synthetic_bank,
                                             sample_mixtures)
     from dl4ss_tpu_torch.train.state import create_train_state
-    from dl4ss_tpu_torch.train.steps import make_fused_step, make_train_step
+    from dl4ss_tpu_torch.train.steps import (make_classifier_step,
+                                             make_fused_step,
+                                             make_train_step)
     from dl4ss_tpu_torch.weights import export_jax_params, flatten_tree
 
     def leaves(m):
@@ -403,6 +581,50 @@ def main() -> int:
     print(f"train step updates: {len(after_c)} leaves, worst rel L2 "
           f"{worst:.3e} tol {TOL['train_update_rel']:.0e} (card step "
           f"{t_card:.2f} s incl. warm-up, CPU step {t_cpu:.2f} s)", flush=True)
+
+    # the classifier step (K7 forward, K8 backward) the same way: loss,
+    # element accuracy and every classifier leaf's update; the encoder,
+    # the embedding and the mask head get no gradient on either side
+    twin = copy.deepcopy(model).to("cpu")
+    before = leaves(model)
+    cstep = make_classifier_step(cfg)
+    cuda_lib.LAUNCHES.clear()
+    _, cmet_g = cstep(create_train_state(cfg, model=model), feats)
+    torch.cuda.synchronize()
+    cstep_launches = dict(cuda_lib.LAUNCHES)
+    _, cmet_c = cstep(create_train_state(cfg, model=twin, device="cpu"),
+                      {k: v.cpu() for k, v in feats.items()})
+    got, ref = float(cmet_g["loss"]), float(cmet_c["loss"])
+    rel = abs(got - ref) / abs(ref)
+    acc_g, acc_c = float(cmet_g["element_acc"]), float(cmet_c["element_acc"])
+    print(f"classifier step loss: card {got:.6f} cpu {ref:.6f} rel {rel:.3e} "
+          f"tol {TOL['train_loss_rel']:.0e}; element_acc card {acc_g:.4f} "
+          f"cpu {acc_c:.4f}; launches {cstep_launches}", flush=True)
+    if not (np.isfinite(got) and rel <= TOL["train_loss_rel"]):
+        fail(f"classifier step loss differs: card {got}, cpu {ref}")
+    # a probability within round-off of alpha may flip a few of the
+    # B * S thresholded elements
+    if abs(acc_g - acc_c) > 4 / (BATCH * cfg.num_speakers):
+        fail(f"classifier step element_acc differs: {acc_g} vs {acc_c}")
+    if {n: cstep_launches.get(n, 0) for n in ("lstm_fwd", "lstm_bwd")} != {
+            "lstm_fwd": cfg.classifier_layers,
+            "lstm_bwd": cfg.classifier_layers}:
+        fail(f"classifier step launched {cstep_launches}")
+    after_g, after_c = leaves(model), leaves(twin)
+    worst, moved = 0.0, 0
+    for name, ref in after_c.items():
+        want, got = ref - before[name], after_g[name] - before[name]
+        if not name.startswith("classifier."):
+            if np.any(want) or np.any(got):
+                fail(f"classifier step moved {name}")
+            continue
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        worst, moved = max(worst, rel), moved + 1
+        if not rel <= TOL["train_update_rel"]:
+            fail(f"classifier step update of {name}: rel L2 {rel}")
+    print(f"classifier step updates: {moved} classifier leaves, worst rel L2 "
+          f"{worst:.3e} tol {TOL['train_update_rel']:.0e}; the other "
+          f"{len(after_c) - moved} leaves unmoved on both", flush=True)
 
     # ---- 7. trainer: run.train at full width -----------------------------
     from dl4ss_tpu_torch.run import train as train_cli
@@ -457,6 +679,73 @@ def main() -> int:
     fused(state, bank)
     torch.cuda.synchronize()
     print(f"launches per train step: {dict(cuda_lib.LAUNCHES)}", flush=True)
+
+    # the classifier trainer: run.classify at full width, then its report
+    import contextlib
+    import io
+
+    from dl4ss_tpu_torch.run import classify as classify_cli
+
+    closses = []
+
+    def recording_classifier(*args, **kwargs):
+        inner = make_classifier_step(*args, **kwargs)
+
+        def run(state_, feats_):
+            state_, metrics = inner(state_, feats_)
+            closses.append(float(metrics["loss"]))
+            return state_, metrics
+        return run
+
+    train_loop.make_classifier_step = recording_classifier
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            report = classify_cli.main([
+                "--preset", "torch_multi", "--epochs", "1", "--epoch-size",
+                str(CLASSIFY_STEPS), "--eval-batches", str(EVAL_BATCHES),
+                "--utts", str(BANK_UTTS), "--seed", str(SEED), "--device",
+                "cuda"])
+    finally:
+        train_loop.make_classifier_step = make_classifier_step
+    torch.cuda.synchronize()
+    classify_s = time.perf_counter() - t0
+    classify_launches = dict(cuda_lib.LAUNCHES)
+    print(printed.getvalue(), end="", flush=True)
+    print(f"classifier trainer: {CLASSIFY_STEPS} steps + {EVAL_BATCHES} "
+          f"report batches in {classify_s:.2f} s, losses {closses}, launches "
+          f"{classify_launches}", flush=True)
+    if len(closses) != CLASSIFY_STEPS or not np.isfinite(closses).all():
+        fail(f"classifier trainer losses {closses}")
+    if "top3_recall:" not in printed.getvalue() or not np.isfinite(
+            list(report.values())).all():
+        fail(f"classifier trainer report {report}")
+    # each step featurizes the mixture and its sources (K1 twice) and runs
+    # the two classifier layers forward (K7) and backward (K8); each report
+    # batch featurizes and runs them forward
+    want = {"stft_features": 2 * (CLASSIFY_STEPS + EVAL_BATCHES),
+            "lstm_fwd": cfg.classifier_layers * (CLASSIFY_STEPS
+                                                 + EVAL_BATCHES),
+            "lstm_bwd": cfg.classifier_layers * CLASSIFY_STEPS}
+    got = {n: classify_launches.get(n, 0)
+           for n in cuda_lib.CLASSIFIER_KERNELS}
+    if got != want:
+        fail(f"classifier trainer launched {got}, expected {want}")
+    launches["lstm_bwd"] = classify_launches["lstm_bwd"]
+
+    def classifier_step():
+        return cstep(state, featurize(sample_mixtures(state.generator, bank,
+                                                      cfg), cfg))
+    classifier_step()
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.clear()
+    classifier_step()
+    torch.cuda.synchronize()
+    print(f"launches per classifier train step: {dict(cuda_lib.LAUNCHES)}",
+          flush=True)
 
     # ---- 8. timing ----------------------------------------------------------
     B, D = BATCH, 2
@@ -516,22 +805,28 @@ def main() -> int:
                    + 2 * B * K * T * F) / F32_FLOPS),
     }
     kernels = []
+
+    def time_row(name, r, kernel_iters, plain_iters):
+        """Time one kernel, its plain version and its library yardstick,
+        print them beside the bound and add the kernel's JSON row."""
+        ms = device_ms(torch, r["kernel"], kernel_iters)
+        plain_ms = device_ms(torch, r["plain"], plain_iters)
+        lib_ms = (device_ms(torch, r["library"], 10)
+                  if r["library"] else None)
+        bound_ms, bound_by = bound(r["bytes"], r["t_ops"])
+        kernels.append(dict(
+            name=name, route="cuda", source=r["source"],
+            replaces=r["replaces"], launches=launches[name],
+            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, library {lib_ms} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+
     with torch.inference_mode():
         for name, r in rows.items():
             slow = name == "gru_fwd"
-            ms = device_ms(torch, r["kernel"], 5 if slow else 20)
-            plain_ms = device_ms(torch, r["plain"], 3 if slow else 10)
-            lib_ms = (device_ms(torch, r["library"], 10)
-                      if r["library"] else None)
-            bound_ms, bound_by = bound(r["bytes"], r["t_ops"])
-            kernels.append(dict(
-                name=name, route="cuda", source=r["source"],
-                replaces=r["replaces"], launches=launches[name],
-                max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
-            print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms, library {lib_ms} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by})", flush=True)
+            time_row(name, r, 5 if slow else 20, 3 if slow else 10)
         pack_ms = device_ms(torch, lambda: k3.pack_w(wb, F, E), 10)
         print(f"time maskhead_pack (K3's W layout, once per weight version, "
               f"bf16 W): {pack_ms:.4f} ms", flush=True)
@@ -611,19 +906,8 @@ def main() -> int:
             + ((4 * K + 5) * B * T * F * E + 3 * B * K * T * F) / F32_FLOPS),
     }
     for name, r in train_rows.items():
-        ms = device_ms(torch, r["kernel"], 5 if name == "gru_bwd" else 20)
-        plain_ms = device_ms(torch, r["plain"], 2 if name == "gru_bwd" else 5)
-        lib_ms = (device_ms(torch, r["library"], 10)
-                  if r["library"] else None)
-        bound_ms, bound_by = bound(r["bytes"], r["t_ops"])
-        kernels.append(dict(
-            name=name, route="cuda", source=r["source"],
-            replaces=r["replaces"], launches=launches[name],
-            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
-        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, library {lib_ms} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})", flush=True)
+        slow = name == "gru_bwd"
+        time_row(name, r, 5 if slow else 20, 2 if slow else 5)
     bf16_ms = device_ms(torch, lambda: k2.gru_scan_bwd_cuda(
         *k5_args["bf16"]), 5)
     print(f"time gru_bwd bf16 per layer: {bf16_ms:.4f} ms", flush=True)
@@ -638,6 +922,104 @@ def main() -> int:
     print(f"train: {step_ms:.3f} ms per B={BATCH} step (median of 10 "
           f"synchronised steps, {BATCH / step_ms * 1e3:.1f} mixtures/s)",
           flush=True)
+    # the kernels of the classifier path and the packed DSP pair. K7 and K8
+    # per layer in f32, as torch_multi runs them; the cuDNN yardstick is one
+    # bidirectional nn.LSTM layer (it includes its input projection, and
+    # its backward the weight and input gradients)
+    lstm = torch.nn.LSTM(d2, H, batch_first=True, bidirectional=True).to(dev)
+    lstm_x = torch.randn((B, T, d2), device=dev, requires_grad=True)
+    lstm_out, _ = lstm(lstm_x)
+    lstm_dout = torch.randn_like(lstm_out)
+    lstm_leaves = [lstm_x, *lstm.parameters()]
+    x7, w7 = k7_args["f32"]
+    x8, w8, hp8, cp8, cs8, g8 = k8_args["f32"]
+    spec_c = torch.complex(ri_c[..., :F], ri_c[..., F:]).transpose(
+        1, 2).contiguous()
+    out_len = (T - 1) * hop + L
+    new_rows = {
+        "lstm_fwd": dict(
+            source="dl4ss_tpu_torch/csrc/lstm_fwd.cu",
+            replaces="dl4ss_tpu/ops/pallas_rnn.py:257",
+            kernel=lambda: k2.lstm_scan_cuda(x7, w7),
+            plain=lambda: k2.lstm_scan_plain(x7, w7),
+            library=lambda: lstm(lstm_x.detach()),
+            # xp and U in, hs and cs out; per row and step one product of
+            # 2*H*4H and ~25 element operations per unit
+            bytes=4 * (x7.numel() + w7.numel() + 2 * T * D * B * H),
+            t_ops=T * D * B * (2 * H * 4 * H + 25 * H) / F32_FLOPS),
+        "lstm_bwd": dict(
+            source="dl4ss_tpu_torch/csrc/lstm_bwd.cu",
+            replaces="dl4ss_tpu/ops/pallas_rnn.py:316",
+            kernel=lambda: k2.lstm_scan_bwd_cuda(*k8_args["f32"]),
+            plain=lambda: k2.lstm_scan_bwd_plain(*k8_args["f32"]),
+            library=lambda: torch.autograd.grad(lstm_out, lstm_leaves,
+                                                lstm_dout, retain_graph=True),
+            # xp, hprev, cprev, cs, dhs and U in; dxp and dU out. Per row
+            # and step three products of 2*H*4H (the gate recompute, the
+            # carry and dU) and ~45 element operations per unit
+            bytes=4 * (2 * x8.numel() + hp8.numel() + cp8.numel()
+                       + cs8.numel() + g8.numel() + 2 * w8.numel()),
+            t_ops=T * D * B * (3 * 2 * H * 4 * H + 45 * H) / F32_FLOPS),
+        "stft_ri": dict(
+            source="dl4ss_tpu_torch/csrc/stft_ri.cu",
+            replaces="dl4ss_tpu/ops/pallas_stft.py:34",
+            kernel=lambda: k14.stft_ri_cuda(xpad, L, hop, cfg.window),
+            plain=lambda: k14.stft_ri_plain(xpad, L, hop, cfg.window),
+            library=lambda: torch.stft(wav, L, hop, window=hann, center=True,
+                                       pad_mode="reflect",
+                                       return_complex=True),
+            # the padded wav in, [Re | Im] out; window: L multiplies
+            bytes=4 * (xpad.numel() + ri_c.numel()),
+            t_ops=(rfft_flops(B * T, L) + B * T * L) / F32_FLOPS),
+        "istft_ri": dict(
+            source="dl4ss_tpu_torch/csrc/istft_ri.cu",
+            replaces="dl4ss_tpu/ops/pallas_stft.py:316",
+            kernel=lambda: k14.istft_ola_cuda(ri_c, L, hop, cfg.window),
+            plain=lambda: k14.istft_ola_plain(ri_c, L, hop, cfg.window),
+            library=lambda: torch.istft(spec_c, L, hop, window=hann,
+                                        center=True, length=N_SAMPLES),
+            # [Re | Im] in, the overlap-added frames out; window and
+            # overlap-add: 2 per sample
+            bytes=4 * (ri_c.numel() + B * out_len),
+            t_ops=(rfft_flops(B * T, L) + 2 * B * T * L) / F32_FLOPS),
+    }
+    for name, r in new_rows.items():
+        slow = name.startswith("lstm")
+        time_row(name, r, 5 if slow else 20,
+                 (2 if name == "lstm_bwd" else 3) if slow else 10)
+    for label, fwd_args, bwd_args in (
+            ("bf16", k7_args["bf16"], k8_args["bf16"]),
+            (f"f32 H={WIDE}", k7_args[f"f32 H={WIDE}"],
+             k8_args[f"f32 H={WIDE}"])):
+        fwd_ms = device_ms(torch, lambda: k2.lstm_scan_cuda(*fwd_args), 5)
+        bwd_ms = device_ms(torch, lambda: k2.lstm_scan_bwd_cuda(*bwd_args), 5)
+        print(f"time lstm_fwd / lstm_bwd {label} per layer: {fwd_ms:.4f} / "
+              f"{bwd_ms:.4f} ms", flush=True)
+    # serving with classifier-selected speakers, and the classifier step
+    with torch.inference_mode():
+        sel_batch_ms = host_ms(torch, lambda: separate_waveforms(
+            model, wav, cfg, length=N_SAMPLES), 5)
+        sel_req_ms = host_ms(torch, lambda: separate_waveforms(
+            model, w1, cfg, length=N_SAMPLES), 10)
+        busy, prow = profile_ms(torch, lambda: separate_waveforms(
+            model, w1, cfg, length=N_SAMPLES))
+    print(f"profile B=1 request, classifier-selected: device busy "
+          f"{busy:.3f} ms of {sel_req_ms:.3f} ms wall (idle "
+          f"{1 - busy / sel_req_ms:.1%})", flush=True)
+    for name, n, ms in prow:
+        print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
+    cstep_ms = host_ms(torch, classifier_step, 10)
+    busy, prow = profile_ms(torch, classifier_step, top=12)
+    print(f"profile B={BATCH} classifier train step: device busy {busy:.3f} "
+          f"ms of {cstep_ms:.3f} ms wall (idle {1 - busy / cstep_ms:.1%})",
+          flush=True)
+    for name, n, ms in prow:
+        print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
+    print(f"classifier: {cstep_ms:.3f} ms per B={BATCH} train step (median "
+          f"of 10 synchronised steps, {BATCH / cstep_ms * 1e3:.1f} "
+          f"mixtures/s); classifier-selected serving {sel_batch_ms:.3f} ms "
+          f"per B={BATCH} batch ({BATCH / sel_batch_ms * 1e3:.1f} "
+          f"mixtures/s), {sel_req_ms:.3f} ms per B=1 request", flush=True)
     print(f"end to end: {batch_ms:.3f} ms per B={BATCH} batch "
           f"({BATCH / batch_ms * 1e3:.1f} mixtures/s), {req_ms:.3f} ms per "
           f"B=1 request; plain path {plain_batch_ms:.3f} ms per B={BATCH} "

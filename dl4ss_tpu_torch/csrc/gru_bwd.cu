@@ -32,10 +32,10 @@
 // (row, unit): the carry from the step before, the gates, dxp_t, da_w_t and
 // dh*z for the next step. The step kernel for t thus finishes the carry of
 // step t+1 from the da_w_{t+1} the previous launch left. dU and db_n are
-// taken after the loop from the stored da_w and dhn by two kernels of this
-// file, each output summed by one thread in a fixed order: deterministic,
-// with no atomics and no library product.
-#include "dl4ss_common.cuh"
+// taken after the loop from the stored da_w and dhn by two kernels (dU's is
+// shared with K8, rnn_bwd_common.cuh), each output summed by one thread in a
+// fixed order: deterministic, with no atomics and no library product.
+#include "rnn_bwd_common.cuh"
 
 namespace {
 
@@ -175,79 +175,6 @@ __global__ void __launch_bounds__(K5_THREADS) gru_bwd_step_kernel(
   dhn_t[u] = dhn;
 }
 
-// ut[d, g, k] = u[d, k, g] for u (D, H, 3H), through 32 x 32 shared tiles.
-template <typename T>
-__global__ void transpose_kernel(const T* __restrict__ u, T* __restrict__ ut,
-                                 int H, int G) {
-  __shared__ float tile[32][33];     // bf16 -> f32 -> bf16 is exact
-  const int d = blockIdx.z;
-  const int g0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
-  const T* src = u + (size_t)d * H * G;
-  T* dst = ut + (size_t)d * H * G;
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
-    const int k = k0 + i, g = g0 + threadIdx.x;
-    if (k < H && g < G)
-      tile[i][threadIdx.x] = dl4ss::to_f32(src[(size_t)k * G + g]);
-  }
-  __syncthreads();
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
-    const int g = g0 + i, k = k0 + threadIdx.x;
-    if (k < H && g < G) dl4ss::store(dst + (size_t)g * H + k, tile[threadIdx.x][i]);
-  }
-}
-
-// dU[d, k, g] = sum over n = (t, b) of hprev[t, d, b, k] * da_w[t, d, b, g],
-// in f32: a 64 x 64 output tile per block, 4 x 4 outputs per thread, the n
-// axis walked in slices of 16 through shared memory in a fixed order.
-constexpr int DU_T = 64, DU_N = 16, DU_THREADS = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(DU_THREADS) gru_bwd_du_kernel(
-    const T* __restrict__ hprev,   // (T, D, B, H)
-    const T* __restrict__ daw,     // (T, D, B, 3H)
-    float* __restrict__ du,        // (D, H, 3H)
-    int steps, int D, int B, int H) {
-  __shared__ float as[DU_N][DU_T], bs[DU_N][DU_T];
-  const int G = 3 * H;
-  const int g0 = blockIdx.x * DU_T, k0 = blockIdx.y * DU_T, d = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int n_total = steps * B;
-  float acc[4][4] = {};
-  for (int n0 = 0; n0 < n_total; n0 += DU_N) {
-    for (int i = threadIdx.x; i < DU_N * DU_T; i += DU_THREADS) {
-      const int nn = i / DU_T, cc = i % DU_T, n = n0 + nn;
-      const size_t row = ((size_t)(n / B) * D + d) * B + n % B;
-      const bool live = n < n_total;
-      as[nn][cc] = live && k0 + cc < H ? dl4ss::to_f32(hprev[row * H + k0 + cc])
-                                       : 0.0f;
-      bs[nn][cc] = live && g0 + cc < G ? dl4ss::to_f32(daw[row * G + g0 + cc])
-                                       : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int nn = 0; nn < DU_N; ++nn) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = as[nn][ty + 16 * i];
-        bv[i] = bs[nn][tx + 16 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int l = 0; l < 4; ++l) acc[i][l] = fmaf(av[i], bv[l], acc[i][l]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int k = k0 + ty + 16 * i, g = g0 + tx + 16 * l;
-      if (k < H && g < G) du[((size_t)d * H + k) * G + g] = acc[i][l];
-    }
-}
-
 // db_n[d, j] = sum over (t, b) of dhn[t, d, b, j]: 8 warps each sum every
 // eighth (t, b) for 32 units, then one warp adds the 8 partials in order.
 __global__ void gru_bwd_dbn_kernel(const float* __restrict__ dhn,
@@ -277,9 +204,7 @@ cudaError_t run(const void* xp, const void* wh, const void* bhn,
   const int G = 3 * H;
   const T* U = static_cast<const T*>(wh);
   T* Ut = static_cast<T*>(wht);
-  transpose_kernel<T><<<dim3((G + 31) / 32, (H + 31) / 32, D), dim3(32, 8),
-                        0, stream>>>(U, Ut, H, G);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = dl4ss::transpose(U, Ut, D, H, G, stream);
   if (err != cudaSuccess) return err;
 
   const dim3 grid((H + K5_JT - 1) / K5_JT, D, (B + K5_BT - 1) / K5_BT);
@@ -303,10 +228,8 @@ cudaError_t run(const void* xp, const void* wh, const void* bhn,
     if (err != cudaSuccess) return err;
   }
 
-  gru_bwd_du_kernel<T><<<dim3((G + DU_T - 1) / DU_T, (H + DU_T - 1) / DU_T, D),
-                         DU_THREADS, 0, stream>>>(
-      hp, dw, static_cast<float*>(du), steps, D, B, H);
-  err = cudaGetLastError();
+  err = dl4ss::weight_grad(hp, dw, static_cast<float*>(du), steps, D, B, H, G,
+                           stream);
   if (err != cudaSuccess) return err;
   gru_bwd_dbn_kernel<<<dim3((H + 31) / 32, D), 256, 0, stream>>>(
       dn, static_cast<float*>(dbn), steps, D, B, H);

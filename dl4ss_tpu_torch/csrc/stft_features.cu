@@ -10,23 +10,29 @@
 // would need only ~30 MFLOP (~0.5 us of f32). This direct DFT does
 // 0.66 GFLOP of f32 FMA, ~10 us at the f32 CUDA-core rate (67 TFLOP/s),
 // so its own work, not the bytes, limits it; an FFT-style kernel is later
-// work. The DFT stays
-// on the CUDA cores in f32 (no TF32 tensor cores) because the parity bar
-// is 1e-4 against the reference's Precision.HIGHEST matmuls.
+// work.
 //
-// Design: one block per (utterance b, tile of K1_FRAMES frames). The block
-// stages its windowed frames in shared memory once; each thread owns one
-// frequency bin f and keeps K1_FRAMES Re/Im accumulators in registers, so
-// each cos/-sin table value read from global memory (coalesced across f,
-// L1/L2-resident: 264 KB) feeds 2*K1_FRAMES FMAs, and each shared-memory
-// sample read is a broadcast. A block reads the whole table once, so
-// K1_FRAMES also sets the table traffic: 16 frames keep it at ~85 MB of L2
-// reads for the B=16 batch with 320 blocks to fill the card.
-#include "dl4ss_common.cuh"
+// Design: the DFT tile of stft_tile.cuh (shared with K9), one block per
+// (utterance, 16 frames), one thread per frequency bin; this file adds the
+// epilogue that writes the magnitude beside Re and Im.
+#include "stft_tile.cuh"
 
 namespace {
 
-constexpr int K1_FRAMES = 16;
+template <typename MagT>
+struct EmitFeatures {
+  MagT* __restrict__ mag;
+  float* __restrict__ re;
+  float* __restrict__ im;
+  int T, F;
+  __device__ __forceinline__ void operator()(int b, int t, int f, float r,
+                                             float i) const {
+    const size_t o = ((size_t)b * T + t) * F + f;
+    re[o] = r;
+    im[o] = i;
+    dl4ss::store(mag + o, sqrtf(r * r + i * i));
+  }
+};
 
 template <typename MagT>
 __global__ void stft_features_kernel(
@@ -36,57 +42,23 @@ __global__ void stft_features_kernel(
     const float* __restrict__ sin_t,  // (L, F) -sin
     MagT* __restrict__ mag, float* __restrict__ re, float* __restrict__ im,
     int Np, int T, int L, int hop, int F) {
-  extern __shared__ float frames[];  // (K1_FRAMES, L) windowed frames
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * K1_FRAMES;
-  const int nf = min(K1_FRAMES, T - t0);
-  const float* xb = x + (size_t)b * Np;
-  for (int i = threadIdx.x; i < K1_FRAMES * L; i += blockDim.x) {
-    const int fr = i / L, n = i - fr * L;
-    frames[i] = fr < nf ? xb[(size_t)(t0 + fr) * hop + n] * win[n] : 0.0f;
-  }
-  __syncthreads();
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
-    float acc_re[K1_FRAMES], acc_im[K1_FRAMES];
-#pragma unroll
-    for (int j = 0; j < K1_FRAMES; ++j) acc_re[j] = acc_im[j] = 0.0f;
-    for (int n = 0; n < L; ++n) {
-      const float c = cos_t[(size_t)n * F + f];
-      const float s = sin_t[(size_t)n * F + f];
-#pragma unroll
-      for (int j = 0; j < K1_FRAMES; ++j) {
-        const float v = frames[j * L + n];
-        acc_re[j] = fmaf(v, c, acc_re[j]);
-        acc_im[j] = fmaf(v, s, acc_im[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < K1_FRAMES; ++j) {
-      if (j < nf) {
-        const size_t o = ((size_t)b * T + t0 + j) * F + f;
-        re[o] = acc_re[j];
-        im[o] = acc_im[j];
-        dl4ss::store(mag + o, sqrtf(acc_re[j] * acc_re[j] +
-                                    acc_im[j] * acc_im[j]));
-      }
-    }
-  }
+  dl4ss::stft_tile(x, win, cos_t, sin_t, Np, T, L, hop, F,
+                   EmitFeatures<MagT>{mag, re, im, T, F});
 }
 
 template <typename MagT>
 cudaError_t run(const void* x, const void* win, const void* cos_t,
                 const void* sin_t, void* mag, void* re, void* im, int B,
                 int Np, int T, int L, int hop, int F, cudaStream_t stream) {
-  const dim3 grid((T + K1_FRAMES - 1) / K1_FRAMES, B);
-  const int threads = std::min(256, (F + 31) / 32 * 32);
-  const size_t smem = (size_t)K1_FRAMES * L * sizeof(float);
+  const size_t smem = dl4ss::stft_smem(L);
   cudaError_t err = dl4ss::allow_smem(stft_features_kernel<MagT>, smem);
   if (err != cudaSuccess) return err;
-  stft_features_kernel<MagT><<<grid, threads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(win),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<MagT*>(mag), static_cast<float*>(re),
-      static_cast<float*>(im), Np, T, L, hop, F);
+  stft_features_kernel<MagT>
+      <<<dl4ss::stft_grid(B, T), dl4ss::stft_threads(F), smem, stream>>>(
+          static_cast<const float*>(x), static_cast<const float*>(win),
+          static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+          static_cast<MagT*>(mag), static_cast<float*>(re),
+          static_cast<float*>(im), Np, T, L, hop, F);
   return cudaGetLastError();
 }
 

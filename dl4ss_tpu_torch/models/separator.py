@@ -2,14 +2,14 @@
 `dl4ss_tpu/models/separator.py`, top-k layout).
 
 encoder -> query (speaker embedding, or given queries) -> mask head -> mask
-apply. Speakers are given: classifier selection waits for the BiLSTM
-kernel K7 (ROADMAP P8); ADDJUST, the discriminator and cRM wait for TDAA
-(ROADMAP P9).
+apply. The speakers are given, or picked by the classifier (its top-k);
+`recursive_separate` peels one classifier-chosen speaker per step. ADDJUST,
+the discriminator and cRM wait for TDAA (ROADMAP P9).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -17,16 +17,18 @@ from torch import nn
 from dl4ss_tpu_torch.config import Config
 from dl4ss_tpu_torch.device import resolve_device
 from dl4ss_tpu_torch.models.attention import apply_mask_head, init_mask_head
-from dl4ss_tpu_torch.models.classifier import init_classifier
+from dl4ss_tpu_torch.models.classifier import (apply_classifier,
+                                               init_classifier)
 from dl4ss_tpu_torch.models.embedding import apply_embedding, init_embedding
 from dl4ss_tpu_torch.models.encoder import (apply_encoder, encoder_hidden,
                                             init_encoder)
+from dl4ss_tpu_torch.objectives.select import top_k_indices
 
 
 class SeparatorOutput(NamedTuple):
     masks: torch.Tensor     # (B,K,T,F)
     pred: torch.Tensor      # masked magnitudes (B,K,T,F)
-    probs: torch.Tensor     # classifier probabilities (B,S); zeros here
+    probs: torch.Tensor     # classifier probabilities (B,S)
     hidden: torch.Tensor    # encoder hidden (B,T,2H)
     queries: torch.Tensor   # queries (B,K,Q)
 
@@ -45,12 +47,12 @@ class Separator(nn.Module):
         self.mask_head = init_mask_head(cfg, generator, device)
 
     def forward(self, feat, cfg: Config, spk_idx=None, queries=None,
-                mix_ri=None) -> "SeparatorOutput":
+                mix_ri=None, need_probs=False) -> "SeparatorOutput":
         """`separate` on this module's parameters, so that
         `torch.func.functional_call` can run it on substituted ones (the
         trainer's bf16 casts of the f32 masters)."""
         return separate(self, feat, cfg, spk_idx=spk_idx, queries=queries,
-                        mix_ri=mix_ri)
+                        mix_ri=mix_ri, need_probs=need_probs)
 
 
 def _check_ported(cfg: Config) -> None:
@@ -67,6 +69,11 @@ def init_separator(cfg: Config, generator: Optional[torch.Generator] = None,
     `generator`, so a seed gives the same model on every device."""
     _check_ported(cfg)
     return Separator(cfg, generator, device)
+
+
+def classify_speakers(params: Separator, feat: torch.Tensor, cfg: Config,
+                      logits: bool = False) -> torch.Tensor:
+    return apply_classifier(params.classifier, feat, cfg, logits=logits)
 
 
 def _use_fused_maskhead(cfg: Config) -> bool:
@@ -105,24 +112,78 @@ def _finish(params: Separator, cfg: Config, emb_map, hidden, queries, feat,
 def separate(params: Separator, feat: torch.Tensor, cfg: Config,
              spk_idx: Optional[torch.Tensor] = None,
              queries: Optional[torch.Tensor] = None,
-             mix_ri: Optional[torch.Tensor] = None) -> SeparatorOutput:
+             mix_ri: Optional[torch.Tensor] = None,
+             need_probs: bool = False) -> SeparatorOutput:
     """Top-k path. feat (B,T,F) magnitude features.
 
-    spk_idx (B,K): the speakers to extract. `queries` (B,K,Q) overrides
-    the embedding lookup. `mix_ri` (B,T,F,2) is the packed mixture, needed
-    by log-spectral configs.
+    spk_idx (B,K): the speakers to extract; if None (and no `queries`),
+    the classifier's top-k. `queries` (B,K,Q) overrides the embedding
+    lookup. `mix_ri` (B,T,F,2) is the packed mixture, needed by
+    log-spectral configs.
+
+    The classifier (a BiLSTM as large as the encoder) runs only when its
+    output is needed: when it selects the speakers, or when `need_probs`
+    asks for it. Selection indices carry no gradient.
     """
     _check_ported(cfg)
-    if spk_idx is None and queries is None:
-        raise NotImplementedError(
-            "classifier-selected speakers need the BiLSTM kernel K7 "
-            "(ROADMAP P8); pass spk_idx or queries")
     if _use_fused_maskhead(cfg):
         emb_map, hidden = None, encoder_hidden(params.encoder, feat, cfg)
     else:
         emb_map, hidden = apply_encoder(params.encoder, feat, cfg)
-    probs = torch.zeros((feat.shape[0], cfg.num_speakers), dtype=feat.dtype,
-                        device=feat.device)
+    if need_probs or (queries is None and spk_idx is None):
+        probs = apply_classifier(params.classifier, feat, cfg)
+    else:
+        probs = torch.zeros((feat.shape[0], cfg.num_speakers),
+                            dtype=feat.dtype, device=feat.device)
     if queries is None:
+        if spk_idx is None:
+            spk_idx, _ = top_k_indices(probs, cfg.top_k)
         queries = apply_embedding(params.embedding, spk_idx)
     return _finish(params, cfg, emb_map, hidden, queries, feat, mix_ri, probs)
+
+
+def recursive_separate(params: Separator, feat: torch.Tensor, cfg: Config,
+                       allowed: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """TDAA's recursive extraction. Peel one speaker per step: classify the
+    residual, take the most probable speaker not yet extracted, mask it
+    out, and feed `(1-mask) * residual` back in
+    (main_run_multi_selfSS_recu.py:341-400), for cfg.recursive_max_steps
+    steps. Each step runs the encoder, the classifier and the plain mask
+    head (not the fused one), as in JAX.
+
+    `allowed` ((B, S) bool, optional) restricts every step's choice to a
+    per-sample candidate roster, composed with the loop's own
+    already-extracted exclusion.
+
+    Returns (extracted (B, steps, T, F), speaker indices (B, steps)).
+    """
+    _check_ported(cfg)
+    if cfg.is_complex_mask:
+        raise ValueError(
+            "recursive extraction operates on magnitude residuals; the "
+            "reference's recursive scripts are magnitude-only too "
+            "(main_run_multi_selfSS_recu.py:398-400). Use top-k mode for "
+            "cRM models.")
+    if cfg.log_spectral:
+        raise ValueError(
+            "recursive extraction peels (1-mask)*residual in the LINEAR "
+            "magnitude domain; log-spectral features cannot be peeled "
+            "(the reference's recursive scripts are linear-only)")
+    residual = feat
+    seen = torch.zeros((feat.shape[0], cfg.num_speakers), dtype=torch.bool,
+                       device=feat.device)
+    extracted, spks = [], []
+    for _ in range(cfg.recursive_max_steps):
+        emb_map, _ = apply_encoder(params.encoder, residual, cfg)
+        probs = apply_classifier(params.classifier, residual, cfg)
+        blocked = seen if allowed is None else seen | ~allowed.to(torch.bool)
+        spk = probs.masked_fill(blocked, float("-inf")).argmax(dim=-1)
+        queries = apply_embedding(params.embedding, spk[:, None])
+        mask = apply_mask_head(params.mask_head, emb_map, queries, cfg)[:, 0]
+        extracted.append(mask * residual)
+        residual = (1.0 - mask) * residual
+        seen = seen | torch.nn.functional.one_hot(
+            spk, cfg.num_speakers).to(torch.bool)
+        spks.append(spk)
+    return torch.stack(extracted, dim=1), torch.stack(spks, dim=1)

@@ -32,8 +32,10 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("stft_features.cu", "gru_fwd.cu", "maskhead_fwd.cu",
-           "masked_istft.cu", "gru_bwd.cu", "maskhead_bwd.cu")
-HEADERS = ("dl4ss_common.cuh", "maskhead_tile.cuh")
+           "masked_istft.cu", "gru_bwd.cu", "maskhead_bwd.cu", "lstm_fwd.cu",
+           "lstm_bwd.cu", "stft_ri.cu", "istft_ri.cu")
+HEADERS = ("dl4ss_common.cuh", "maskhead_tile.cuh", "rnn_bwd_common.cuh",
+           "stft_tile.cuh", "istft_tile.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -48,13 +50,21 @@ SIGNATURES = {
     "masked_istft": "pppppppiiiiiiii",
     "gru_bwd": "ppppppppppppiiiii",
     "maskhead_bwd": "pppppppppiiiiii",
+    "lstm_fwd": "pppppiiiii",
+    "lstm_bwd": "ppppppppppiiiii",
+    "stft_ri": "pppppiiiiii",
+    "istft_ri": "pppppiiiiii",
 }
-# The ports of the TPU kernels that a serving call launches every time, and
-# those a training step does (its loss resynthesises through the plain
-# iSTFT, as in JAX).
+# The ports of the TPU kernels that a serving call with given speakers
+# launches every time, those a joint training step does (its loss
+# resynthesises through the plain iSTFT, as in JAX), those a serving call
+# adds when the classifier selects the speakers, and those a classifier
+# training step launches.
 SERVING_KERNELS = ("stft_features", "gru_fwd", "maskhead_fwd", "masked_istft")
 TRAINING_KERNELS = ("stft_features", "gru_fwd", "maskhead_fwd", "gru_bwd",
                     "maskhead_bwd")
+SELECTION_KERNELS = (*SERVING_KERNELS, "lstm_fwd")
+CLASSIFIER_KERNELS = ("stft_features", "lstm_fwd", "lstm_bwd")
 # Plain C queries (no launch, no stream): ints in, a 64-bit count out.
 QUERIES = {"maskhead_packed_size": "iii", "maskhead_bwd_partials": "iiiiii"}
 

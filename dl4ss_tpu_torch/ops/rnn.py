@@ -8,10 +8,12 @@ parameters are named `<stack>.<layer>.fwd.wx` like the JAX pytree leaves.
 
 Two routes per bidirectional layer, as in JAX:
   * `_run_layer_bidir`: the plain loop, both directions in one batched step
-    (for GRU, K2's plain version `gru_scan_plain`);
+    (for GRU, K2's plain version `gru_scan_plain`; for LSTM the JAX scan
+    route's numerics: c rounded to the compute dtype at every step);
   * `_run_layer_bidir_kernel` (use_pallas): the input projection as one
-    torch matmul, the direction flip outside, and the whole recurrence in
-    K2 (ops/rnn_kernels.py) — GRU only until the LSTM kernel K7 is ported.
+    torch matmul per direction, the direction flip outside, and the whole
+    recurrence in K2 (GRU) or K7 (LSTM, c carried in f32), whose backwards
+    are K5 and K8 (ops/rnn_kernels.py).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 from torch import nn
 
 from dl4ss_tpu_torch.device import resolve_device
-from dl4ss_tpu_torch.ops.rnn_kernels import gru_scan, gru_scan_plain
+from dl4ss_tpu_torch.ops.rnn_kernels import (gru_scan, gru_scan_plain,
+                                             lstm_scan)
 
 
 class Cell(nn.Module):
@@ -99,6 +102,20 @@ def _gru_operands(fwd: Cell, bwd: Cell, x: torch.Tensor, dtype, wdtype):
     return xp, wh, bh_n
 
 
+def _lstm_operands(fwd: Cell, bwd: Cell, x: torch.Tensor, dtype):
+    """The `lstm_scan` operands of a bidirectional LSTM layer: xp
+    (T, 2, B, 4H) = x @ Wx + bx + bh in `dtype` (every bias folded in), the
+    time-reversed direction flipped; wh (2, H, 4H) in `dtype`."""
+    def proj(xx, p):
+        return (_mm(xx, p.wx.to(dtype)) + p.bx.float()
+                + p.bh.float()).to(dtype)
+
+    xp = torch.stack([proj(x, fwd), proj(torch.flip(x, (1,)), bwd)], dim=2)
+    xp = xp.permute(1, 2, 0, 3).contiguous()                # (T, 2, B, 4H)
+    wh = torch.stack([fwd.wh, bwd.wh]).to(dtype).contiguous()
+    return xp, wh
+
+
 def _unflip(hs: torch.Tensor, dtype) -> torch.Tensor:
     """hs (T, 2, B, H) -> (B, T, 2H), the reverse direction unflipped."""
     fwd_out = hs[:, 0].transpose(0, 1)
@@ -108,21 +125,19 @@ def _unflip(hs: torch.Tensor, dtype) -> torch.Tensor:
 
 def _run_layer_bidir_kernel(fwd: Cell, bwd: Cell, x: torch.Tensor,
                             cell: str) -> torch.Tensor:
-    """Bidirectional GRU layer on K2: the input projections as one matmul
-    per direction, the time-reversed direction flipped here, and the whole
-    recurrence of both directions in one `gru_scan` call."""
-    if cell == "lstm":
-        if x.is_cuda:
-            raise NotImplementedError(
-                "the BiLSTM kernel (K7, pallas_rnn.py::_lstm_fwd_kernel) is "
-                "not ported yet; run LSTM configs with use_pallas_rnn=False")
-        return _run_layer_bidir(fwd, bwd, x, cell)
-    if cell != "gru":
-        raise ValueError(f"unknown cell {cell!r}")
+    """Bidirectional layer on K2 (GRU) or K7 (LSTM): the input projections
+    as one matmul per direction, the time-reversed direction flipped here,
+    and the whole recurrence of both directions in one `gru_scan` or
+    `lstm_scan` call."""
     # bf16 keeps bf16 operands (f32 accumulation); anything else runs in f32
     kdtype = x.dtype if x.dtype == torch.bfloat16 else torch.float32
-    return _unflip(gru_scan(*_gru_operands(fwd, bwd, x, kdtype, kdtype)),
-                   x.dtype)
+    if cell == "gru":
+        hs = gru_scan(*_gru_operands(fwd, bwd, x, kdtype, kdtype))
+    elif cell == "lstm":
+        hs = lstm_scan(*_lstm_operands(fwd, bwd, x, kdtype))
+    else:
+        raise ValueError(f"unknown cell {cell!r}")
+    return _unflip(hs, x.dtype)
 
 
 def _run_layer_bidir(fwd: Cell, bwd: Cell, x: torch.Tensor, cell: str

@@ -1,11 +1,16 @@
-"""K1 (STFT features) and K4 (masked iSTFT): CUDA kernels and plain versions.
+"""The DSP kernels: K1 (STFT features), K4 (masked iSTFT), K9 (packed STFT)
+and K10 (iSTFT of a packed spectrum). CUDA kernels and plain versions.
 
-Ports `pallas_stft_features` and `pallas_masked_istft`
+Ports `pallas_stft_features`, `pallas_masked_istft`, `pallas_stft_ri` /
+`pallas_stft` and `pallas_istft_ri` / `pallas_istft`
 (dl4ss_tpu/ops/pallas_stft.py). Each public wrapper sends a CPU tensor to
 the plain PyTorch version and a CUDA tensor to the hand-written kernel
-(csrc/stft_features.cu, csrc/masked_istft.cu); there is no fallback from
-one to the other. The `*_plain` and `*_cuda` halves are public so that a
-check can hold one against the other on the same inputs.
+(csrc/stft_features.cu, csrc/masked_istft.cu, csrc/stft_ri.cu,
+csrc/istft_ri.cu); there is no fallback from one to the other. The
+`*_plain` and `*_cuda` halves are public so that a check can hold one
+against the other on the same inputs. None of the four has a backward (nor
+have the JAX kernels): on the card an input that requires grad raises
+rather than giving a detached result.
 """
 
 from __future__ import annotations
@@ -28,6 +33,22 @@ def _bins(frame_length: int) -> int:
     return frame_length // 2 + 1
 
 
+def _check_input(x: torch.Tensor, fn: str, kernel: str, dims: int) -> None:
+    """A `dims`-axis float32 tensor that, on the card, needs no gradient."""
+    if x.is_cuda and x.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(f"{fn}: {kernel} has no backward; pass an input "
+                           f"that does not require grad")
+    if x.dim() != dims or x.dtype != torch.float32:
+        raise ValueError(f"{fn} wants {dims} axes of float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+
+
+def _check_hop(fn: str, frame_length: int, frame_shift: int) -> None:
+    if frame_length % frame_shift:
+        raise ValueError(f"{fn} needs frame_length % frame_shift == 0, got "
+                         f"{frame_length} and {frame_shift}")
+
+
 # ---------------------------------------------------------------------------
 # K1: STFT features
 # ---------------------------------------------------------------------------
@@ -45,13 +66,7 @@ def stft_features(x: torch.Tensor, frame_length: int = 256,
     The kernel has no backward (nor has the JAX one): on the card an input
     that requires grad raises rather than giving a detached result.
     """
-    if x.is_cuda and x.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("stft_features: the STFT feature kernel (K1) has "
-                           "no backward; pass an input that does not "
-                           "require grad")
-    if x.dim() != 2 or x.dtype != torch.float32:
-        raise ValueError(f"stft_features wants (B, N) float32, got "
-                         f"{tuple(x.shape)} {x.dtype}")
+    _check_input(x, "stft_features", "the STFT feature kernel (K1)", 2)
     if center:
         x = reflect_pad(x, frame_length // 2)
     x = x.contiguous()
@@ -183,3 +198,122 @@ def _idft_halves(frame_length: int, device: torch.device):
     idft = torch.as_tensor(idft_matrix(frame_length), device=device)
     bins = _bins(frame_length)
     return idft[:bins].contiguous(), idft[bins:].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K9: STFT, packed [Re | Im]
+# ---------------------------------------------------------------------------
+
+
+def stft_ri(x: torch.Tensor, frame_length: int = 256, frame_shift: int = 128,
+            window: str = "hann", center: bool = True) -> torch.Tensor:
+    """(B, N) f32 -> (B, T, 2F) f32 with [Re | Im] halves on the last axis.
+
+    Same conventions as `ops.stft.stft` (librosa center / reflect), in
+    packed-real form. The reflect pad is a torch op before the kernel, as
+    in JAX. Needs frame_length % frame_shift == 0, as the TPU kernel does.
+    """
+    _check_input(x, "stft_ri", "the STFT kernel (K9)", 2)
+    _check_hop("stft_ri", frame_length, frame_shift)
+    if center:
+        x = reflect_pad(x, frame_length // 2)
+    x = x.contiguous()
+    half = stft_ri_cuda if x.is_cuda else stft_ri_plain
+    return half(x, frame_length, frame_shift, window)
+
+
+def stft_ri_plain(xpad: torch.Tensor, frame_length: int, frame_shift: int,
+                  window: str) -> torch.Tensor:
+    """K9's plain version on the (padded) signal (B, Np)."""
+    tab = dsp_tables(frame_length, window, xpad.device)
+    frames = xpad.unfold(-1, frame_length, frame_shift) * tab.win
+    return torch.matmul(frames, tab.dft)
+
+
+def stft_ri_cuda(xpad: torch.Tensor, frame_length: int, frame_shift: int,
+                 window: str) -> torch.Tensor:
+    """K9 on the card: csrc/stft_ri.cu on the (padded) signal (B, Np)."""
+    cuda_lib.check(xpad, "x", (torch.float32,))
+    b, n_pad = xpad.shape
+    t = 1 + (n_pad - frame_length) // frame_shift
+    f = _bins(frame_length)
+    win = dsp_tables(frame_length, window, xpad.device).win
+    cos_t, sin_t = _dft_halves(frame_length, xpad.device)
+    out = torch.empty((b, t, 2 * f), dtype=torch.float32, device=xpad.device)
+    cuda_lib.launch("stft_ri", xpad.device, xpad, win, cos_t, sin_t, out, b,
+                    n_pad, t, frame_length, frame_shift, f)
+    return out
+
+
+def stft_kernel(x: torch.Tensor, frame_length: int = 256,
+                frame_shift: int = 128, window: str = "hann",
+                center: bool = True) -> torch.Tensor:
+    """Complex-output wrapper of `stft_ri`, with `ops.stft.stft`'s
+    signature: (B, N) f32 -> complex64 (B, T, F)."""
+    ri = stft_ri(x, frame_length, frame_shift, window, center)
+    bins = _bins(frame_length)
+    return torch.complex(ri[..., :bins], ri[..., bins:])
+
+
+# ---------------------------------------------------------------------------
+# K10: iSTFT of a packed spectrum
+# ---------------------------------------------------------------------------
+
+
+def istft_ri(spec_ri: torch.Tensor, frame_length: int = 256,
+             frame_shift: int = 128, window: str = "hann",
+             center: bool = True, length: Optional[int] = None
+             ) -> torch.Tensor:
+    """(B, T, 2F) f32 [Re | Im] -> (B, length) waveforms.
+
+    The iDFT, the synthesis window and the overlap-add run in one kernel on
+    the card; the window-square normalisation (a constant table), the
+    center trim and the length contract (default (T-1)*hop when centered,
+    cut or zero-padded to `length`) are elementwise torch ops outside, as
+    in JAX. Needs frame_length % frame_shift == 0, as the TPU kernel does.
+    """
+    _check_input(spec_ri, "istft_ri", "the iSTFT kernel (K10)", 3)
+    _check_hop("istft_ri", frame_length, frame_shift)
+    t = spec_ri.shape[1]
+    if spec_ri.shape[2] != 2 * _bins(frame_length):
+        raise ValueError(f"istft_ri: last axis {spec_ri.shape[2]}, expected "
+                         f"2F = {2 * _bins(frame_length)} for "
+                         f"L={frame_length}")
+    spec_ri = spec_ri.contiguous()
+    half = istft_ola_cuda if spec_ri.is_cuda else istft_ola_plain
+    ola = half(spec_ri, frame_length, frame_shift, window)
+    ola = ola * _ola_norm(t, frame_length, frame_shift, window, ola.device)
+    return _trim(ola, t, frame_length, frame_shift, center, length)
+
+
+def istft_ola_plain(spec_ri: torch.Tensor, frame_length: int,
+                    frame_shift: int, window: str) -> torch.Tensor:
+    """K10's plain version: the raw overlap-add (B, (T-1)*hop + L)."""
+    tab = dsp_tables(frame_length, window, spec_ri.device)
+    return overlap_add(torch.matmul(spec_ri, tab.idft) * tab.win, frame_shift)
+
+
+def istft_ola_cuda(spec_ri: torch.Tensor, frame_length: int,
+                   frame_shift: int, window: str) -> torch.Tensor:
+    """K10 on the card: csrc/istft_ri.cu, the raw overlap-add."""
+    f = _bins(frame_length)
+    b, t = spec_ri.shape[:2]
+    cuda_lib.check(spec_ri, "spec_ri", (torch.float32,), (b, t, 2 * f))
+    tab = dsp_tables(frame_length, window, spec_ri.device)
+    mre, mim = _idft_halves(frame_length, spec_ri.device)
+    out_len = (t - 1) * frame_shift + frame_length
+    out = torch.empty((b, out_len), dtype=torch.float32,
+                      device=spec_ri.device)
+    cuda_lib.launch("istft_ri", spec_ri.device, spec_ri, mre, mim, tab.win,
+                    out, b, t, f, frame_length, frame_shift, out_len)
+    return out
+
+
+def istft_kernel(spec: torch.Tensor, frame_length: int = 256,
+                 frame_shift: int = 128, window: str = "hann",
+                 center: bool = True, length: Optional[int] = None
+                 ) -> torch.Tensor:
+    """Complex-input wrapper of `istft_ri`, with `ops.stft.istft`'s
+    signature: complex (B, T, F) -> (B, length)."""
+    ri = torch.cat([spec.real, spec.imag], dim=-1).float()
+    return istft_ri(ri, frame_length, frame_shift, window, center, length)

@@ -1,21 +1,24 @@
-"""Separation CLI — separate mixture wav file(s) into given speakers.
+"""Separation CLI — separate mixture wav file(s).
 
-The port of `dl4ss_tpu/run/separate.py`, top-k mode with `--speakers`:
+The port of `dl4ss_tpu/run/separate.py`. Two extraction modes, mirroring
+the reference:
+  * top-k: classifier-selected (or `--speakers` forced) simultaneous masks;
+  * recursive: one classifier-chosen speaker per peel step.
 
     python -m dl4ss_tpu_torch.run.separate mix1.wav mix2.wav \
-        --speakers 3,7 --out separated/ [--long] [--device cpu]
+        --out separated/ [--speakers 3,7] [--long] [--device cpu]
+    python -m dl4ss_tpu_torch.run.separate mix1.wav --mode recursive
 
-Not ported yet, each exiting with a one-line message: classifier-selected
-speakers and `--mode recursive` (the LSTM kernel K7, ROADMAP P8), and
-`--checkpoint-dir` / `--graft` (the port's checkpoints, ROADMAP P7).
-Weights are random-initialised from `--seed` until checkpoints land.
+Not ported yet, exiting with a one-line message: `--checkpoint-dir` /
+`--graft` (the port's checkpoints, ROADMAP P7). Weights are
+random-initialised from `--seed` until checkpoints land.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,7 +29,8 @@ from dl4ss_tpu_torch.data.wavio import read_wav, write_wav
 from dl4ss_tpu_torch.device import resolve_device
 from dl4ss_tpu_torch.models.separator import Separator, init_separator
 from dl4ss_tpu_torch.run.common import add_common_args, build_cfg
-from dl4ss_tpu_torch.serve import separate_waveforms
+from dl4ss_tpu_torch.serve import (recursive_waveforms, select_and_separate,
+                                   separate_waveforms)
 
 
 def _load_mix(path, cfg):
@@ -43,21 +47,24 @@ def _load_mix(path, cfg):
 
 
 def _separate_chunk(model: Separator, chunk: np.ndarray, cfg: Config,
-                    spk_idx: Sequence[int]) -> np.ndarray:
+                    spk_idx: Optional[Sequence[int]] = None) -> np.ndarray:
     device = model.encoder.proj.w.device
     mix = torch.as_tensor(chunk, device=device)[None]
-    idx = torch.as_tensor(list(spk_idx), device=device)[None]
+    idx = None if spk_idx is None else \
+        torch.as_tensor(list(spk_idx), device=device)[None]
     sep = separate_waveforms(model, mix, cfg, idx, length=cfg.max_len)
     return sep[0].cpu().numpy()
 
 
 def separate_long(model: Separator, wav: np.ndarray, cfg: Config,
-                  spk_idx: Sequence[int], overlap_seconds: float = 1.0
-                  ) -> np.ndarray:
+                  spk_idx: Optional[Sequence[int]] = None,
+                  overlap_seconds: float = 1.0) -> np.ndarray:
     """Separate an arbitrarily long mixture (the reference hard-crops at
     MAX_LEN): max_len windows overlapping by `overlap_seconds`, each run
-    through the separator and cross-faded. The given speakers fix the
-    channel order across chunks. Returns (K, len(wav)) float32."""
+    through the separator and cross-faded. Given speakers fix the channel
+    order across chunks; without them the classifier picks per chunk and
+    the channels are aligned to the previous chunk by waveform correlation
+    over the overlap. Returns (K, len(wav)) float32."""
     n = len(wav)
     win = cfg.max_len
     if n <= win:
@@ -65,19 +72,33 @@ def separate_long(model: Separator, wav: np.ndarray, cfg: Config,
         return _separate_chunk(model, padded, cfg, spk_idx)[:, :n]
     ov = min(int(overlap_seconds * cfg.frame_rate), win // 4)
     hop = win - ov
-    out = np.zeros((len(spk_idx), n), np.float32)
+    k = cfg.top_k
+    out = np.zeros((k, n), np.float32)
     weight = np.zeros(n, np.float32)
     ramp = np.ones(win, np.float32)
     ramp[:ov] = np.linspace(0.0, 1.0, ov, endpoint=False)
     ramp[-ov:] = np.linspace(1.0, 0.0, ov, endpoint=False)
+    prev_tail = None
     for s in range(0, n - ov, hop):
         chunk = wav[s:s + win].astype(np.float32)
         if len(chunk) < win:
             chunk = np.pad(chunk, (0, win - len(chunk)))
         sep = _separate_chunk(model, chunk, cfg, spk_idx)
+        # forced speakers already fix the channel order (and a weak chunk's
+        # correlation could wrongly swap them)
+        if prev_tail is not None and spk_idx is None:
+            corr = np.abs(prev_tail @ sep[:, :ov].T)          # (K, K)
+            perm = np.full(k, -1, np.int64)
+            for _ in range(k):
+                i, j = np.unravel_index(np.argmax(corr), corr.shape)
+                perm[i] = j
+                corr[i, :] = -1
+                corr[:, j] = -1
+            sep = sep[perm]
         valid = min(win, n - s)
         out[:, s:s + valid] += sep[:, :valid] * ramp[:valid]
         weight[s:s + valid] += ramp[:valid]
+        prev_tail = sep[:, win - ov:win] if s + win < n else None
     return out / np.maximum(weight, 1e-8)
 
 
@@ -87,11 +108,12 @@ def main(argv=None):
     p.add_argument("--mode", default="topk", choices=["topk", "recursive"])
     p.add_argument("--out", default="separated")
     p.add_argument("--speakers", default=None,
-                   help="comma-separated speaker indices to extract "
-                        "(required until classifier selection is ported)")
+                   help="comma-separated speaker indices to force (teacher "
+                        "mode); default: classifier selection")
     p.add_argument("--long", action="store_true",
                    help="separate the FULL file via overlapped chunking "
-                        "(the reference hard-crops at MAX_LEN)")
+                        "with cross-chunk channel alignment (the reference "
+                        "hard-crops at MAX_LEN)")
     p.add_argument("--graft", default=None,
                    help="checkpoint-zoo composition (not ported yet)")
     args = p.parse_args(argv)
@@ -99,23 +121,23 @@ def main(argv=None):
     if args.checkpoint_dir or args.graft:
         raise SystemExit("--checkpoint-dir / --graft wait for the port's "
                          "checkpoints (ROADMAP P7)")
-    if args.mode == "recursive":
-        raise SystemExit("--mode recursive waits for the BiLSTM kernel K7 "
-                         "(ROADMAP P8)")
-    if not args.speakers:
-        raise SystemExit("classifier selection waits for the BiLSTM kernel "
-                         "K7 (ROADMAP P8); pass --speakers")
     cfg = build_cfg(args)
-    idx = [int(x) for x in args.speakers.split(",")]
-    if len(idx) != cfg.top_k:
-        raise SystemExit(
-            f"--speakers lists {len(idx)} speakers but the model extracts "
-            f"top_k={cfg.top_k} channels; pass exactly {cfg.top_k} (or "
-            f"--set top_k={len(idx)})")
-    if min(idx) < 0 or max(idx) >= cfg.num_speakers:
-        raise SystemExit(
-            f"--speakers indices must be in [0, {cfg.num_speakers}); got "
-            f"{idx}")
+    idx = None
+    if args.speakers:
+        if args.mode == "recursive":
+            raise SystemExit(
+                "--speakers is the teacher-forced top-k mode; recursive "
+                "mode selects speakers itself (one per peel step)")
+        idx = [int(x) for x in args.speakers.split(",")]
+        if len(idx) != cfg.top_k:
+            raise SystemExit(
+                f"--speakers lists {len(idx)} speakers but the model "
+                f"extracts top_k={cfg.top_k} channels; pass exactly "
+                f"{cfg.top_k} (or --set top_k={len(idx)})")
+        if min(idx) < 0 or max(idx) >= cfg.num_speakers:
+            raise SystemExit(
+                f"--speakers indices must be in [0, {cfg.num_speakers}); "
+                f"got {idx}")
     device = resolve_device(args.device)
     model = init_separator(cfg, torch.Generator().manual_seed(args.seed),
                            device)
@@ -140,14 +162,23 @@ def main(argv=None):
         paths = args.wavs[start:start + bsz]
         wavs, true_lens = zip(*[_load_mix(w, cfg) for w in paths])
         mix = torch.as_tensor(np.stack(wavs), device=device)
-        spk = torch.as_tensor(idx, device=device)[None].expand(len(paths), -1)
-        sep = separate_waveforms(model, mix, cfg, spk, length=cfg.max_len)
-        sep = sep.cpu().numpy()
+        if args.mode == "recursive":
+            sep, chosen = recursive_waveforms(model, mix, cfg,
+                                              length=cfg.max_len)
+        elif idx is None:
+            sep, chosen = select_and_separate(model, mix, cfg,
+                                              length=cfg.max_len)
+        else:
+            chosen = torch.as_tensor(idx, device=device)[None].expand(
+                len(paths), -1)
+            sep = separate_waveforms(model, mix, cfg, chosen,
+                                     length=cfg.max_len)
+        sep, chosen = sep.cpu().numpy(), chosen.cpu().numpy()
         for i, src_path in enumerate(paths):
             stem = os.path.splitext(os.path.basename(src_path))[0]
             for k in range(sep.shape[1]):
                 out_path = os.path.join(
-                    args.out, f"{stem}_spk{idx[k]}_step{k}.wav")
+                    args.out, f"{stem}_spk{int(chosen[i, k])}_step{k}.wav")
                 write_wav(out_path, sep[i, k, :true_lens[i]], cfg.frame_rate)
                 print("wrote", out_path)
 

@@ -1,13 +1,16 @@
-"""Training CLI — the port of `dl4ss_tpu/run/train.py`, joint mode:
+"""Training CLI — the port of `dl4ss_tpu/run/train.py`, joint and
+classifier modes:
 
     python -m dl4ss_tpu_torch.run.train --preset torch_multi --epochs 10
+    python -m dl4ss_tpu_torch.run.train --preset torch_multi \
+        --mode classifier --epochs 10
     python -m dl4ss_tpu_torch.run.train --preset synth_tiny --device cpu \
         --epochs 1 --epoch-size 2 --metrics metrics.jsonl
 
 Trains on the synthetic bank (--utts utterances per speaker) with the
 preset's loss and clipped Adam, and prints one JSON line per epoch with the
 last step's losses and the held-out SI-SDR. Not ported yet, each exiting
-with a one-line message: the other modes (ROADMAP P8, P9, P12),
+with a one-line message: the other modes (ROADMAP P9, P12),
 --checkpoint-dir / --resume / --init-from (P7) and --data-root (P10).
 """
 
@@ -25,7 +28,8 @@ def main(argv=None):
     p.add_argument("--mode", default="joint",
                    choices=["joint", "dense", "adversarial", "classifier",
                             "memory", "video", "image-query"],
-                   help="joint is ported; the others are not yet")
+                   help="joint and classifier are ported; the others are "
+                        "not yet")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--epoch-size", type=int, default=None)
     p.add_argument("--resume", action="store_true")
@@ -33,9 +37,9 @@ def main(argv=None):
     p.add_argument("--eval-every", type=int, default=1)
     args = p.parse_args(argv)
 
-    if args.mode != "joint":
-        raise SystemExit(f"--mode {args.mode} is not ported yet (joint "
-                         f"only; ROADMAP P8, P9, P12)")
+    if args.mode not in ("joint", "classifier"):
+        raise SystemExit(f"--mode {args.mode} is not ported yet (joint and "
+                         f"classifier only; ROADMAP P9, P12)")
     if args.checkpoint_dir or args.resume or args.init_from:
         raise SystemExit("--checkpoint-dir / --resume / --init-from are not "
                          "ported yet (ROADMAP P7)")
@@ -45,7 +49,7 @@ def main(argv=None):
     print(cfg.log_config())
     state, sdr = train_loop(
         cfg, bank=bank, max_epochs=args.epochs, epoch_size=args.epoch_size,
-        seed=args.seed, metrics_path=args.metrics,
+        seed=args.seed, mode=args.mode, metrics_path=args.metrics,
         eval_every=args.eval_every, device=device)
     if sdr:
         print(f"final SI-SDR: {sdr[-1]:.2f} dB (best {max(sdr):.2f})")

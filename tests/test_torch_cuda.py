@@ -247,3 +247,160 @@ def test_k1_refuses_an_input_that_requires_grad(dev):
         stft_features(x)
     with torch.no_grad():
         assert stft_features(x)[0].shape == (1, 8, 129)
+
+
+@pytest.mark.parametrize("t,b,h", [(7, 1, 33), (7, 5, 300), (7, 5, 600),
+                                   (3, 17, 8)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_k7_lstm_fwd(dev, t, b, h, dtype, tol):
+    """K7 against its plain version, hs and cs, at ragged shapes and at
+    the classifier widths 300 and 600."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    rng = np.random.default_rng(9)
+    s = 1 / np.sqrt(h)
+    xp = _t(rng.standard_normal((t, 2, b, 4 * h)), dev, dtype)
+    wh = _t(rng.uniform(-s, s, (2, h, 4 * h)), dev, dtype)
+    for name, g, r in zip(("hs", "cs"), k.lstm_scan_cuda(xp, wh),
+                          k.lstm_scan_plain(xp, wh)):
+        assert g.shape == r.shape and g.dtype == r.dtype == dtype, name
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=0,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("t,b,h", [(7, 1, 33), (7, 5, 300), (7, 5, 600),
+                                   (12, 3, 45)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_k8_lstm_bwd(dev, t, b, h, dtype, tol):
+    """K8 against its plain version on the forward's own hs and cs. f32:
+    only the summation order differs (1e-4). bf16: da is rounded to bf16
+    before both products, so an order difference can flip one rounding and
+    carry it back through the steps (5e-2, the repo's gradient bar for bf16
+    kernels)."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    rng = np.random.default_rng(10)
+    s = 1 / np.sqrt(h)
+    xp = _t(rng.standard_normal((t, 2, b, 4 * h)), dev, dtype)
+    wh = _t(rng.uniform(-s, s, (2, h, 4 * h)), dev, dtype)
+    hs, cs = k.lstm_scan_cuda(xp, wh)
+    zeros = torch.zeros_like(hs[:1])
+    args = (xp, wh, torch.cat([zeros, hs[:-1]]), torch.cat([zeros, cs[:-1]]),
+            cs, _t(rng.standard_normal((t, 2, b, h)), dev, dtype))
+    for name, g, r in zip(("dxp", "dU"), k.lstm_scan_bwd_cuda(*args),
+                          k.lstm_scan_bwd_plain(*args)):
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("b,n,length,hop", [(1, 3001, 256, 128),
+                                           (5, 777, 64, 16),
+                                           (2, 1000, 256, 64)])
+@pytest.mark.parametrize("center", [True, False])
+def test_k9_stft_ri(dev, b, n, length, hop, center):
+    """K9 against its plain version (N not a multiple of hop), centered
+    and not, and its packed halves against K1's Re and Im."""
+    from dl4ss_tpu_torch.ops import stft_kernels as k
+    from dl4ss_tpu_torch.ops.stft import reflect_pad
+    x = _t(np.random.default_rng(11).uniform(-1, 1, (b, n)), dev)
+    xin = (reflect_pad(x, length // 2) if center else x).contiguous()
+    got = k.stft_ri_cuda(xin, length, hop, "hann")
+    ref = k.stft_ri_plain(xin, length, hop, "hann")
+    assert got.shape == ref.shape
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(k.stft_ri(x, length, hop, "hann", center), got)
+    _, re, im = k.stft_features_cuda(xin, length, hop, "hann", torch.float32)
+    torch.testing.assert_close(got, torch.cat([re, im], dim=-1), atol=1e-6,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("b,t,length,hop", [(1, 9, 256, 128),
+                                            (5, 13, 64, 16),
+                                            (9, 6, 256, 64)])
+def test_k10_istft_ri(dev, b, t, length, hop):
+    """K10 against its plain version, the raw overlap-add and the whole
+    `istft_ri` with its three length cases."""
+    from dl4ss_tpu_torch.ops import stft_kernels as k
+    f = length // 2 + 1
+    ri = _t(np.random.default_rng(12).standard_normal((b, t, 2 * f)), dev)
+    torch.testing.assert_close(k.istft_ola_cuda(ri, length, hop, "hann"),
+                               k.istft_ola_plain(ri, length, hop, "hann"),
+                               atol=1e-4, rtol=0)
+    default = (t - 1) * hop
+    for want in (None, default + 50, default // 2):
+        got = k.istft_ri(ri, length, hop, length=want)
+        ref = k.istft_ri(ri.cpu(), length, hop, length=want)
+        assert got.shape == ref.shape == (b, want or default)
+        torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=0)
+
+
+def test_k9_k10_round_trip_and_refusals(dev):
+    from dl4ss_tpu_torch.ops import stft_kernels as k
+    x = _t(np.random.default_rng(13).uniform(-1, 1, (3, 5000)), dev)
+    y = k.istft_kernel(k.stft_kernel(x), length=5000)
+    torch.testing.assert_close(y[:, :4864], x[:, :4864], atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="frame_length % frame_shift"):
+        k.stft_ri(x, 256, 96)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k.stft_ri(x.clone().requires_grad_())
+
+
+def test_classifier_backward_launches_k8_and_matches_the_plain_route(dev):
+    """A loss on the classifier's logits on the kernel route launches K7
+    in the forward and K8 in the backward (once per layer), reaches every
+    classifier parameter, and agrees with the plain route (f32 both: 1e-3
+    relative L2, summation order through two layers and 31 steps)."""
+    from dl4ss_tpu_torch import preset
+    from dl4ss_tpu_torch.models import classify_speakers, init_separator
+    from dl4ss_tpu_torch.ops import cuda_lib
+    cfg = preset("synth_tiny").replace(use_pallas_rnn=True)
+    model = init_separator(cfg, torch.Generator().manual_seed(0), dev)
+    feat = _t(np.abs(np.random.default_rng(14).standard_normal(
+        (5, 31, cfg.freq_bins))), dev)
+    grads = []
+    for c in (cfg, cfg.replace(use_pallas_rnn=False)):
+        model.zero_grad()
+        before = dict(cuda_lib.LAUNCHES)
+        classify_speakers(model, feat, c, logits=True).square().mean(
+            ).backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+        if c is cfg:
+            for name in ("lstm_fwd", "lstm_bwd"):
+                assert cuda_lib.LAUNCHES[name] - before.get(name, 0) \
+                    == cfg.classifier_layers, name
+    assert set(grads[0]) == set(grads[1]) == {
+        n for n, _ in model.named_parameters() if n.startswith("classifier.")}
+    for name, g in grads[0].items():
+        assert _rel(g, grads[1][name]) < 1e-3, name
+
+
+def test_selected_and_recursive_serving_launch_k7(dev):
+    from dl4ss_tpu_torch import preset
+    from dl4ss_tpu_torch.models import init_separator
+    from dl4ss_tpu_torch.ops import cuda_lib
+    from dl4ss_tpu_torch.serve import (recursive_waveforms,
+                                       select_and_separate,
+                                       separate_waveforms)
+    cfg = preset("synth_tiny").replace(use_pallas_rnn=True,
+                                       use_pallas_stft=True,
+                                       use_pallas_maskhead=True)
+    model = init_separator(cfg, torch.Generator().manual_seed(0), dev)
+    wav = _t(np.random.default_rng(15).uniform(-1, 1, (2, cfg.max_len)), dev)
+    cuda_lib.LAUNCHES.clear()
+    wavs, spk = select_and_separate(model, wav, cfg, length=cfg.max_len)
+    assert {n: cuda_lib.LAUNCHES[n] for n in cuda_lib.SELECTION_KERNELS} == {
+        "stft_features": 1, "gru_fwd": cfg.encoder_layers,
+        "lstm_fwd": cfg.classifier_layers, "maskhead_fwd": 1,
+        "masked_istft": 1}
+    torch.testing.assert_close(
+        wavs, separate_waveforms(model, wav, cfg, spk, length=cfg.max_len))
+    cuda_lib.LAUNCHES.clear()
+    rec, steps = recursive_waveforms(model, wav, cfg, length=cfg.max_len)
+    assert rec.shape == (2, cfg.recursive_max_steps, cfg.max_len)
+    assert cuda_lib.LAUNCHES["lstm_fwd"] \
+        == cfg.classifier_layers * cfg.recursive_max_steps
+    assert cuda_lib.LAUNCHES["gru_fwd"] \
+        == cfg.encoder_layers * cfg.recursive_max_steps
+    assert bool(torch.isfinite(rec).all())

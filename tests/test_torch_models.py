@@ -9,13 +9,17 @@ import pytest
 import torch
 
 from dl4ss_tpu import preset as jax_preset
+from dl4ss_tpu.models import apply_classifier as jax_apply_classifier
 from dl4ss_tpu.models import init_separator as jax_init_separator
 from dl4ss_tpu.models import separate as jax_separate
+from dl4ss_tpu.models.separator import recursive_separate as jax_recursive
 from dl4ss_tpu.ops.pallas_stft import pallas_masked_istft, pallas_stft_features
 from dl4ss_tpu_torch import preset
-from dl4ss_tpu_torch.models import (Separator, init_classifier,
+from dl4ss_tpu_torch.models import (Separator, apply_classifier,
+                                    classify_speakers, init_classifier,
                                     init_embedding, init_encoder,
-                                    init_mask_head, init_separator, separate)
+                                    init_mask_head, init_separator,
+                                    recursive_separate, separate)
 from dl4ss_tpu_torch.models.common import linear_init
 from dl4ss_tpu_torch.ops.rnn import rnn_init
 from dl4ss_tpu_torch.serve import separate_waveforms
@@ -151,10 +155,149 @@ def test_serving_kernel_route_matches_plain_route():
 def test_unported_paths_raise():
     cfg = preset("synth_tiny")
     model = init_separator(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="K7"):
-        separate(model, torch.zeros((1, 4, 129)), cfg)
     with pytest.raises(NotImplementedError, match="P9"):
         init_separator(preset("tdaa"), device="cpu")
+    for call in (separate, recursive_separate):
+        with pytest.raises(NotImplementedError, match="P9"):
+            call(model, torch.zeros((1, 4, 129)),
+                 cfg.replace(is_self_tune=True))
+    with pytest.raises(NotImplementedError, match="P9"):
+        separate(model, torch.zeros((1, 4, 129)),
+                 cfg.replace(is_complex_mask=True),
+                 spk_idx=torch.tensor([[0, 1]]))
+    with pytest.raises(ValueError, match="LINEAR"):
+        recursive_separate(model, torch.zeros((1, 4, 129)),
+                           cfg.replace(log_spectral=True))
+
+
+def _feat(seed, shape=(3, 12, 129)):
+    return np.abs(np.random.default_rng(seed).standard_normal(shape)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("kernel_route", [False, True])
+@pytest.mark.parametrize("logits", [False, True])
+def test_apply_classifier_matches_jax(kernel_route, logits):
+    """The classifier (2-layer BiLSTM, mean over time, linear, sigmoid)
+    from the same loaded params, probabilities and logits, on the plain
+    route and on the kernel route (K7's plain version against the Pallas
+    kernel in interpret mode). f32 both sides: 1e-5. With the load this
+    also holds `load_jax_params` to the classifier's leaves."""
+    cfg_j, params, cfg_t, model = _pair("synth_tiny",
+                                        use_pallas_rnn=kernel_route)
+    feat = _feat(10)
+    ref = jax_apply_classifier(params["classifier"], jnp.asarray(feat),
+                               cfg_j, logits=logits)
+    with torch.no_grad():
+        ours = apply_classifier(model.classifier, torch.as_tensor(feat),
+                                cfg_t, logits=logits)
+        same = classify_speakers(model, torch.as_tensor(feat), cfg_t,
+                                 logits=logits)
+    assert tuple(ours.shape) == ref.shape == (3, cfg_t.num_speakers)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
+    torch.testing.assert_close(same, ours)
+
+
+def test_classifier_widens_with_hidden_mult():
+    """classifier_hidden_mult=2 (the TDAA forks) doubles the BiLSTM width;
+    the kernel route takes it and agrees with JAX: 1e-5."""
+    cfg_j, params, cfg_t, model = _pair(
+        "synth_tiny", classifier_hidden_mult=2, use_pallas_rnn=True)
+    assert model.classifier.rnn[0].fwd.wh.shape[0] == 2 * cfg_t.hidden_units
+    feat = _feat(11, (2, 7, 129))
+    ref = jax_apply_classifier(params["classifier"], jnp.asarray(feat), cfg_j)
+    with torch.no_grad():
+        ours = apply_classifier(model.classifier, torch.as_tensor(feat),
+                                cfg_t)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("flags", [False, True])
+def test_separate_with_classifier_selection_matches_jax(flags):
+    """`separate` with no speakers given: the classifier's top-k picks
+    them. Same probabilities (1e-5), the same selected speakers (the test
+    checks that the top-k is separated by more than the tolerance, so no
+    tie can flip it), the same queries and masks (1e-5 in f32; 1e-2 with
+    the bf16 mask head, see test_separate_matches_jax)."""
+    over = FLAGS if flags else {}
+    cfg_j, params, cfg_t, model = _pair("synth_tiny", **over)
+    feat = _feat(12)
+    ref = jax_separate(params, jnp.asarray(feat), cfg_j)
+    with torch.no_grad():
+        ours = separate(model, torch.as_tensor(feat), cfg_t)
+    probs = np.asarray(ref.probs)
+    ranked = np.sort(probs, axis=-1)[:, ::-1]
+    assert (ranked[:, :cfg_j.top_k] - ranked[:, 1:cfg_j.top_k + 1]
+            ).min() > 1e-4
+    np.testing.assert_allclose(ours.probs.numpy(), probs, atol=1e-5)
+    np.testing.assert_allclose(ours.queries.numpy(), np.asarray(ref.queries),
+                               atol=1e-6)
+    tol = 1e-2 if flags else 1e-5
+    np.testing.assert_allclose(ours.masks.numpy(), np.asarray(ref.masks),
+                               atol=tol)
+    np.testing.assert_allclose(ours.pred.numpy(), np.asarray(ref.pred),
+                               atol=tol)
+    # given speakers skip the classifier unless need_probs asks for it
+    spk = torch.tensor([[0, 1]] * 3)
+    with torch.no_grad():
+        assert not separate(model, torch.as_tensor(feat), cfg_t,
+                            spk_idx=spk).probs.any()
+        forced = separate(model, torch.as_tensor(feat), cfg_t, spk_idx=spk,
+                          need_probs=True)
+    np.testing.assert_allclose(forced.probs.numpy(), probs, atol=1e-5)
+
+
+@pytest.mark.parametrize("with_allowed", [False, True])
+@pytest.mark.parametrize("kernel_route", [False, True])
+def test_recursive_separate_matches_jax(with_allowed, kernel_route):
+    """The peel loop against JAX from the same params: the same speaker
+    per step and the same extracted spectra (f32 both sides, 1e-5; the
+    recursive path uses the plain mask head on both), with and without a
+    candidate roster. Three steps, so the already-extracted exclusion is
+    exercised twice."""
+    cfg_j, params, cfg_t, model = _pair(
+        "synth_tiny", recursive_max_steps=3, use_pallas_rnn=kernel_route)
+    feat = _feat(13)
+    allowed = None
+    if with_allowed:
+        allowed = np.zeros((3, cfg_t.num_speakers), bool)
+        allowed[:, [1, 4, 6, 7]] = True
+    ref_x, ref_s = jax_recursive(
+        params, jnp.asarray(feat), cfg_j,
+        allowed=None if allowed is None else jnp.asarray(allowed))
+    with torch.no_grad():
+        ours_x, ours_s = recursive_separate(
+            model, torch.as_tensor(feat), cfg_t,
+            allowed=None if allowed is None else torch.as_tensor(allowed))
+    assert tuple(ours_x.shape) == ref_x.shape == (3, 3, 12, 129)
+    np.testing.assert_array_equal(ours_s.numpy(), np.asarray(ref_s))
+    for row in ours_s.tolist():
+        assert len(set(row)) == 3
+        if with_allowed:
+            assert set(row) <= {1, 4, 6, 7}
+    np.testing.assert_allclose(ours_x.numpy(), np.asarray(ref_x), atol=1e-5)
+
+
+def test_selected_serving_matches_given_speakers():
+    """`select_and_separate` returns the classifier's top-k and the same
+    waveforms as `separate_waveforms` given those speakers; the recursive
+    program returns one finite waveform per peel step."""
+    from dl4ss_tpu_torch.serve import (recursive_waveforms,
+                                       select_and_separate)
+    cfg = preset("synth_tiny").replace(**FLAGS)
+    model = init_separator(cfg, torch.Generator().manual_seed(0), "cpu")
+    wav = torch.rand((2, cfg.max_len), generator=torch.Generator()
+                     .manual_seed(1)) * 2 - 1
+    wavs, spk = select_and_separate(model, wav, cfg, length=cfg.max_len)
+    assert tuple(spk.shape) == (2, cfg.top_k)
+    torch.testing.assert_close(
+        wavs, separate_waveforms(model, wav, cfg, spk, length=cfg.max_len))
+    torch.testing.assert_close(
+        wavs, separate_waveforms(model, wav, cfg, length=cfg.max_len))
+    rec, steps = recursive_waveforms(model, wav, cfg, length=cfg.max_len)
+    assert tuple(rec.shape) == (2, cfg.recursive_max_steps, cfg.max_len)
+    assert tuple(steps.shape) == (2, cfg.recursive_max_steps)
+    assert bool(torch.isfinite(rec).all())
 
 
 def test_init_separator_is_seeded_and_device_checked():

@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from dl4ss_tpu.ops.pallas_rnn import pallas_gru_scan
+from dl4ss_tpu.ops.pallas_rnn import (_lstm_fwd, pallas_gru_scan,
+                                      pallas_lstm_scan)
 from dl4ss_tpu.ops.rnn import bidirectional_rnn as jax_birnn
 from dl4ss_tpu.ops.rnn import rnn_init as jax_rnn_init
 from dl4ss_tpu_torch.ops import rnn_kernels
@@ -30,9 +31,9 @@ def _stack(cell, d, h, layers, seed):
 @pytest.mark.parametrize("jax_pallas", [False, True])
 @pytest.mark.parametrize("port_kernel_route", [False, True])
 def test_birnn_matches_jax(cell, jax_pallas, port_kernel_route):
-    """The port's plain loop and its kernel route (K2's plain version on
-    CPU tensors; LSTM takes the loop) against JAX's scan and Pallas
-    (interpret mode) routes."""
+    """The port's plain loop and its kernel route (K2's and K7's plain
+    versions on CPU tensors) against JAX's scan and Pallas (interpret mode)
+    routes."""
     jl, tl = _stack(cell, 9, 6, 2, seed=0)
     x = np.random.default_rng(0).standard_normal((3, 11, 9)).astype(
         np.float32)
@@ -171,3 +172,128 @@ def test_birnn_kernel_route_grads_match_jax():
     for name, want in ref.items():
         np.testing.assert_allclose(grads[name].numpy(), want, atol=1e-4,
                                    rtol=1e-4, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# LSTM: K7 and K8
+# ---------------------------------------------------------------------------
+
+
+def _lstm_scan_inputs(t, b, h, seed, dtype):
+    rng = np.random.default_rng(seed)
+    s = 1 / np.sqrt(h)
+    xp = rng.standard_normal((t, 2, b, 4 * h)).astype(np.float32)
+    wh = rng.uniform(-s, s, (2, h, 4 * h)).astype(np.float32)
+    dhs = rng.standard_normal((t, 2, b, h)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jax_in = (jnp.asarray(xp, jdt), jnp.asarray(wh, jdt),
+              jnp.asarray(dhs, jdt))
+    torch_in = (torch.as_tensor(xp).to(dtype), torch.as_tensor(wh).to(dtype),
+                torch.as_tensor(dhs).to(dtype))
+    return jax_in, torch_in
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("t,b,h", [(7, 2, 128), (9, 3, 20)])
+def test_lstm_scan_plain_matches_pallas_lstm_scan(dtype, tol, t, b, h):
+    """K7's plain version against the Pallas kernel body (interpret mode)
+    on the same fused inputs: hs through `pallas_lstm_scan`, cs through
+    `_lstm_fwd`. f32: summation order only, 1e-5. bf16: both carry h in
+    bf16 and c in f32 and round the stored cs; one flipped bf16 rounding of
+    h carries forward, 2e-2. H=20, B=3 is the ragged case (not a multiple
+    of 32, nor of the TPU's 128 lanes, which interpret mode does not need)."""
+    (jxp, jwh, _), (xp, wh, _) = _lstm_scan_inputs(t, b, h, 11, dtype)
+    ref_hs = pallas_lstm_scan(jxp, jwh)
+    _, ref_cs = _lstm_fwd(jxp, jwh)
+    hs, cs = rnn_kernels.lstm_scan_plain(xp, wh)
+    assert hs.dtype == cs.dtype == dtype
+    assert tuple(hs.shape) == ref_hs.shape == (t, 2, b, h)
+    np.testing.assert_allclose(hs.float().numpy(),
+                               np.asarray(ref_hs, np.float32), atol=tol)
+    np.testing.assert_allclose(cs.float().numpy(),
+                               np.asarray(ref_cs, np.float32), atol=tol)
+    torch.testing.assert_close(rnn_kernels.lstm_scan(xp, wh), hs)
+
+
+def _lstm_scan_grads(xp, wh, dhs):
+    """(dxp, dU) of <lstm_scan(xp, wh), dhs> through the port's
+    autograd.Function (K8's plain version on CPU tensors)."""
+    leaves = [a.detach().requires_grad_() for a in (xp, wh)]
+    return torch.autograd.grad(rnn_kernels.lstm_scan(*leaves), leaves, dhs)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("t,b,h", [(7, 3, 16), (6, 3, 33)])
+def test_lstm_scan_bwd_matches_pallas_vjp(dtype, tol, t, b, h):
+    """K8's plain version (the lstm_scan backward) against jax.vjp of
+    pallas_lstm_scan, whose backward is the Pallas `_lstm_bwd_kernel` in
+    interpret mode. f32: summation order only, 1e-4. bf16: both round da to
+    bf16 before the carry product and the dU sum and keep dxp in bf16, so
+    one flipped rounding carries back through the steps: 5e-2, the repo's
+    bar for bf16 kernel gradients. H=33, B=3 is the ragged case."""
+    (jxp, jwh, jdhs), tin = _lstm_scan_inputs(t, b, h, 12, dtype)
+    _, vjp = jax.vjp(pallas_lstm_scan, jxp, jwh)
+    ref = vjp(jdhs)
+    ours = _lstm_scan_grads(*tin)
+    for name, g, r, arg in zip(("dxp", "dU"), ours, ref, tin):
+        assert g.dtype == arg.dtype and tuple(g.shape) == r.shape, name
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(r, np.float32), atol=tol,
+                                   rtol=tol, err_msg=name)
+
+
+def test_lstm_scan_bwd_matches_autograd_of_plain_loop():
+    """The hand-written reverse loop against torch autograd through the
+    forward loop `lstm_scan_plain`, f32: summation order only, 1e-5."""
+    _, (xp, wh, dhs) = _lstm_scan_inputs(9, 4, 12, 13, torch.float32)
+    leaves = [a.clone().requires_grad_() for a in (xp, wh)]
+    ref = torch.autograd.grad(rnn_kernels.lstm_scan_plain(*leaves)[0],
+                              leaves, dhs)
+    for name, g, r in zip(("dxp", "dU"), _lstm_scan_grads(xp, wh, dhs), ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5, msg=name)
+
+
+def test_bilstm_kernel_route_grads_match_jax():
+    """Gradients of a 2-layer BiLSTM on the kernel route (input projection
+    and direction flip as torch ops, the recurrence through lstm_scan and
+    K8's plain version) against jax.grad of the JAX stack with
+    use_pallas=True (the Pallas forward and backward kernels in interpret
+    mode), for every parameter and the input. f32 both sides: 1e-4."""
+    jl, tl = _stack("lstm", 9, 6, 2, seed=14)
+    rng = np.random.default_rng(15)
+    x = rng.standard_normal((3, 11, 9)).astype(np.float32)
+    cot = rng.standard_normal((3, 11, 12)).astype(np.float32)
+
+    def loss(params, xx):
+        out = jax_birnn(params, xx, "lstm", use_pallas=True)
+        return jnp.sum(out * jnp.asarray(cot))
+
+    ref_p, ref_x = jax.grad(loss, argnums=(0, 1))(jl, jnp.asarray(x))
+    xt = torch.as_tensor(x).requires_grad_()
+    out = bidirectional_rnn(tl, xt, "lstm", use_pallas=True)
+    (out * torch.as_tensor(cot)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_x), atol=1e-4)
+    grads = {n: p.grad for n, p in tl.named_parameters()}
+    ref = dict(flatten_tree(jax.tree_util.tree_map(np.asarray, ref_p)))
+    assert set(grads) == set(ref)
+    for name, want in ref.items():
+        np.testing.assert_allclose(grads[name].numpy(), want, atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
+def test_bilstm_bf16_kernel_route_matches_jax():
+    """A bf16 BiLSTM layer on the kernel route against JAX with
+    use_pallas=True on the same bf16 input: both keep bf16 operands and h
+    with f32 accumulation and an f32 cell state: 2e-2."""
+    jl, tl = _stack("lstm", 6, 5, 1, seed=16)
+    x = np.random.default_rng(17).standard_normal((2, 8, 6)).astype(
+        np.float32)
+    ref = jax_birnn(jl, jnp.asarray(x, jnp.bfloat16), "lstm",
+                    use_pallas=True)
+    out = bidirectional_rnn(tl, torch.as_tensor(x).bfloat16(), "lstm",
+                            use_pallas=True)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().detach().numpy(),
+                               np.asarray(ref, np.float32), atol=2e-2)

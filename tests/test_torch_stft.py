@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from dl4ss_tpu.ops import windows as jwin
-from dl4ss_tpu.ops.pallas_stft import pallas_masked_istft, pallas_stft_features
+from dl4ss_tpu.ops.pallas_stft import (pallas_istft, pallas_istft_ri,
+                                       pallas_masked_istft, pallas_stft,
+                                       pallas_stft_features, pallas_stft_ri)
 from dl4ss_tpu_torch import preset
 from dl4ss_tpu_torch.ops import stft as tstft
 from dl4ss_tpu_torch.ops import stft_kernels as tk
@@ -187,3 +189,93 @@ def test_masked_resynthesis_grads_match_jax(fused):
     for name, leaf, r in zip(("re", "im", "masks"), leaves, ref):
         np.testing.assert_allclose(leaf.grad.numpy(), _np(r), atol=ATOL,
                                    err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# K9 (packed STFT) and K10 (iSTFT of a packed spectrum)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("n,length,hop,window", [(2048, 256, 128, "hann"),
+                                                 (1000, 64, 16, "sqrt_hann")])
+def test_k9_plain_matches_pallas_stft_ri(center, n, length, hop, window):
+    """`stft_ri` on a CPU tensor (K9's plain version) against the Pallas
+    kernel in interpret mode, centered and not, and against K1's Re and Im
+    on the same signal: 1e-4."""
+    x = _wav(20, (3, n))
+    ref = pallas_stft_ri(jnp.asarray(x), length, hop, window, center)
+    ours = tk.stft_ri(_t(x), length, hop, window, center)
+    assert tuple(ours.shape) == ref.shape and ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), _np(ref), atol=ATOL)
+    _, re, im = tk.stft_features(_t(x), length, hop, window, center)
+    torch.testing.assert_close(ours, torch.cat([re, im], dim=-1),
+                               atol=1e-6, rtol=0)
+
+
+def test_k9_complex_wrapper_matches_pallas_stft():
+    x = _wav(21, (2, 1500))
+    ref = pallas_stft(jnp.asarray(x))
+    ours = tk.stft_kernel(_t(x))
+    assert ours.dtype == torch.complex64 and tuple(ours.shape) == ref.shape
+    np.testing.assert_allclose(ours.real.numpy(), _np(ref.real), atol=ATOL)
+    np.testing.assert_allclose(ours.imag.numpy(), _np(ref.imag), atol=ATOL)
+
+
+@pytest.mark.parametrize("length", [None, 4000, 1000])
+@pytest.mark.parametrize("center", [True, False])
+def test_k10_plain_matches_pallas_istft_ri(length, center):
+    """`istft_ri` on a CPU tensor (K10's plain version, then the win^2
+    normalisation, the trim and the length contract) against the Pallas
+    kernel in interpret mode, for the three length cases (default
+    (T-1)*hop, zero-padded past it, cut short): 1e-4. The spectrum is a
+    signal's own. Uncentered, the first and last 16 samples are divided by
+    a win^2 below 1e-3, which amplifies the f32 round-off of either side's
+    iDFT: they are held to 1e-2."""
+    n = 30 * 128 if center else 30 * 128 + 256
+    ri = tk.stft_ri(_t(_wav(22, (2, n))), center=center).numpy()
+    assert ri.shape == (2, 31, 258)
+    ref = pallas_istft_ri(jnp.asarray(ri), center=center, length=length)
+    ours = tk.istft_ri(_t(ri), center=center, length=length)
+    want = length or (30 * 128 if center else 30 * 128 + 256)
+    assert tuple(ours.shape) == ref.shape == (2, want)
+    ours, ref = ours.numpy(), _np(ref)
+    if not center:
+        edge = np.ones(want, bool)
+        edge[16:n - 16] = False
+        np.testing.assert_allclose(ours[:, edge], ref[:, edge], atol=1e-2)
+        ours, ref = ours[:, ~edge], ref[:, ~edge]
+    np.testing.assert_allclose(ours, ref, atol=ATOL)
+
+
+def test_k9_k10_round_trip_and_complex_wrapper():
+    """K9 then K10 returns the waveform (1e-4), and the complex wrapper
+    agrees with `pallas_istft` on the same spectrum."""
+    x = _wav(23, (2, 4000))
+    spec = tk.stft_kernel(_t(x))
+    y = tk.istft_kernel(spec)
+    assert tuple(y.shape) == (2, (spec.shape[1] - 1) * 128)
+    np.testing.assert_allclose(y.numpy(), x[:, :y.shape[1]], atol=ATOL)
+    ref = pallas_istft(jnp.asarray(spec.numpy()))
+    np.testing.assert_allclose(y.numpy(), _np(ref), atol=ATOL)
+    y2 = tk.istft_ri(tk.stft_ri(_t(x)), length=4000)
+    np.testing.assert_allclose(y2.numpy()[:, :3900], x[:, :3900], atol=ATOL)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: tk.stft_ri(torch.zeros((1, 1000)), 256, 96),
+    lambda: tk.istft_ri(torch.zeros((1, 5, 258)), 256, 96),
+], ids=["stft_ri", "istft_ri"])
+def test_k9_k10_need_hop_dividing_frame_length(call):
+    with pytest.raises(ValueError, match="frame_length % frame_shift"):
+        call()
+
+
+def test_ops_exports_the_kernel_wrappers():
+    """`dl4ss_tpu_torch.ops` exports the kernel wrappers by name, as the JAX
+    package exports its pallas_* functions, and keeps `ops.stft` a module."""
+    from dl4ss_tpu_torch import ops
+    for name in ("stft_features", "masked_istft", "stft_ri", "stft_kernel",
+                 "istft_ri", "istft_kernel", "gru_scan", "lstm_scan"):
+        assert callable(getattr(ops, name)), name
+    assert ops.stft is tstft
