@@ -9,7 +9,9 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      card, at the shapes the serving and training paths give it, with its
      tolerance (K1-K4 forward, K5 the BiGRU backward, K6 the mask-head
      backward, K7 and K8 the BiLSTM forward and backward at the classifier
-     width 300 and at 600, K9 and K10 the packed STFT and iSTFT);
+     width 300 and at 600, K9 and K10 the packed STFT and iSTFT); K1 and
+     K9 run their FFT body there, which is also held against its plain
+     torch mirror, and their direct body on a frame length of 96;
   3. round trips: STFT features then masked iSTFT with all-ones masks, and
      the packed STFT then iSTFT through the public `ops` exports,
      reconstruct the waveform;
@@ -38,7 +40,9 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      one-call library yardstick, the end-to-end batch, request and train
      step times with given and with classifier-selected speakers, and a
      torch.profiler breakdown of one batch, one request and one step of
-     each trainer.
+     each trainer; for K1 and K9 also the direct body at the same shape,
+     both bodies at B=1 and at the 32 source signals of a train step, and
+     what an empty launch costs.
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
 those lines; so does a machine without CUDA.
@@ -90,6 +94,9 @@ TOL = {"stft_features": 1e-4, "gru_fwd": 1e-4, "gru_fwd_bf16": 2e-2,
        "lstm_fwd": 1e-4, "lstm_fwd_bf16": 2e-2,
        "lstm_bwd": 1e-4, "lstm_bwd_bf16": 5e-2,
        "stft_ri": 1e-4, "istft_ri": 1e-4,
+       # the FFT body against its mirror, the same steps in plain torch:
+       # they differ by the compiler's FMA contraction only
+       "stft_mirror": 1e-5,
        # selected speakers are compared where the plain path's top-k
        # probabilities are further apart than this
        "selection_gap": 1e-3}
@@ -249,6 +256,19 @@ def main() -> int:
         max_err(a, b) for a, b in zip(feat_c, feat_p)), TOL["stft_features"])}
     _, re, im = feat_c
     T = re.shape[1]
+    # the serving shape takes the tile's FFT body; the direct body, which
+    # every other frame length takes, on L=96 at the same batch
+    if k14.stft_body(L, hop) != k14.BODY_FFT:
+        fail(f"L={L}, hop={hop} does not take the FFT body")
+    xpad96 = reflect_pad(wav, 48).contiguous()
+    before = k14.BODY_LAUNCHES["stft_features", k14.BODY_DIRECT]
+    check("K1 stft_features direct body, L=96 hop=48", max(
+        max_err(a, b) for a, b in zip(
+            k14.stft_features_cuda(xpad96, 96, 48, cfg.window, torch.float32),
+            k14.stft_features_plain(xpad96, 96, 48, cfg.window,
+                                    torch.float32))), TOL["stft_features"])
+    if k14.BODY_LAUNCHES["stft_features", k14.BODY_DIRECT] != before + 1:
+        fail("L=96 did not run the direct body")
 
     scale = 1.0 / np.sqrt(H)
     xp = tensor(0.5 * rng.standard_normal((T, 2, BATCH, 3 * H)))
@@ -355,7 +375,16 @@ def main() -> int:
             k14.stft_ri_cuda(wav, L, hop, cfg.window),
             k14.stft_ri_plain(wav, L, hop, cfg.window)), TOL["stft_ri"]))
     check("K9 packed halves against K1's Re and Im", max_err(
-        ri_c, torch.cat([re, im], dim=-1)), TOL["stft_ri"])
+        ri_c, torch.cat([re, im], dim=-1)), 1e-6)
+    check("K9 FFT body against its plain torch mirror", max_err(
+        ri_c, k14.stft_fft_mirror(xpad, L, hop, cfg.window)),
+        TOL["stft_mirror"])
+    check("K9 direct body forced at L=256 against the FFT body", max_err(
+        k14.stft_ri_cuda(xpad, L, hop, cfg.window, body=k14.BODY_DIRECT),
+        ri_c), TOL["stft_ri"])
+    check("K9 stft_ri direct body, L=96 hop=48", max_err(
+        k14.stft_ri_cuda(xpad96, 96, 48, cfg.window),
+        k14.stft_ri_plain(xpad96, 96, 48, cfg.window)), TOL["stft_ri"])
     errs["istft_ri"] = check("K10 istft_ri", max_err(
         k14.istft_ola_cuda(ri_c, L, hop, cfg.window),
         k14.istft_ola_plain(ri_c, L, hop, cfg.window)), TOL["istft_ri"])
@@ -399,12 +428,18 @@ def main() -> int:
                              device=dev)) for _ in range(REQUESTS)]
     torch.cuda.synchronize()
     cuda_lib.LAUNCHES.clear()
+    k14.BODY_LAUNCHES.clear()
     out16 = separate_waveforms(model, wav, cfg, spk, length=N_SAMPLES)
     outs1 = [separate_waveforms(model, w, cfg, s, length=N_SAMPLES)
              for w, s in reqs]
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
-    print(f"main path launches: {launches}", flush=True)
+    print(f"main path launches: {launches}; STFT bodies "
+          f"{dict(k14.BODY_LAUNCHES)}", flush=True)
+    if dict(k14.BODY_LAUNCHES) != {
+            ("stft_features", k14.BODY_FFT): launches.get("stft_features")}:
+        fail(f"the serving path's STFT launches were not all the FFT body: "
+             f"{dict(k14.BODY_LAUNCHES)}")
     launches.update(dsp_launches)
     missing = [n for n in cuda_lib.SERVING_KERNELS if not launches.get(n)]
     if missing:
@@ -762,9 +797,9 @@ def main() -> int:
                                                   torch.float32),
             plain=lambda: k14.stft_features_plain(xpad, L, hop, cfg.window,
                                                   torch.float32),
-            library=lambda: torch.stft(wav, L, hop, window=hann, center=True,
-                                       pad_mode="reflect",
-                                       return_complex=True),
+            # as the kernel, on the padded signal; it yields X but no |X|
+            library=lambda: torch.stft(xpad, L, hop, window=hann,
+                                       center=False, return_complex=True),
             # the padded wav in, |X|, Re X, Im X out; window: L multiplies,
             # |X|: 4 operations per bin
             bytes=4 * (xpad.numel() + 3 * B * T * F),
@@ -823,10 +858,47 @@ def main() -> int:
               f"ms, library {lib_ms} ms, bound {bound_ms:.4f} ms "
               f"({bound_by})", flush=True)
 
+    def stft_extras():
+        """K1 and K9 beside the rows: what a launch costs at all, the
+        yardstick as it was timed before (padding inside), the direct body
+        at the same shape, and both bodies by batch (B=1: a request; 2*B:
+        the source signals of a train step)."""
+        one = torch.zeros(1, device=dev)
+        empty_ms = device_ms(torch, lambda: None, 50)
+        add_ms = device_ms(torch, lambda: one.add_(1), 50)
+        print(f"time launch floor: an event pair around nothing "
+              f"{empty_ms:.4f} ms, around a one-element add {add_ms:.4f} ms",
+              flush=True)
+        old_lib = device_ms(torch, lambda: torch.stft(
+            wav, L, hop, window=hann, center=True, pad_mode="reflect",
+            return_complex=True), 20)
+        print(f"time torch.stft(wav, center=True), the yardstick as timed "
+              f"before (it pads inside): {old_lib:.4f} ms", flush=True)
+        def k1(x, **kw):
+            return k14.stft_features_cuda(x, L, hop, cfg.window,
+                                          torch.float32, **kw)
+
+        def k9(x, **kw):
+            return k14.stft_ri_cuda(x, L, hop, cfg.window, **kw)
+
+        for name, fn in (("stft_features", k1), ("stft_ri", k9)):
+            for label, x in ((f"B={B}", xpad), ("B=1", xpad[:1].contiguous()),
+                             (f"B={2 * B}", torch.cat([xpad, xpad]))):
+                parts = [
+                    f"{what} {device_ms(torch, lambda: fn(x, **kw), 50):.4f}"
+                    for what, kw in (("FFT body", {}), (
+                        "direct body", {"body": k14.BODY_DIRECT}))]
+                lib = device_ms(torch, lambda: torch.stft(
+                    x, L, hop, window=hann, center=False,
+                    return_complex=True), 50)
+                print(f"time {name} {label} ms: " + ", ".join(parts)
+                      + f", torch.stft(center=False) {lib:.4f}", flush=True)
+
     with torch.inference_mode():
         for name, r in rows.items():
             slow = name == "gru_fwd"
             time_row(name, r, 5 if slow else 20, 3 if slow else 10)
+        stft_extras()
         pack_ms = device_ms(torch, lambda: k3.pack_w(wb, F, E), 10)
         print(f"time maskhead_pack (K3's W layout, once per weight version, "
               f"bf16 W): {pack_ms:.4f} ms", flush=True)
@@ -965,9 +1037,8 @@ def main() -> int:
             replaces="dl4ss_tpu/ops/pallas_stft.py:34",
             kernel=lambda: k14.stft_ri_cuda(xpad, L, hop, cfg.window),
             plain=lambda: k14.stft_ri_plain(xpad, L, hop, cfg.window),
-            library=lambda: torch.stft(wav, L, hop, window=hann, center=True,
-                                       pad_mode="reflect",
-                                       return_complex=True),
+            library=lambda: torch.stft(xpad, L, hop, window=hann,
+                                       center=False, return_complex=True),
             # the padded wav in, [Re | Im] out; window: L multiplies
             bytes=4 * (xpad.numel() + ri_c.numel()),
             t_ops=(rfft_flops(B * T, L) + B * T * L) / F32_FLOPS),

@@ -8,17 +8,15 @@
 // and Im in [..., F:].
 //
 // Bound on the H100: bytes. At B=16, N=40000 (T=313, F=129, L=256) the
-// function reads 2.6 MB and writes 5.2 MB (~2.3 us at 3.35 TB/s); an FFT's
-// ~30 MFLOP are below that. As K1, this direct DFT does 0.66 GFLOP of f32
-// FMA (~10 us at the f32 CUDA-core rate), so its own work limits it.
-//
-// Design: K1's body without the magnitude. The DFT tile is the one of
-// stft_tile.cuh, shared with K1 (one block per (utterance, 16 frames), one
-// thread per frequency bin, f32 FMA against the L2-resident table); this
-// file adds only the packed epilogue.
+// function reads 2.6 MB and writes 5.2 MB (~2.3 us at 3.35 TB/s); a real
+// FFT of every frame is ~26 MFLOP, below that. The kernel is K1's body
+// without the magnitude: the shared-memory real-FFT tile of stft_tile.cuh
+// (samples staged once per tile, one warp per frame, twiddles from a
+// table; the direct tile for a frame length that is no power of two). This
+// file adds only the packed epilogue, two coalesced stores per frame.
 #include "stft_tile.cuh"
 
-namespace {
+namespace dl4ss {
 
 struct EmitPacked {
   float* __restrict__ out;   // (B, T, 2F)
@@ -31,29 +29,21 @@ struct EmitPacked {
   }
 };
 
-__global__ void stft_ri_kernel(
-    const float* __restrict__ x, const float* __restrict__ win,
-    const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-    float* __restrict__ out, int Np, int T, int L, int hop, int F) {
-  dl4ss::stft_tile(x, win, cos_t, sin_t, Np, T, L, hop, F,
-                   EmitPacked{out, T, F});
-}
-
-}  // namespace
+}  // namespace dl4ss
 
 // x (B, Np) f32, reflect-padded by the caller when centered; win (L,);
-// cos_t, sin_t (L, F) f32; out (B, T, 2F) f32.
-extern "C" int dl4ss_stft_ri(const void* x, const void* win,
+// tw (L/2+1, 2) f32 for the FFT tile, cos_t, sin_t (L, F) f32 for the
+// direct tile (the tables of the body that does not run may be null);
+// out (B, T, 2F) f32. body: 1 the FFT tile, 2 the direct tile.
+extern "C" int dl4ss_stft_ri(const void* x, const void* win, const void* tw,
                              const void* cos_t, const void* sin_t, void* out,
                              int B, int Np, int T, int L, int hop, int F,
-                             void* stream) {
-  const size_t smem = dl4ss::stft_smem(L);
-  cudaError_t err = dl4ss::allow_smem(stft_ri_kernel, smem);
-  if (err != cudaSuccess) return err;
-  stft_ri_kernel<<<dl4ss::stft_grid(B, T), dl4ss::stft_threads(F), smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(win),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<float*>(out), Np, T, L, hop, F);
-  return cudaGetLastError();
+                             int body, void* stream) {
+  const dl4ss::StftArgs args{
+      static_cast<const float*>(x),     static_cast<const float*>(win),
+      static_cast<const float*>(tw),    static_cast<const float*>(cos_t),
+      static_cast<const float*>(sin_t), B, Np, T, L, hop, F, body};
+  return dl4ss::stft_launch(
+      args, dl4ss::EmitPacked{static_cast<float*>(out), T, F},
+      static_cast<cudaStream_t>(stream));
 }

@@ -43,7 +43,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # C signature of each kernel entry point: p = pointer, i = int. The stream
 # is appended as a pointer; every function returns an int error code.
 SIGNATURES = {
-    "stft_features": "pppppppiiiiiii",
+    "stft_features": "ppppppppiiiiiiii",
     "gru_fwd": "ppppiiiii",
     "maskhead_fwd": "pppppiiiiiii",
     "maskhead_pack": "ppiiii",       # K3's weight layout, once per W version
@@ -52,7 +52,7 @@ SIGNATURES = {
     "maskhead_bwd": "pppppppppiiiiii",
     "lstm_fwd": "pppppiiiii",
     "lstm_bwd": "ppppppppppiiiii",
-    "stft_ri": "pppppiiiiii",
+    "stft_ri": "ppppppiiiiiii",
     "istft_ri": "pppppiiiiii",
 }
 # The ports of the TPU kernels that a serving call with given speakers

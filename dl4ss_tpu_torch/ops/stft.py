@@ -60,7 +60,20 @@ class DspTables(NamedTuple):
     idft: torch.Tensor   # (2F, L) scaled inverse
 
 
-@functools.lru_cache(maxsize=16)
+def table_cache(fn):
+    """`lru_cache` for constant tensors. It builds them with inference mode
+    off: a table first made inside a serving call (`torch.inference_mode`)
+    would otherwise be an inference tensor, which a later training step in
+    the same process could not save for its backward."""
+    @functools.lru_cache(maxsize=16)
+    @functools.wraps(fn)
+    def cached(*args):
+        with torch.inference_mode(False):
+            return fn(*args)
+    return cached
+
+
+@table_cache
 def dsp_tables(frame_length: int, window: str, device: torch.device
                ) -> DspTables:
     """The f32 DSP constants for one (L, window) on one device, built once."""

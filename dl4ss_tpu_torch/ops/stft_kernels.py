@@ -11,10 +11,18 @@ csrc/istft_ri.cu); there is no fallback from one to the other. The
 against the other on the same inputs. None of the four has a backward (nor
 have the JAX kernels): on the card an input that requires grad raises
 rather than giving a detached result.
+
+K1 and K9 share one CUDA tile (csrc/stft_tile.cuh) with two hand-written
+bodies: a shared-memory real FFT for a power-of-two frame length, the
+direct product for any other (`stft_body` is the rule). The FFT body cannot
+run off the card, so `stft_fft_mirror` repeats its steps one for one in
+plain torch for the CPU tests; nothing on a serving or training path calls
+the mirror.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import Optional, Tuple
 
@@ -23,7 +31,8 @@ import torch
 
 from dl4ss_tpu_torch.ops import cuda_lib
 from dl4ss_tpu_torch.ops.stft import (_trim, dft_matrix, dsp_tables,
-                                      idft_matrix, overlap_add, reflect_pad)
+                                      idft_matrix, overlap_add, reflect_pad,
+                                      table_cache)
 from dl4ss_tpu_torch.ops.windows import get_window
 
 _FEAT_DTYPES = (torch.float32, torch.bfloat16)
@@ -88,32 +97,159 @@ def stft_features_plain(xpad: torch.Tensor, frame_length: int,
     return torch.sqrt(re * re + im * im).to(feat_dtype), re, im
 
 
-@functools.lru_cache(maxsize=16)
+@table_cache
 def _dft_halves(frame_length: int, device: torch.device):
-    """cos and -sin tables, each (L, F) contiguous."""
+    """cos and -sin tables, each (L, F) contiguous: the direct body's."""
     dft = torch.as_tensor(dft_matrix(frame_length), device=device)
     bins = _bins(frame_length)
     return dft[:, :bins].contiguous(), dft[:, bins:].contiguous()
 
 
+# The two bodies of the STFT tile and the frame lengths the FFT body takes.
+BODY_FFT, BODY_DIRECT = "fft", "direct"
+_BODY_CODES = {BODY_FFT: 1, BODY_DIRECT: 2}
+FFT_MIN_LENGTH, FFT_MAX_LENGTH = 32, 2048
+# Launches of K1 and K9 by the body that ran, keyed (kernel name, body);
+# cuda_lib.LAUNCHES counts both bodies under the kernel's name.
+BODY_LAUNCHES: collections.Counter = collections.Counter()
+
+
+def stft_body(frame_length: int, frame_shift: int) -> str:
+    """The shape rule of K1 and K9 on the card: the FFT body for a
+    power-of-two frame length in [32, 2048] with hop <= L, the direct body
+    for every other shape. The launch is told the body by name; the library
+    only refuses the FFT body on a shape it cannot take."""
+    pow2 = frame_length > 0 and frame_length & (frame_length - 1) == 0
+    if (pow2 and FFT_MIN_LENGTH <= frame_length <= FFT_MAX_LENGTH
+            and frame_shift <= frame_length):
+        return BODY_FFT
+    return BODY_DIRECT
+
+
+@functools.lru_cache(maxsize=None)
+def twiddle_table(frame_length: int) -> np.ndarray:
+    """(L/2+1, 2) f32: cos and -sin of 2 pi k / L, computed in float64.
+    The FFT body's only trigonometric table: W_L^k for k <= L/2; the
+    stages of the half-length FFT read W_{L/2}^k = W_L^{2k} from it."""
+    ang = 2.0 * np.pi * np.arange(frame_length // 2 + 1) / frame_length
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+@table_cache
+def _twiddles(frame_length: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(twiddle_table(frame_length), device=device)
+
+
+def _launch_stft(name: str, xpad: torch.Tensor, outs, sizes, frame_length: int,
+                 frame_shift: int, window: str, tail, body: Optional[str]
+                 ) -> None:
+    """Launch K1 or K9 with the tables of the body that runs: `stft_body`'s
+    for the shape, unless `body` names one, for a check or a timing of one
+    against the other."""
+    dev = xpad.device
+    chosen = body or stft_body(frame_length, frame_shift)
+    win = dsp_tables(frame_length, window, dev).win
+    tw, cos_t, sin_t = 0, 0, 0
+    if chosen == BODY_FFT:
+        tw = _twiddles(frame_length, dev)
+    else:
+        cos_t, sin_t = _dft_halves(frame_length, dev)
+    cuda_lib.launch(name, dev, xpad, win, tw, cos_t, sin_t, *outs, *sizes,
+                    frame_length, frame_shift, _bins(frame_length), *tail,
+                    _BODY_CODES[chosen])
+    BODY_LAUNCHES[name, chosen] += 1
+
+
 def stft_features_cuda(xpad: torch.Tensor, frame_length: int,
-                       frame_shift: int, window: str, feat_dtype):
-    """K1 on the card: csrc/stft_features.cu on the padded signal (B, Np)."""
+                       frame_shift: int, window: str, feat_dtype,
+                       body: Optional[str] = None):
+    """K1 on the card: csrc/stft_features.cu on the padded signal (B, Np).
+    `body` forces one of the tile's two bodies; by default the shape
+    decides."""
     cuda_lib.check(xpad, "x", (torch.float32,))
     if feat_dtype not in _FEAT_DTYPES:
         raise TypeError(f"feat_dtype must be one of {_FEAT_DTYPES}")
     b, n_pad = xpad.shape
     t = 1 + (n_pad - frame_length) // frame_shift
     f = _bins(frame_length)
-    win = dsp_tables(frame_length, window, xpad.device).win
-    cos_t, sin_t = _dft_halves(frame_length, xpad.device)
     mag = torch.empty((b, t, f), dtype=feat_dtype, device=xpad.device)
     re = torch.empty((b, t, f), dtype=torch.float32, device=xpad.device)
     im = torch.empty_like(re)
-    cuda_lib.launch("stft_features", xpad.device, xpad, win, cos_t, sin_t,
-                    mag, re, im, b, n_pad, t, frame_length, frame_shift, f,
-                    int(feat_dtype == torch.bfloat16))
+    _launch_stft("stft_features", xpad, (mag, re, im), (b, n_pad, t),
+                 frame_length, frame_shift, window,
+                 (int(feat_dtype == torch.bfloat16),), body)
     return mag, re, im
+
+
+def stft_fft_mirror(xpad: torch.Tensor, frame_length: int, frame_shift: int,
+                    window: str) -> torch.Tensor:
+    """The FFT body of csrc/stft_tile.cuh step for step in plain torch, on
+    the (padded) signal (B, Np): packed (B, T, 2F) like `stft_ri_plain`.
+
+    Same even/odd packing z[n] = w[2n] x[2n] + i w[2n+1] x[2n+1], same
+    twiddle table (the upper half by W^q = -W^(q-L/2)), same Stockham
+    stages (radix 4, then one radix-2 stage when log2(L/2) is odd) and the
+    same split into the L/2+1 bins. It uses no `torch.fft`. For the CPU
+    tests and the card check of the kernel; no serving or training path
+    calls it.
+    """
+    if stft_body(frame_length, frame_shift) != BODY_FFT:
+        raise ValueError(f"the FFT body takes a power-of-two frame length in "
+                         f"[{FFT_MIN_LENGTH}, {FFT_MAX_LENGTH}] and hop <= L, "
+                         f"got {frame_length} and {frame_shift}")
+    dev = xpad.device
+    half = frame_length // 2
+    n = half                                    # points of the complex FFT
+    win = dsp_tables(frame_length, window, dev).win
+    table = _twiddles(frame_length, dev)
+
+    def twiddle(q):
+        """W_L^q for 0 <= q < L as (re, im) from the half table."""
+        upper = q > half
+        w = table[torch.where(upper, q - half, q)]
+        sign = torch.where(upper, -1.0, 1.0).to(w.dtype)
+        return w[:, 0] * sign, w[:, 1] * sign
+
+    def cmul(ar, ai, wr, wi):
+        return ar * wr - ai * wi, ar * wi + ai * wr
+
+    frames = xpad.unfold(-1, frame_length, frame_shift) * win
+    zr, zi = frames[..., 0::2].contiguous(), frames[..., 1::2].contiguous()
+    p = 1
+    while 4 * p <= n:                           # radix-4 stages
+        quarter, step = n // 4, frame_length // (4 * p)
+        i = torch.arange(quarter, device=dev)
+        k = i & (p - 1)
+        u = [(zr[..., i + m * quarter], zi[..., i + m * quarter])
+             for m in range(4)]
+        if p > 1:
+            u[1:] = [cmul(*u[m], *twiddle(m * k * step)) for m in (1, 2, 3)]
+        (u0r, u0i), (u1r, u1i), (u2r, u2i), (u3r, u3i) = u
+        v0r, v0i, v1r, v1i = u0r + u2r, u0i + u2i, u0r - u2r, u0i - u2i
+        v2r, v2i = u1r + u3r, u1i + u3i
+        v3r, v3i = u1i - u3i, -(u1r - u3r)      # -i (u1 - u3)
+        j = ((i - k) << 2) + k
+        yr, yi = torch.empty_like(zr), torch.empty_like(zi)
+        for m, (vr, vi) in enumerate(((v0r + v2r, v0i + v2i),
+                                      (v1r + v3r, v1i + v3i),
+                                      (v0r - v2r, v0i - v2i),
+                                      (v1r - v3r, v1i - v3i))):
+            yr[..., j + m * p], yi[..., j + m * p] = vr, vi
+        zr, zi, p = yr, yi, 4 * p
+    if p < n:                                   # the last radix-2 stage
+        k = torch.arange(n // 2, device=dev)
+        u1r, u1i = cmul(zr[..., n // 2:], zi[..., n // 2:],
+                        *twiddle(k * (frame_length // n)))
+        u0r, u0i = zr[..., :n // 2], zi[..., :n // 2]
+        zr = torch.cat([u0r + u1r, u0r - u1r], dim=-1)
+        zi = torch.cat([u0i + u1i, u0i - u1i], dim=-1)
+    k = torch.arange(n + 1, device=dev)         # the split step
+    zkr, zki = zr[..., k & (n - 1)], zi[..., k & (n - 1)]
+    znr, zni = zr[..., (n - k) & (n - 1)], zi[..., (n - k) & (n - 1)]
+    even_r, even_i = 0.5 * (zkr + znr), 0.5 * (zki - zni)
+    cr, ci = cmul(0.5 * (zkr - znr), 0.5 * (zki + zni), table[:, 0],
+                  table[:, 1])
+    return torch.cat([even_r + ci, even_i - cr], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +257,7 @@ def stft_features_cuda(xpad: torch.Tensor, frame_length: int,
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=16)
+@table_cache
 def _ola_norm(t: int, frame_length: int, frame_shift: int, window: str,
               device: torch.device) -> torch.Tensor:
     """1 / (overlap-added window squares) where nonzero, else 1."""
@@ -192,7 +328,7 @@ def masked_ola_cuda(re, im, masks, frame_length: int, frame_shift: int,
     return out
 
 
-@functools.lru_cache(maxsize=16)
+@table_cache
 def _idft_halves(frame_length: int, device: torch.device):
     """iDFT rows for Re and for Im, each (F, L) contiguous."""
     idft = torch.as_tensor(idft_matrix(frame_length), device=device)
@@ -231,17 +367,16 @@ def stft_ri_plain(xpad: torch.Tensor, frame_length: int, frame_shift: int,
 
 
 def stft_ri_cuda(xpad: torch.Tensor, frame_length: int, frame_shift: int,
-                 window: str) -> torch.Tensor:
-    """K9 on the card: csrc/stft_ri.cu on the (padded) signal (B, Np)."""
+                 window: str, body: Optional[str] = None) -> torch.Tensor:
+    """K9 on the card: csrc/stft_ri.cu on the (padded) signal (B, Np), the
+    same tile and the same two bodies as K1 (`stft_features_cuda`)."""
     cuda_lib.check(xpad, "x", (torch.float32,))
     b, n_pad = xpad.shape
     t = 1 + (n_pad - frame_length) // frame_shift
-    f = _bins(frame_length)
-    win = dsp_tables(frame_length, window, xpad.device).win
-    cos_t, sin_t = _dft_halves(frame_length, xpad.device)
-    out = torch.empty((b, t, 2 * f), dtype=torch.float32, device=xpad.device)
-    cuda_lib.launch("stft_ri", xpad.device, xpad, win, cos_t, sin_t, out, b,
-                    n_pad, t, frame_length, frame_shift, f)
+    out = torch.empty((b, t, 2 * _bins(frame_length)), dtype=torch.float32,
+                      device=xpad.device)
+    _launch_stft("stft_ri", xpad, (out,), (b, n_pad, t), frame_length,
+                 frame_shift, window, (), body)
     return out
 
 

@@ -31,22 +31,88 @@ def _t(a, dev, dtype=torch.float32):
     return torch.as_tensor(np.asarray(a, np.float32), device=dev).to(dtype)
 
 
-@pytest.mark.parametrize("b,n,length,hop", [(1, 3001, 256, 128),
-                                           (3, 777, 64, 16),
-                                           (2, 1000, 256, 96)])
+# K1 and K9 share one tile with two bodies (csrc/stft_tile.cuh): each shape
+# names the body its frame length must take. N, hop and the batch are chosen
+# so that T is no multiple of the FFT body's 8 frames per block (the last
+# block's tile is partial) and rows past the first do not start on 16-byte
+# boundaries.
+STFT_SHAPES = [(1, 3100, 256, 128, "fft"), (3, 777, 64, 16, "fft"),
+               (2, 1000, 256, 96, "fft"), (3, 333, 32, 8, "fft"),
+               (1, 5203, 512, 128, "fft"), (2, 9001, 2048, 512, "fft"),
+               (2, 1001, 96, 48, "direct"), (1, 5001, 1000, 250, "direct")]
+
+
+def _ran(k, name, body):
+    return k.BODY_LAUNCHES[name, body]
+
+
+@pytest.mark.parametrize("b,n,length,hop,body", STFT_SHAPES)
 @pytest.mark.parametrize("feat_dtype", [torch.float32, torch.bfloat16])
-def test_k1_stft_features(dev, b, n, length, hop, feat_dtype):
+def test_k1_stft_features(dev, b, n, length, hop, body, feat_dtype):
+    from dl4ss_tpu_torch.ops import cuda_lib
     from dl4ss_tpu_torch.ops import stft_kernels as k
     from dl4ss_tpu_torch.ops.stft import reflect_pad
     x = _t(np.random.default_rng(0).uniform(-1, 1, (b, n)), dev)
     xpad = reflect_pad(x, length // 2).contiguous()
+    before = _ran(k, "stft_features", body), cuda_lib.LAUNCHES["stft_features"]
     got = k.stft_features_cuda(xpad, length, hop, "hann", feat_dtype)
+    assert k.stft_body(length, hop) == body
+    assert (_ran(k, "stft_features", body),
+            cuda_lib.LAUNCHES["stft_features"]) == (before[0] + 1,
+                                                    before[1] + 1)
     ref = k.stft_features_plain(xpad, length, hop, "hann", feat_dtype)
+    # a bf16 magnitude may land one step from the plain version's: a step
+    # is 2^-8 to 2^-7 of the value, and past L=256 some fall in the upper
+    # half of that range
+    step = 2 ** -8 if length <= 256 else 2 ** -7
     for g, r in zip(got, ref):
         assert g.shape == r.shape and g.dtype == r.dtype
         torch.testing.assert_close(g.float(), r.float(), atol=1e-4,
                                    rtol=0 if g.dtype == torch.float32
-                                   else 2 ** -8)
+                                   else step)
+
+
+@pytest.mark.parametrize("b,n,length,hop", [(1, 3001, 256, 128),
+                                           (3, 777, 64, 16),
+                                           (2, 1000, 256, 96),
+                                           (2, 9001, 2048, 512)])
+def test_k1_k9_fft_body_against_its_mirror_and_the_direct_body(
+        dev, b, n, length, hop):
+    """The FFT body, partial last tile included, against its CPU mirror run
+    on the card (1e-5: the same steps, FMA contraction apart) and against
+    the direct body forced on the same power-of-two shape (1e-4)."""
+    from dl4ss_tpu_torch.ops import stft_kernels as k
+    x = _t(np.random.default_rng(16).uniform(-1, 1, (b, n)), dev)
+    before = {key: _ran(k, *key) for key in (
+        ("stft_ri", "fft"), ("stft_ri", "direct"), ("stft_features", "fft"))}
+    got = k.stft_ri_cuda(x, length, hop, "hann", body="fft")
+    torch.testing.assert_close(got, k.stft_fft_mirror(x, length, hop, "hann"),
+                               atol=1e-5, rtol=0)
+    direct = k.stft_ri_cuda(x, length, hop, "hann", body="direct")
+    torch.testing.assert_close(got, direct, atol=1e-4, rtol=0)
+    _, re, im = k.stft_features_cuda(x, length, hop, "hann", torch.float32)
+    assert torch.equal(got, torch.cat([re, im], dim=-1))
+    assert {key: _ran(k, *key) - n0 for key, n0 in before.items()} == {
+        ("stft_ri", "fft"): 1, ("stft_ri", "direct"): 1,
+        ("stft_features", "fft"): 1}
+
+
+@pytest.mark.parametrize("length,hop", [(16, 8), (96, 48), (256, 300),
+                                        (1000, 250)])
+def test_k1_k9_fft_body_refuses_what_the_rule_sends_elsewhere(dev, length,
+                                                              hop):
+    """Every shape that the rule sends to the direct body the FFT body
+    refuses, rather than run wrongly or run another body; the direct body
+    takes it."""
+    from dl4ss_tpu_torch.ops import stft_kernels as k
+    assert k.stft_body(length, hop) == "direct"
+    x = _t(np.random.default_rng(17).uniform(-1, 1, (1, 3 * length + hop)),
+           dev)
+    with pytest.raises(RuntimeError, match="stft_ri failed"):
+        k.stft_ri_cuda(x, length, hop, "hann", body="fft")
+    torch.testing.assert_close(k.stft_ri_cuda(x, length, hop, "hann"),
+                               k.stft_ri_plain(x, length, hop, "hann"),
+                               atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("t,b,h", [(7, 1, 37), (5, 17, 300), (3, 2, 8)])
@@ -294,18 +360,23 @@ def test_k8_lstm_bwd(dev, t, b, h, dtype, tol):
                                    msg=name)
 
 
-@pytest.mark.parametrize("b,n,length,hop", [(1, 3001, 256, 128),
-                                           (5, 777, 64, 16),
-                                           (2, 1000, 256, 64)])
+@pytest.mark.parametrize("b,n,length,hop,body", [
+    (1, 3001, 256, 128, "fft"), (5, 777, 64, 16, "fft"),
+    (2, 1000, 256, 64, "fft"), (3, 333, 32, 8, "fft"),
+    (1, 5003, 512, 128, "fft"), (2, 9001, 2048, 512, "fft"),
+    (2, 1001, 96, 48, "direct")])
 @pytest.mark.parametrize("center", [True, False])
-def test_k9_stft_ri(dev, b, n, length, hop, center):
+def test_k9_stft_ri(dev, b, n, length, hop, body, center):
     """K9 against its plain version (N not a multiple of hop), centered
-    and not, and its packed halves against K1's Re and Im."""
+    and not, through the body its frame length names, and its packed
+    halves against K1's Re and Im."""
     from dl4ss_tpu_torch.ops import stft_kernels as k
     from dl4ss_tpu_torch.ops.stft import reflect_pad
     x = _t(np.random.default_rng(11).uniform(-1, 1, (b, n)), dev)
     xin = (reflect_pad(x, length // 2) if center else x).contiguous()
+    before = _ran(k, "stft_ri", body)
     got = k.stft_ri_cuda(xin, length, hop, "hann")
+    assert _ran(k, "stft_ri", body) == before + 1
     ref = k.stft_ri_plain(xin, length, hop, "hann")
     assert got.shape == ref.shape
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)

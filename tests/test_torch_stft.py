@@ -191,6 +191,28 @@ def test_masked_resynthesis_grads_match_jax(fused):
                                    err_msg=name)
 
 
+def test_tables_first_built_in_inference_mode_serve_a_backward():
+    """The cached DSP tables are ordinary tensors even when a serving call
+    under `torch.inference_mode` builds them first: a training step later
+    in the same process saves them for its backward."""
+    for cached in (tstft.dsp_tables, tk._ola_norm, tk._idft_halves,
+                   tk._dft_halves, tk._twiddles):
+        cached.cache_clear()
+    cfg = preset("synth_tiny").replace(use_pallas_stft=True)
+    x = _t(_wav(12, (1, 1000)))
+    masks = torch.full((1, 2, 8, 129), 0.5)
+    with torch.inference_mode():
+        _, re, im = tk.stft_features(x)
+        tstft.masked_resynthesis(re, im, masks, cfg, length=1000)
+        tstft.istft(tstft.stft(x))
+    assert not tstft.dsp_tables(256, "hann", x.device).win.is_inference()
+    _, re, im = tk.stft_features(x)
+    leaf = masks.clone().requires_grad_()
+    for c in (cfg, cfg.replace(use_pallas_stft=False)):
+        tstft.masked_resynthesis(re, im, leaf, c, length=1000).sum().backward()
+    assert bool(torch.isfinite(leaf.grad).all()) and bool(leaf.grad.any())
+
+
 # ---------------------------------------------------------------------------
 # K9 (packed STFT) and K10 (iSTFT of a packed spectrum)
 # ---------------------------------------------------------------------------
@@ -269,6 +291,115 @@ def test_k9_k10_round_trip_and_complex_wrapper():
 def test_k9_k10_need_hop_dividing_frame_length(call):
     with pytest.raises(ValueError, match="frame_length % frame_shift"):
         call()
+
+
+# ---------------------------------------------------------------------------
+# The FFT body of K1 and K9 (csrc/stft_tile.cuh) through its CPU mirror
+# ---------------------------------------------------------------------------
+
+MIRROR_SHAPES = [(32, 16), (32, 8), (64, 32), (64, 16), (256, 128),
+                 (256, 64), (256, 96), (512, 256), (512, 128)]
+
+
+def _padded(x, length, center):
+    x = _t(x)
+    return tstft.reflect_pad(x, length // 2) if center else x
+
+
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("length,hop", MIRROR_SHAPES)
+def test_fft_mirror_matches_plain_and_jax(length, hop, center):
+    """`stft_fft_mirror` (the CUDA FFT body's steps in plain torch: even/odd
+    packing, table twiddles, Stockham radix-4/2 stages, split) against K9's
+    plain version and against the JAX STFT on the same signal: 1e-4 max
+    abs, the DSP bar. The JAX side is the Pallas kernel in interpret mode
+    where it takes the shape (hop divides L), the XLA STFT otherwise."""
+    x = _wav(30, (2, 5 * length + 77))
+    xin = _padded(x, length, center)
+    got = tk.stft_fft_mirror(xin, length, hop, "hann")
+    plain = tk.stft_ri_plain(xin, length, hop, "hann")
+    assert got.shape == plain.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL)
+    if length % hop == 0:
+        ref = _np(pallas_stft_ri(jnp.asarray(x), length, hop, "hann", center))
+    else:
+        spec = jstft.stft(jnp.asarray(x), length, hop, "hann", center)
+        ref = np.concatenate([_np(spec.real), _np(spec.imag)], axis=-1)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("length,hop", [(32, 8), (64, 32), (256, 128),
+                                        (512, 128)])
+def test_fft_mirror_matches_pallas_stft_features(length, hop):
+    """The mirror's halves and their magnitude against K1's TPU kernel in
+    interpret mode (mag, Re, Im): 1e-4."""
+    x = _wav(31, (2, 4 * length + 31))
+    got = tk.stft_fft_mirror(_padded(x, length, True), length, hop,
+                             "sqrt_hann")
+    bins = length // 2 + 1
+    re, im = got[..., :bins], got[..., bins:]
+    jmag, jre, jim = pallas_stft_features(jnp.asarray(x), length, hop,
+                                          "sqrt_hann")
+    np.testing.assert_allclose(re.numpy(), _np(jre), atol=ATOL)
+    np.testing.assert_allclose(im.numpy(), _np(jim), atol=ATOL)
+    np.testing.assert_allclose(torch.sqrt(re * re + im * im).numpy(),
+                               _np(jmag), atol=ATOL)
+
+
+def test_fft_mirror_is_closer_to_float64_than_the_matmul():
+    """An FFT sums log2 L terms per output where the matmul sums L: at the
+    serving shape the mirror lands within 5e-6 of a float64 DFT, no further
+    from it than the plain version is."""
+    x = _wav(32, (2, 4000))
+    xin = _padded(x, 256, True)
+    frames = xin.double().unfold(-1, 256, 128) * _t(
+        twin.get_window("hann", 256)).double()
+    n = np.arange(256)[:, None] * np.arange(129)[None, :]
+    ang = _t(2.0 * np.pi * n / 256)
+    ref = torch.cat([frames @ torch.cos(ang), frames @ -torch.sin(ang)], -1)
+    err = float((tk.stft_fft_mirror(xin, 256, 128, "hann") - ref).abs().max())
+    plain = float((tk.stft_ri_plain(xin, 256, 128, "hann") - ref).abs().max())
+    assert err < 5e-6 and err <= plain
+
+
+@pytest.mark.parametrize("length", [32, 64, 256, 512, 2048])
+def test_twiddle_table_matches_float64(length):
+    """The FFT body's one table: (L/2+1, 2) of cos and -sin(2 pi k / L),
+    each the float64 value rounded once to f32; its ends are exact."""
+    tab = tk.twiddle_table(length)
+    assert tab.shape == (length // 2 + 1, 2) and tab.dtype == np.float32
+    k = np.arange(length // 2 + 1, dtype=np.float64)
+    w = np.exp(-2j * np.pi * k / length)
+    np.testing.assert_array_equal(tab[:, 0], w.real.astype(np.float32))
+    np.testing.assert_allclose(tab[:, 1], w.imag, atol=2 ** -24, rtol=0)
+    np.testing.assert_array_equal(tab[0], [1.0, 0.0])
+    assert tab[-1, 0] == -1.0 and abs(tab[-1, 1]) < 1e-15
+    # W^(L/4) = -i: the table's middle row
+    assert abs(tab[length // 4, 0]) < 1e-15 and tab[length // 4, 1] == -1.0
+
+
+@pytest.mark.parametrize("length,hop,body", [
+    (32, 16, "fft"), (64, 16, "fft"), (256, 128, "fft"), (256, 96, "fft"),
+    (256, 256, "fft"), (2048, 512, "fft"), (16, 8, "direct"),
+    (4096, 1024, "direct"), (96, 48, "direct"), (1000, 250, "direct"),
+    (255, 85, "direct"), (256, 300, "direct")])
+def test_stft_body_shape_rule(length, hop, body):
+    """Which of the tile's two bodies a shape takes on the card: the FFT
+    body for a power-of-two L in [32, 2048] with hop <= L, else the direct
+    body. Every preset's frame length takes the FFT body."""
+    assert tk.stft_body(length, hop) == body
+    if body == "direct":
+        with pytest.raises(ValueError, match="power-of-two"):
+            tk.stft_fft_mirror(torch.zeros((1, 3 * max(length, hop))), length,
+                               hop, "hann")
+
+
+def test_every_preset_takes_the_fft_body():
+    from dl4ss_tpu_torch.config import preset_names
+    for name in preset_names():
+        cfg = preset(name)
+        assert tk.stft_body(cfg.frame_length, cfg.frame_shift) == "fft", name
 
 
 def test_ops_exports_the_kernel_wrappers():
