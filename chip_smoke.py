@@ -11,7 +11,10 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      backward, K7 and K8 the BiLSTM forward and backward at the classifier
      width 300 and at 600, K9 and K10 the packed STFT and iSTFT); K1 and
      K9 run their FFT body there, which is also held against its plain
-     torch mirror, and their direct body on a frame length of 96;
+     torch mirror, and their direct body on a frame length of 96; K5 and
+     K8 run both their bodies (the resident one, which the shape rule
+     names at width 300, and the stepwise one, which it names at 600),
+     each against the plain version and the resident against the stepwise;
   3. round trips: STFT features then masked iSTFT with all-ones masks, and
      the packed STFT then iSTFT through the public `ops` exports,
      reconstruct the waveform;
@@ -34,15 +37,18 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      and run.classify --epochs 1 --epoch-size 8 --eval-batches 2 on a bank
      of 2 utterances per speaker, each with the launch counters zeroed
      just before and read just after; every step's loss finite, the eval
-     SI-SDR finite, the metric report printed, and the launches of one
-     step printed;
+     SI-SDR finite, the metric report printed, the launches of one step
+     printed, and every K5 and K8 launch of the two trainers run by the
+     resident body;
   8. timing: CUDA-event medians of each kernel, its plain version and a
      one-call library yardstick, the end-to-end batch, request and train
      step times with given and with classifier-selected speakers, and a
      torch.profiler breakdown of one batch, one request and one step of
      each trainer; for K1 and K9 also the direct body at the same shape,
      both bodies at B=1 and at the 32 source signals of a train step, and
-     what an empty launch costs.
+     what an empty launch costs; for K5 and K8 also the stepwise body
+     re-measured, the resident body's three phases (coefficients, chain,
+     dU and db_n) by kernel name, bf16, and K8 at width 600.
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
 those lines; so does a machine without CUDA.
@@ -169,21 +175,42 @@ def host_ms(torch, fn, iters: int) -> float:
     return statistics.median(times)
 
 
-def profile_ms(torch, fn, top: int = 8):
+def profile_ms(torch, fn, top: int = 8, expect=()):
     """Device time of one call of `fn` by kernel name, from torch.profiler
-    (CUPTI): (busy ms, [(name, launches, ms), ...] largest first)."""
-    from torch.profiler import ProfilerActivity, profile
+    (CUPTI): (busy ms, [(name, launches, ms), ...] largest first). The
+    tracer can miss the kernels launched right after it starts, so `fn`
+    runs once unmeasured inside the trace, then again under a marker, and
+    only the kernels that start after the marker count. If the trace still
+    lacks a kernel for a name in `expect`, the call is profiled again
+    (three times at most)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                record_function)
+    marker = "chip_smoke: measured call"
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            n, ms = by_name.get(evt.name, (0, 0.0))
-            by_name[evt.name] = (n + 1, ms + evt.time_range.elapsed_us() / 1e3)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            with record_function(marker):
+                fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        start = min(evt.time_range.start for evt in events
+                    if evt.name == marker)
+        by_name = {}
+        for evt in events:
+            # the marker itself also shows as a range on the device
+            if (evt.device_type == torch.autograd.DeviceType.CUDA
+                    and evt.name != marker
+                    and evt.time_range.start >= start):
+                n, ms = by_name.get(evt.name, (0, 0.0))
+                by_name[evt.name] = (n + 1,
+                                     ms + evt.time_range.elapsed_us() / 1e3)
+        if by_name and all(any(key in name for name in by_name)
+                           for key in expect):
+            break
     rows = sorted(((k, n, ms) for k, (n, ms) in by_name.items()),
                   key=lambda r: -r[2])
     return sum(r[2] for r in rows), rows[:top]
@@ -299,6 +326,35 @@ def main() -> int:
         k14.masked_ola_cuda(*k4_args), k14.masked_ola_plain(*k4_args)),
         TOL["masked_istft"])
 
+    def check_bwd_bodies(label, name, cuda, plain, args, hidden, outs, tol):
+        """K5 or K8: the body the shape rule names (it must be the one a
+        default call launches) and the other one where it can run, each
+        against the plain version; the resident body against the stepwise
+        one and against a second call of itself. Returns the rule's body's
+        max abs error."""
+        rule = k2.rnn_bwd_body(hidden, BATCH)
+        ref = plain(*args)
+        before = k2.BODY_LAUNCHES[name, rule]
+        got = {rule: cuda(*args)}
+        if k2.BODY_LAUNCHES[name, rule] != before + 1:
+            fail(f"{label}: the default call did not run the {rule} body")
+        if rule == k2.BODY_RESIDENT:
+            got[k2.BODY_STEPWISE] = cuda(*args, body=k2.BODY_STEPWISE)
+        worst = {body: max(check_rel(f"{label} {body} body {what}", g, r, tol)
+                           for what, g, r in zip(outs, res, ref))
+                 for body, res in got.items()}
+        if rule == k2.BODY_RESIDENT:
+            for what, g, r in zip(outs, got[rule], got[k2.BODY_STEPWISE]):
+                check_rel(f"{label} resident against stepwise {what}", g, r,
+                          tol)
+            for what, g, g2, g3 in zip(outs, got[rule], cuda(*args),
+                                       cuda(*args, body=k2.BODY_CLUSTER)):
+                if not torch.equal(g, g2):
+                    fail(f"{label}: two calls in a row differ in {what}")
+                if not torch.equal(g, g3):
+                    fail(f"{label}: the cluster barrier changes {what}")
+        return worst[rule]
+
     # K5 at the training shapes (T=313, D=2, B=16, H=300): the backward of
     # the forward just checked, on that forward's own hs
     dhs = tensor(rng.standard_normal((T, 2, BATCH, H)))
@@ -308,11 +364,11 @@ def main() -> int:
         hs = k2.gru_scan_cuda(x5, w5, bhn)
         k5_args[label] = (x5, w5, bhn,
                           torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]), g5)
-        got = k2.gru_scan_bwd_cuda(*k5_args[label])
-        ref = k2.gru_scan_bwd_plain(*k5_args[label])
         tol = TOL["gru_bwd" if dt == torch.float32 else "gru_bwd_bf16"]
-        err = max(check_rel(f"K5 gru_bwd {label} {name}", g, r, tol)
-                  for name, g, r in zip(("dxp", "dU", "db_n"), got, ref))
+        err = check_bwd_bodies(
+            f"K5 gru_bwd {label}", "gru_bwd", k2.gru_scan_bwd_cuda,
+            k2.gru_scan_bwd_plain, k5_args[label], H, ("dxp", "dU", "db_n"),
+            tol)
         if dt == torch.float32:
             errs["gru_bwd"] = err
 
@@ -356,11 +412,10 @@ def main() -> int:
                    for name, g, r in zip(
                        ("hs", "cs"), got7,
                        k2.lstm_scan_plain(*k7_args[label])))
-        err8 = max(check_rel(f"K8 lstm_bwd {label} {name}", g, r,
-                             TOL["lstm_bwd" + suffix])
-                   for name, g, r in zip(
-                       ("dxp", "dU"), k2.lstm_scan_bwd_cuda(*k8_args[label]),
-                       k2.lstm_scan_bwd_plain(*k8_args[label])))
+        err8 = check_bwd_bodies(
+            f"K8 lstm_bwd {label}", "lstm_bwd", k2.lstm_scan_bwd_cuda,
+            k2.lstm_scan_bwd_plain, k8_args[label], hidden, ("dxp", "dU"),
+            TOL["lstm_bwd" + suffix])
         if label == "f32":
             errs["lstm_fwd"], errs["lstm_bwd"] = err7, err8
 
@@ -681,6 +736,7 @@ def main() -> int:
         metrics_path = os.path.join(tmp, "metrics.jsonl")
         torch.cuda.synchronize()
         cuda_lib.LAUNCHES.clear()
+        k2.BODY_LAUNCHES.clear()
         t0 = time.perf_counter()
         state = train_cli.main([
             "--preset", "torch_multi", "--epochs", "1", "--epoch-size",
@@ -705,6 +761,21 @@ def main() -> int:
         fail(f"kernels never launched on the training path: {missing}")
     launches.update({n: train_launches[n] for n in ("gru_bwd",
                                                      "maskhead_bwd")})
+
+    def check_resident(path, name, count):
+        """Every launch of K5 or K8 on a trainer's path ran the resident
+        body."""
+        bodies = {b: n for (kern, b), n in k2.BODY_LAUNCHES.items()
+                  if kern == name}
+        print(f"{path}: {name} bodies {bodies}", flush=True)
+        if bodies != {k2.BODY_RESIDENT: count}:
+            fail(f"{path}: {name} launched {bodies}, expected {count} "
+                 f"launches of the resident body")
+
+    # each step runs the two encoder layers backward: K5 twice
+    if train_launches["gru_bwd"] != cfg.encoder_layers * TRAIN_STEPS:
+        fail(f"trainer launched gru_bwd {train_launches['gru_bwd']} times")
+    check_resident("trainer", "gru_bwd", train_launches["gru_bwd"])
     # one step in steady state: the step before it updated W, so K3 packs
     # the new version once
     fused = make_fused_step(cfg)
@@ -736,6 +807,7 @@ def main() -> int:
     printed = io.StringIO()
     torch.cuda.synchronize()
     cuda_lib.LAUNCHES.clear()
+    k2.BODY_LAUNCHES.clear()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(printed):
@@ -770,6 +842,8 @@ def main() -> int:
     if got != want:
         fail(f"classifier trainer launched {got}, expected {want}")
     launches["lstm_bwd"] = classify_launches["lstm_bwd"]
+    check_resident("classifier trainer", "lstm_bwd",
+                   classify_launches["lstm_bwd"])
 
     def classifier_step():
         return cstep(state, featurize(sample_mixtures(state.generator, bank,
@@ -980,9 +1054,36 @@ def main() -> int:
     for name, r in train_rows.items():
         slow = name == "gru_bwd"
         time_row(name, r, 5 if slow else 20, 2 if slow else 5)
-    bf16_ms = device_ms(torch, lambda: k2.gru_scan_bwd_cuda(
-        *k5_args["bf16"]), 5)
-    print(f"time gru_bwd bf16 per layer: {bf16_ms:.4f} ms", flush=True)
+
+    def bwd_extras(name, cuda, args_by_label):
+        """K5 or K8 beside its row (which times the rule's body): the
+        stepwise body re-measured in the same run, the resident body with
+        its groups as thread block clusters (the hardware's barrier in
+        place of the ticket), all of them in bf16, and the resident body's
+        phases by kernel name from one profiled call."""
+        for label, args in args_by_label.items():
+            parts = []
+            for body in (k2.BODY_RESIDENT, k2.BODY_CLUSTER,
+                         k2.BODY_STEPWISE):
+                if body == k2.BODY_STEPWISE or k2.rnn_bwd_body(
+                        args[1].shape[1], BATCH) == k2.BODY_RESIDENT:
+                    ms = device_ms(torch, lambda: cuda(*args, body=body), 5)
+                    parts.append(f"{body} body {ms:.4f}")
+            print(f"time {name} {label} per layer ms: " + ", ".join(parts),
+                  flush=True)
+        args = args_by_label["f32"]
+        phases = {"coefficients (phase A)": "rnn_bwd_coef_kernel",
+                  f"chain of {T} steps (phase B)": "rnn_bwd_chain_kernel",
+                  "dU and db_n (phase C)": "_partial"}
+        busy, prow = profile_ms(torch, lambda: cuda(*args), top=8,
+                                expect=phases.values())
+        print(f"time {name} f32 resident body by phase, one profiled call, "
+              f"{busy:.4f} ms busy: " + ", ".join(
+                  f"{what} {sum(ms for kern, _, ms in prow if key in kern):.4f}"
+                  f" ms in {sum(n for kern, n, _ in prow if key in kern)} "
+                  f"launches" for what, key in phases.items()), flush=True)
+
+    bwd_extras("gru_bwd", k2.gru_scan_bwd_cuda, k5_args)
     # the training step, sample -> featurize -> forward -> backward -> Adam
     step_ms = host_ms(torch, lambda: fused(state, bank), 10)
     busy, prow = profile_ms(torch, lambda: fused(state, bank), top=12)
@@ -1058,14 +1159,11 @@ def main() -> int:
         slow = name.startswith("lstm")
         time_row(name, r, 5 if slow else 20,
                  (2 if name == "lstm_bwd" else 3) if slow else 10)
-    for label, fwd_args, bwd_args in (
-            ("bf16", k7_args["bf16"], k8_args["bf16"]),
-            (f"f32 H={WIDE}", k7_args[f"f32 H={WIDE}"],
-             k8_args[f"f32 H={WIDE}"])):
+    for label in ("bf16", f"f32 H={WIDE}"):
+        fwd_args = k7_args[label]
         fwd_ms = device_ms(torch, lambda: k2.lstm_scan_cuda(*fwd_args), 5)
-        bwd_ms = device_ms(torch, lambda: k2.lstm_scan_bwd_cuda(*bwd_args), 5)
-        print(f"time lstm_fwd / lstm_bwd {label} per layer: {fwd_ms:.4f} / "
-              f"{bwd_ms:.4f} ms", flush=True)
+        print(f"time lstm_fwd {label} per layer: {fwd_ms:.4f} ms", flush=True)
+    bwd_extras("lstm_bwd", k2.lstm_scan_bwd_cuda, k8_args)
     # serving with classifier-selected speakers, and the classifier step
     with torch.inference_mode():
         sel_batch_ms = host_ms(torch, lambda: separate_waveforms(

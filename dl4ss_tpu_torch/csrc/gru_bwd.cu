@@ -18,23 +18,32 @@
 //
 // Bound on the H100: at H=300, B=16, T=313 one layer's arithmetic is ~16
 // GFLOP (the gate recompute, the carry product and dU, 5.4 GFLOP each),
-// ~0.24 ms at the f32 CUDA-core rate. As for K2 (gru_fwd.cu), the 313
-// dependent steps set the time: each costs a launch and two passes over U.
+// ~0.24 ms at the f32 CUDA-core rate. The 313 dependent carry products set
+// the time, not the operations.
 //
-// Design: one kernel per step t (a C loop, one ctypes call per layer).
-// Each step needs two reductions that span a whole row: the gate
-// recompute hprev_t . U (over H) and the carry's da_w_{t+1} . U^T (over
-// 3H). A block owns K5_JT hidden units j of one direction for K5_BT batch
-// rows, as K2's blocks do: it stages hprev_t and da_w_{t+1} for its rows in
-// shared memory, its K5_KW warps split each reduction with lane j reading
-// U[k, {j, H+j, 2H+j}] and U^T[g, j] (U^T is built once per call, so both
-// reads are coalesced across j), and each thread then finishes one
-// (row, unit): the carry from the step before, the gates, dxp_t, da_w_t and
-// dh*z for the next step. The step kernel for t thus finishes the carry of
-// step t+1 from the da_w_{t+1} the previous launch left. dU and db_n are
-// taken after the loop from the stored da_w and dhn by two kernels (dU's is
-// shared with K8, rnn_bwd_common.cuh), each output summed by one thread in a
-// fixed order: deterministic, with no atomics and no library product.
+// Design: two bodies, named to the entry point by the caller
+// (ops/rnn_kernels.py::rnn_bwd_body, by shape alone).
+//
+// The resident body (rnn_bwd_common.cuh has the three phases). The step is
+// linear in dh = carry + dhs_t, so phase A turns the recomputed gates of
+// every step into five coefficients per unit,
+//   c_n = (1-z)(1-n^2)   c_r = c_n hn r(1-r)   c_z = (hprev-n) z(1-z)
+//   c_h = c_n r          and z itself,
+// and the chain, one cooperative launch for all T steps with U^T resident
+// in registers, is left with da_r = dh c_r, da_z = dh c_z, da_n = dh c_n,
+// dhn = dh c_h and carry = dh z + da_w . U^T. db_n is summed over t in the
+// owner thread's register and over the batch rows by a fixed-order pass;
+// dU comes from the split reduction shared with K8.
+//
+// The stepwise body, for widths and batches the resident one cannot hold:
+// one kernel per step t from a C loop. A block owns K5_JT hidden units j of
+// one direction for K5_BT batch rows: it stages hprev_t and da_w_{t+1} in
+// shared memory, its K5_KW warps split the gate recompute hprev_t . U (over
+// H) and the carry da_w_{t+1} . U^T (over 3H; U^T is built once per call so
+// both reads are coalesced across j), and each thread finishes one (row,
+// unit). dU and db_n are taken after the loop from the stored da_w and dhn,
+// each output summed in a fixed order: deterministic, with no atomics and
+// no library product.
 #include "rnn_bwd_common.cuh"
 
 namespace {
@@ -196,11 +205,76 @@ __global__ void gru_bwd_dbn_kernel(const float* __restrict__ dhn,
   }
 }
 
+// The resident body's cell: see the note at the top of this file.
+struct GruCell {
+  static constexpr int NG = 3, NC = 5, KS = 8, MAXI = 15;   // G <= 960
+  static constexpr bool SPLIT = true;    // da_w differs from dxp (dhn / da_n)
+  struct State {
+    float dhz, dbn;
+  };
+  // e0 = b_n (D, H) f32
+  template <typename T>
+  __device__ static void coefficients(const float (&a)[NG], const T* x,
+                                      const void* e0, const void*, size_t,
+                                      int d, int j, int H, float hp,
+                                      float (&out)[NC]) {
+    const float r = dl4ss::sigmoid(dl4ss::to_f32(x[j]) + a[0]);
+    const float z = dl4ss::sigmoid(dl4ss::to_f32(x[H + j]) + a[1]);
+    const float hn = a[2] + static_cast<const float*>(e0)[(size_t)d * H + j];
+    const float n = tanhf(dl4ss::to_f32(x[2 * H + j]) + r * hn);
+    const float c_n = (1.0f - z) * (1.0f - n * n);
+    out[0] = c_n * hn * r * (1.0f - r);
+    out[1] = (hp - n) * z * (1.0f - z);
+    out[2] = c_n;
+    out[3] = c_n * r;
+    out[4] = z;
+  }
+  __device__ static void step(const float (&c)[NC], float dot, float dhs,
+                              State& s, float (&dx)[NG], float (&dw)[NG]) {
+    const float dh = s.dhz + dot + dhs;
+    dx[0] = dw[0] = dh * c[0];
+    dx[1] = dw[1] = dh * c[1];
+    dx[2] = dh * c[2];
+    dw[2] = dh * c[3];
+    s.dhz = dh * c[4];
+    s.dbn += dw[2];
+  }
+  __device__ static float total(const State& s) { return s.dbn; }
+};
+
 template <typename T>
-cudaError_t run(const void* xp, const void* wh, const void* bhn,
-                const void* hprev, const void* dhs, void* dxp, void* du,
-                void* dbn, void* wht, void* daw, void* dhz, void* dhn,
-                int steps, int D, int B, int H, cudaStream_t stream) {
+cudaError_t run_resident(const void* xp, const void* wh, const void* bhn,
+                         const void* hprev, const void* dhs, void* dxp,
+                         void* du, void* dbn, void* daw, void* work,
+                         void* du_part, void* tickets, int steps, int D, int B,
+                         int H, bool cluster, cudaStream_t stream) {
+  const int G = 3 * H;
+  // work: the coefficients (T, D, B, H, 5), then the db_n partials (B, D, H)
+  float* coef = static_cast<float*>(work);
+  float* sums = coef + (size_t)steps * D * B * H * GruCell::NC;
+  cudaError_t err = dl4ss::coefficients<T, GruCell>(
+      {xp, wh, hprev, bhn, nullptr, coef, steps, D, B, H}, stream);
+  if (err != cudaSuccess) return err;
+  err = dl4ss::chain<T, GruCell>(
+      {wh, coef, dhs, dxp, daw, sums, static_cast<unsigned int*>(tickets),
+       steps, D, B, H, 0}, cluster, stream);
+  if (err != cudaSuccess) return err;
+  err = dl4ss::sum_partials(sums, static_cast<float*>(dbn), B, (size_t)D * H,
+                            stream);
+  if (err != cudaSuccess) return err;
+  return dl4ss::weight_grad<T, 3>(static_cast<const T*>(hprev),
+                                  static_cast<const T*>(daw),
+                                  static_cast<float*>(du),
+                                  static_cast<float*>(du_part), steps, D, B, H,
+                                  G, stream);
+}
+
+template <typename T>
+cudaError_t run_stepwise(const void* xp, const void* wh, const void* bhn,
+                         const void* hprev, const void* dhs, void* dxp,
+                         void* du, void* dbn, void* wht, void* daw, void* dhz,
+                         void* dhn, void* du_part, int steps, int D, int B,
+                         int H, cudaStream_t stream) {
   const int G = 3 * H;
   const T* U = static_cast<const T*>(wh);
   T* Ut = static_cast<T*>(wht);
@@ -228,29 +302,53 @@ cudaError_t run(const void* xp, const void* wh, const void* bhn,
     if (err != cudaSuccess) return err;
   }
 
-  err = dl4ss::weight_grad(hp, dw, static_cast<float*>(du), steps, D, B, H, G,
-                           stream);
+  err = dl4ss::weight_grad<T, 3>(hp, dw, static_cast<float*>(du),
+                                 static_cast<float*>(du_part), steps, D, B, H,
+                                 G, stream);
   if (err != cudaSuccess) return err;
   gru_bwd_dbn_kernel<<<dim3((H + 31) / 32, D), 256, 0, stream>>>(
       dn, static_cast<float*>(dbn), steps, D, B, H);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t run(const void* xp, const void* wh, const void* bhn,
+                const void* hprev, const void* dhs, void* dxp, void* du,
+                void* dbn, void* wht, void* daw, void* dhz, void* work,
+                void* du_part, void* tickets, int steps, int D, int B, int H,
+                int body, cudaStream_t stream) {
+  if (body == dl4ss::BODY_RESIDENT || body == dl4ss::BODY_CLUSTER)
+    return run_resident<T>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, daw, work,
+                           du_part, tickets, steps, D, B, H,
+                           body == dl4ss::BODY_CLUSTER, stream);
+  if (body == dl4ss::BODY_STEPWISE)
+    return run_stepwise<T>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, wht, daw,
+                           dhz, work, du_part, steps, D, B, H, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // xp, hprev, dhs (T, D, B, *) and wh (D, H, 3H) in f32, or all in bf16
 // (bf16 != 0); bhn (D, 1, H) f32 -> dxp (T, D, B, 3H) in the input dtype,
-// du (D, H, 3H) and dbn (D, 1, H) in f32. Scratch from the caller: wht
-// (D, 3H, H) and daw (T, D, B, 3H) in the input dtype, dhz (D, B, H) and
-// dhn (T, D, B, H) in f32.
+// du (D, H, 3H) and dbn (D, 1, H) in f32. body: 1 resident, 2 stepwise; the
+// resident body returns an error for a shape it cannot hold. Scratch from
+// the caller, for both bodies: daw (T, D, B, 3H) in the input dtype and
+// du_part (16, D, H, 3H) f32. Resident: work = (T*D*B*H*5 + B*D*H) f32 and
+// tickets = one zeroed 32-bit counter per (direction, 4 batch rows).
+// Stepwise: wht (D, 3H, H) in the input dtype, dhz (D, B, H) f32 and work =
+// (T, D, B, H) f32. What a body does not use may be null.
 extern "C" int dl4ss_gru_bwd(const void* xp, const void* wh, const void* bhn,
                              const void* hprev, const void* dhs, void* dxp,
                              void* du, void* dbn, void* wht, void* daw,
-                             void* dhz, void* dhn, int steps, int D, int B,
-                             int H, int bf16, void* stream) {
+                             void* dhz, void* work, void* du_part,
+                             void* tickets, int steps, int D, int B, int H,
+                             int bf16, int body, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? run<__nv_bfloat16>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, wht,
-                                   daw, dhz, dhn, steps, D, B, H, s)
+                                   daw, dhz, work, du_part, tickets, steps, D,
+                                   B, H, body, s)
               : run<float>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, wht, daw,
-                           dhz, dhn, steps, D, B, H, s);
+                           dhz, work, du_part, tickets, steps, D, B, H, body,
+                           s);
 }

@@ -18,26 +18,37 @@
 //
 // Bound on the H100: at H=300, B=16, T=313 one layer's arithmetic is ~21.6
 // GFLOP (the gate recompute, the carry product and dU, 7.2 GFLOP each),
-// ~0.32 ms at the f32 CUDA-core rate. As for K5 the 313 dependent steps
-// set the time: each costs a launch and two passes over U.
+// ~0.32 ms at the f32 CUDA-core rate. As for K5 the 313 dependent carry
+// products set the time, not the operations.
 //
-// Design, after K5: one kernel per step t (a C loop, one ctypes call per
-// layer). A block owns K8_JT hidden units j of one direction for K8_BT
-// batch rows: it stages hprev_t and da_{t+1} (= dxp_{t+1}, left in device
-// memory by the previous launch) for its rows in shared memory, its K8_KW
-// warps split the gate recompute hprev_t . U (over H) and then the carry
-// da_{t+1} . U^T (over 4H; U^T is built once per call so both reads are
-// coalesced across j), and the first K8_BT*K8_JT threads each finish one
-// (row, unit). dc is carried in an f32 (D, B, H) buffer updated in place by
-// the one thread that owns each element. dU is taken after the loop by the
-// reduction kernel shared with K5 (rnn_bwd_common.cuh).
+// Design, after K5: two bodies, named to the entry point by the caller
+// (ops/rnn_kernels.py::rnn_bwd_body, by shape alone).
 //
-// Widths: with four gates the staged da row is 4H long, so the batch tile
-// is 8 rows (K5's is 16). Shared memory is K8_BT*5H*4 B of staged rows plus
-// 64 KB of partial sums: 112 KB at H=300, 160 KB at H=600 (the TDAA
-// classifier width), 224 KB at H=1000. Past H=1043 the block exceeds the
-// 227 KB limit: the opt-in fails, the entry point returns its error and the
-// wrapper raises.
+// The resident body (rnn_bwd_common.cuh has the three phases). The step is
+// linear in dh and dc, so phase A turns the recomputed gates of every step
+// into six coefficients per unit,
+//   k_c = o(1-tc^2)   k_i = g i(1-i)   k_f = cprev f(1-f)   k_g = i(1-g^2)
+//   k_o = tc o(1-o)   and f itself,
+// and the chain, one cooperative launch for all T steps with U^T resident
+// in registers, is left with dc = dc_carry + dh k_c, da = [dc k_i, dc k_f,
+// dc k_g, dh k_o], dc_carry = dc f and dh = da_{t+1} . U^T + dhs_t. dc is
+// carried in the owner thread's register. dU comes from the split
+// reduction shared with K5.
+//
+// The stepwise body, for widths and batches the resident one cannot hold
+// (the TDAA classifier's H=600 among them): one kernel per step t from a C
+// loop. A block owns K8_JT hidden units j of one direction for K8_BT batch
+// rows: it stages hprev_t and da_{t+1} (= dxp_{t+1}, left in device memory
+// by the previous launch) in shared memory, its K8_KW warps split the gate
+// recompute hprev_t . U (over H) and then the carry da_{t+1} . U^T (over
+// 4H; U^T is built once per call so both reads are coalesced across j),
+// and the first K8_BT*K8_JT threads each finish one (row, unit). dc is
+// carried in an f32 (D, B, H) buffer updated in place by the one thread
+// that owns each element. With four gates the staged da row is 4H long, so
+// the batch tile is 8 rows (K5's is 16). Shared memory is K8_BT*5H*4 B of
+// staged rows plus 64 KB of partial sums: 112 KB at H=300, 160 KB at H=600,
+// 224 KB at H=1000. Past H=1043 the block exceeds the 227 KB limit: the
+// opt-in fails, the entry point returns its error and the wrapper raises.
 #include "rnn_bwd_common.cuh"
 
 namespace {
@@ -179,11 +190,74 @@ __global__ void __launch_bounds__(K8_THREADS) lstm_bwd_step_kernel(
   dl4ss::store(dx + 3 * H + jo, d_o * og * (1.0f - og));
 }
 
+// The resident body's cell: see the note at the top of this file.
+struct LstmCell {
+  static constexpr int NG = 4, NC = 6, KS = 8, MAXI = 19;   // G <= 1216
+  static constexpr bool SPLIT = false;   // one da serves dxp, carry and dU
+  struct State {
+    float dc;
+  };
+  // e0 = cprev, e1 = cs, both (T, D, B, H) in the input dtype
+  template <typename T>
+  __device__ static void coefficients(const float (&a)[NG], const T* x,
+                                      const void* e0, const void* e1,
+                                      size_t row, int, int j, int H, float,
+                                      float (&out)[NC]) {
+    const float ig = dl4ss::sigmoid(dl4ss::to_f32(x[j]) + a[0]);
+    const float fg = dl4ss::sigmoid(dl4ss::to_f32(x[H + j]) + a[1]);
+    const float gg = tanhf(dl4ss::to_f32(x[2 * H + j]) + a[2]);
+    const float og = dl4ss::sigmoid(dl4ss::to_f32(x[3 * H + j]) + a[3]);
+    const size_t u = row * H + j;
+    const float cp = dl4ss::to_f32(static_cast<const T*>(e0)[u]);
+    const float tc = tanhf(dl4ss::to_f32(static_cast<const T*>(e1)[u]));
+    out[0] = og * (1.0f - tc * tc);
+    out[1] = gg * ig * (1.0f - ig);
+    out[2] = cp * fg * (1.0f - fg);
+    out[3] = ig * (1.0f - gg * gg);
+    out[4] = tc * og * (1.0f - og);
+    out[5] = fg;
+  }
+  __device__ static void step(const float (&c)[NC], float dot, float dhs,
+                              State& s, float (&dx)[NG], float (&)[NG]) {
+    const float dh = dot + dhs;
+    const float dc = s.dc + dh * c[0];
+    dx[0] = dc * c[1];
+    dx[1] = dc * c[2];
+    dx[2] = dc * c[3];
+    dx[3] = dh * c[4];
+    s.dc = dc * c[5];
+  }
+  __device__ static float total(const State&) { return 0.0f; }
+};
+
 template <typename T>
-cudaError_t run(const void* xp, const void* wh, const void* hprev,
-                const void* cprev, const void* cs, const void* dhs, void* dxp,
-                void* du, void* wht, void* dc, int steps, int D, int B, int H,
-                cudaStream_t stream) {
+cudaError_t run_resident(const void* xp, const void* wh, const void* hprev,
+                         const void* cprev, const void* cs, const void* dhs,
+                         void* dxp, void* du, void* work, void* du_part,
+                         void* tickets, int steps, int D, int B, int H,
+                         bool cluster, cudaStream_t stream) {
+  const int G = 4 * H;
+  float* coef = static_cast<float*>(work);    // (T, D, B, H, 6)
+  cudaError_t err = dl4ss::coefficients<T, LstmCell>(
+      {xp, wh, hprev, cprev, cs, coef, steps, D, B, H}, stream);
+  if (err != cudaSuccess) return err;
+  err = dl4ss::chain<T, LstmCell>(
+      {wh, coef, dhs, dxp, dxp, nullptr, static_cast<unsigned int*>(tickets),
+       steps, D, B, H, 0}, cluster, stream);
+  if (err != cudaSuccess) return err;
+  return dl4ss::weight_grad<T, 4>(static_cast<const T*>(hprev),
+                                  static_cast<const T*>(dxp),
+                                  static_cast<float*>(du),
+                                  static_cast<float*>(du_part), steps, D, B, H,
+                                  G, stream);
+}
+
+template <typename T>
+cudaError_t run_stepwise(const void* xp, const void* wh, const void* hprev,
+                         const void* cprev, const void* cs, const void* dhs,
+                         void* dxp, void* du, void* wht, void* dc,
+                         void* du_part, int steps, int D, int B, int H,
+                         cudaStream_t stream) {
   const int G = 4 * H;
   const T* U = static_cast<const T*>(wh);
   T* Ut = static_cast<T*>(wht);
@@ -210,24 +284,47 @@ cudaError_t run(const void* xp, const void* wh, const void* hprev,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  return dl4ss::weight_grad(hp, dx, static_cast<float*>(du), steps, D, B, H, G,
-                            stream);
+  return dl4ss::weight_grad<T, 4>(hp, dx, static_cast<float*>(du),
+                                  static_cast<float*>(du_part), steps, D, B, H,
+                                  G, stream);
+}
+
+template <typename T>
+cudaError_t run(const void* xp, const void* wh, const void* hprev,
+                const void* cprev, const void* cs, const void* dhs, void* dxp,
+                void* du, void* wht, void* dc, void* work, void* du_part,
+                void* tickets, int steps, int D, int B, int H, int body,
+                cudaStream_t stream) {
+  if (body == dl4ss::BODY_RESIDENT || body == dl4ss::BODY_CLUSTER)
+    return run_resident<T>(xp, wh, hprev, cprev, cs, dhs, dxp, du, work,
+                           du_part, tickets, steps, D, B, H,
+                           body == dl4ss::BODY_CLUSTER, stream);
+  if (body == dl4ss::BODY_STEPWISE)
+    return run_stepwise<T>(xp, wh, hprev, cprev, cs, dhs, dxp, du, wht, dc,
+                           du_part, steps, D, B, H, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // xp, hprev, cprev, cs, dhs (T, D, B, *) and wh (D, H, 4H) in f32, or all in
 // bf16 (bf16 != 0) -> dxp (T, D, B, 4H) in the input dtype and du
-// (D, H, 4H) in f32. Scratch from the caller: wht (D, 4H, H) in the input
-// dtype and dc (D, B, H) in f32 (it need not be initialised).
+// (D, H, 4H) in f32. body: 1 resident, 2 stepwise; the resident body returns
+// an error for a shape it cannot hold. Scratch from the caller, for both
+// bodies: du_part (16, D, H, 4H) f32. Resident: work = (T, D, B, H, 6) f32
+// and tickets = one zeroed 32-bit counter per (direction, 4 batch rows).
+// Stepwise: wht (D, 4H, H) in the input dtype and dc (D, B, H) f32 (it need
+// not be initialised). What a body does not use may be null.
 extern "C" int dl4ss_lstm_bwd(const void* xp, const void* wh,
                               const void* hprev, const void* cprev,
                               const void* cs, const void* dhs, void* dxp,
-                              void* du, void* wht, void* dc, int steps, int D,
-                              int B, int H, int bf16, void* stream) {
+                              void* du, void* wht, void* dc, void* work,
+                              void* du_part, void* tickets, int steps, int D,
+                              int B, int H, int bf16, int body, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? run<__nv_bfloat16>(xp, wh, hprev, cprev, cs, dhs, dxp, du,
-                                   wht, dc, steps, D, B, H, s)
+                                   wht, dc, work, du_part, tickets, steps, D,
+                                   B, H, body, s)
               : run<float>(xp, wh, hprev, cprev, cs, dhs, dxp, du, wht, dc,
-                           steps, D, B, H, s);
+                           work, du_part, tickets, steps, D, B, H, body, s);
 }

@@ -1,13 +1,63 @@
-// Kernels shared by the recurrent backward passes, K5 (gru_bwd.cu) and K8
-// (lstm_bwd.cu): the transpose of the recurrent weights U, built once per
-// call so the carry product reads U^T coalesced, and the weight gradient
-// dU = sum over (t, b) of hprev^T . da, taken after the step loop in a
-// fixed order (deterministic: no atomics, no library product).
+// What the recurrent backward passes, K5 (gru_bwd.cu) and K8 (lstm_bwd.cu),
+// share. They replace `_gru_bwd_kernel` and `_lstm_bwd_kernel` of
+// dl4ss_tpu/ops/pallas_rnn.py, whose grid is sequential over time and so
+// recomputes the gates, carries the gradient and sums dU inside one loop.
+//
+// Bound on the H100: the function's arithmetic is three products of the
+// same size (the gate recompute hprev . U, the carry da . U^T and dU =
+// hprev^T . da), 16-22 GFLOP a layer at H=300, B=16, T=313: 0.24-0.32 ms at
+// the f32 CUDA-core rate. What sets the time is the chain of T dependent
+// carry products. Only that product depends on the step before; the
+// recompute and dU read saved values only. Both recurrences are linear in
+// the carried gradient, so the backward splits into three phases:
+//
+//   A  `rnn_bwd_coef_kernel`, off the chain, all steps at once: the gate
+//      recompute as one tiled (T*B) x H x G product per direction
+//      (rnn_resident.cuh's `tile_product`), whose epilogue turns the gates into
+//      the cell's NC coefficients per (t, d, b, unit): the factors by which
+//      the step multiplies dh (and dc). Coefficients, not gates: the chain
+//      is then ~10 FMAs per unit and reads neither xp, hprev nor cs. They
+//      are f32, (T, D, B, H, NC): 60 MB (GRU) / 72 MB (LSTM) of scratch at
+//      the path's shape, allocated by the caller per call.
+//   B  `rnn_bwd_chain_kernel`, the chain: ONE cooperative launch per layer
+//      runs all T steps of both directions. A block owns RES_UNITS hidden
+//      units j of one direction for one tile of RES_BT batch rows and holds
+//      its columns of U^T (= rows j of U, no transpose needed) in registers
+//      for all steps (rnn_resident.cuh: 16 warps, 45-57 floats a thread).
+//      A step: wait for the group's barrier, stage da_{t+1} of the group's
+//      rows from L2 in shared memory, the resident product, the cell's
+//      coefficient math for the owned (row, unit), store dxp_t and da_t,
+//      arrive. The coefficients and dhs of step t are loaded before the
+//      wait, so their latency hides behind the barrier. Blocks that share
+//      (direction, row tile) form a barrier group; at B=16, H=300 that is
+//      8 groups of 13 blocks, 104 of the 132 SMs. The elementwise carry
+//      (dh*z, dc) and the GRU's db_n sum stay in the owner thread's
+//      registers across the steps. The barrier is a ticket in device
+//      memory; with `cluster` each group is a thread block cluster and the
+//      barrier the hardware's. Measured on an NVIDIA H100 80GB HBM3 the
+//      cluster barrier itself costs no more cycles a step, but eight
+//      clusters of 13 blocks do not all fit the card at once, so they run
+//      in two waves and the layer takes 1.4x as long: the ticket barrier
+//      is the resident body, the cluster one stays to be timed.
+//   C  `weight_grad`, after the loop: dU with the (t, b) axis split
+//      DU_SPLIT ways over the grid (the same `tile_product`), then a
+//      fixed-order sum of the partials. Deterministic: no atomics on data.
+//
+// The stepwise body (one kernel launch per step, gru_bwd.cu / lstm_bwd.cu)
+// stays for the shapes the resident body cannot hold: a width whose slice
+// does not fit the registers (G > 8 * MAXI * KS, H > 304) or more groups than
+// the card has SMs. ops/rnn_kernels.py::rnn_bwd_body is the only rule; the
+// entry points here are told the body and refuse the resident one where it
+// cannot run (the chain launch checks the width and the grid; the
+// coefficient product before it takes any shape). `transpose` serves the
+// stepwise body alone.
 #pragma once
 
-#include "dl4ss_common.cuh"
+#include "rnn_resident.cuh"
 
 namespace dl4ss {
+
+constexpr int BODY_RESIDENT = 1, BODY_STEPWISE = 2, BODY_CLUSTER = 3;
 
 // ut[d, g, k] = u[d, k, g] for u (D, H, G), through 32 x 32 shared tiles.
 template <typename T>
@@ -37,63 +87,341 @@ inline cudaError_t transpose(const T* u, T* ut, int D, int H, int G,
   return cudaGetLastError();
 }
 
-// dU[d, k, g] = sum over n = (t, b) of hprev[t, d, b, k] * da[t, d, b, g],
-// in f32: a 64 x 64 output tile per block, 4 x 4 outputs per thread, the n
-// axis walked in slices of 16 through shared memory in a fixed order.
-constexpr int DU_T = 64, DU_N = 16, DU_THREADS = 256;
+// row of (t, d, b) in a (T, D, B, *) array, for n = t * B + b
+__device__ __forceinline__ size_t tdb_row(int n, int d, int D, int B) {
+  return ((size_t)(n / B) * D + d) * B + n % B;
+}
 
-template <typename T>
-__global__ void __launch_bounds__(DU_THREADS) du_kernel(
+// ---- phase A: the coefficients of every step ------------------------------
+
+// A cell (GruCell, LstmCell) names NG gates, NC coefficients, KS column
+// warps that share a unit's columns, MAXI register columns per unit and
+// thread, and two device functions:
+//   coefficients(a, x, e0, e1, row, d, j, H, hp, out): a[NG] = hprev . U at
+//     unit j of `row`, x = xp + row * G, hp = hprev there -> out[NC];
+//   step(c, dot, dhs, state, dx, dw): the linear step for one (row, unit).
+struct CoefArgs {
+  const void* xp;      // (T, D, B, G)
+  const void* wh;      // (D, H, G)
+  const void* hprev;   // (T, D, B, H)
+  const void* e0;      // the cell's own saved inputs
+  const void* e1;
+  float* coef;         // (T, D, B, H, NC)
+  int steps, D, B, H;
+};
+
+template <typename T, typename Cell>
+__global__ void __launch_bounds__(TILE_THREADS, 2) rnn_bwd_coef_kernel(
+    CoefArgs p) {
+  constexpr int NG = Cell::NG, NC = Cell::NC;
+  __shared__ __align__(16) float as[TILE_K][TILE_LD];
+  __shared__ float bs[TILE_K][NG * 32];
+  __shared__ size_t rows[TILE_M];      // tdb_row of the tile's rows
+  const int H = p.H, G = NG * H, N = p.steps * p.B;
+  const int n0 = blockIdx.x * TILE_M, j0 = blockIdx.y * 32, d = blockIdx.z;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const T* hprev = static_cast<const T*>(p.hprev);
+  const T* U = static_cast<const T*>(p.wh) + (size_t)d * H * G;
+  if (threadIdx.x < TILE_M)
+    rows[threadIdx.x] =
+        tdb_row(min(n0 + (int)threadIdx.x, N - 1), d, p.D, p.B);
+  float acc[8][NG];
+  tile_product<NG, true>(
+      (H + TILE_K - 1) / TILE_K,
+      [&](int s, int kk, int m) {
+        const int k = s * TILE_K + kk;
+        return n0 + m < N && k < H ? to_f32(hprev[rows[m] * H + k]) : 0.0f;
+      },
+      [&](int s, int kk, int c) {
+        const int k = s * TILE_K + kk, j = j0 + c % 32;
+        return k < H && j < H ? to_f32(U[(size_t)k * G + (c / 32) * H + j])
+                              : 0.0f;
+      },
+      [](int) {}, as, bs, acc);
+  const int j = j0 + tx;
+  if (j >= H) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int n = n0 + ty * 8 + i;
+    if (n >= N) break;
+    const size_t row = rows[ty * 8 + i];
+    float out[NC];
+    Cell::coefficients(acc[i], static_cast<const T*>(p.xp) + row * G, p.e0,
+                       p.e1, row, d, j, H, to_f32(hprev[row * H + j]), out);
+    float* dst = p.coef + (row * H + j) * NC;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dst[c] = out[c];
+  }
+}
+
+template <typename T, typename Cell>
+inline cudaError_t coefficients(const CoefArgs& p, cudaStream_t stream) {
+  const dim3 grid((p.steps * p.B + TILE_M - 1) / TILE_M, (p.H + 31) / 32,
+                  p.D);
+  rnn_bwd_coef_kernel<T, Cell><<<grid, TILE_THREADS, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ---- phase B: the chain ---------------------------------------------------
+
+struct ChainArgs {
+  const void* wh;      // (D, H, G)
+  const float* coef;   // (T, D, B, H, NC)
+  const void* dhs;     // (T, D, B, H)
+  void* dx;            // (T, D, B, G): dxp
+  void* dw;            // (T, D, B, G): what the carry and dU read (GRU: da_w;
+                       // LSTM: dxp itself)
+  float* sums;         // (B, D, H): the cell's per-(row, unit) sum over t
+                       // (GRU: dhn, for db_n); null where the cell has none
+  unsigned int* tickets;   // one per group, zero at launch
+  int steps, D, B, H;
+  int members;         // blocks per group
+};
+
+template <typename T, typename Cell, bool CLUSTER>
+__global__ void __launch_bounds__(32 * RES_UWARPS * Cell::KS, 1)
+    rnn_bwd_chain_kernel(ChainArgs p) {
+  constexpr int NG = Cell::NG, NC = Cell::NC, KS = Cell::KS;
+  constexpr int THREADS = 32 * RES_UWARPS * KS, OWNED = RES_UNITS * RES_BT;
+  static_assert(OWNED <= THREADS, "one owner thread per (row, unit)");
+  extern __shared__ float4 vec[];     // (G): da_{t+1}, the 4 rows per column
+  const int H = p.H, G = NG * H, B = p.B, D = p.D;
+  // (KS, RES_UNITS, RES_BT): the column warps' sums
+  float* part = reinterpret_cast<float*>(vec + G);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int ks = warp / RES_UWARPS;
+  const int q = lane / RES_LANES, c = lane % RES_LANES;
+  // the first of this lane group's units, within the block
+  const int lu = (warp % RES_UWARPS) * RES_WARP_UNITS + q * RES_UW;
+  const int group = blockIdx.x / p.members, member = blockIdx.x % p.members;
+  const int tiles = (B + RES_BT - 1) / RES_BT;
+  const int d = group / tiles, b0 = (group % tiles) * RES_BT;
+  const int j0 = member * RES_UNITS;        // the block's first unit
+  unsigned int* ticket = p.tickets + group;
+
+  float w[RES_UW][Cell::MAXI];
+  resident_load<Cell::MAXI, KS>(
+      w,
+      static_cast<const T*>(p.wh) + ((size_t)d * H + min(j0 + lu, H - 1)) * G,
+      max(0, min(RES_UW, H - j0 - lu)), G, c, ks);
+
+  // threads 0 .. OWNED - 1 each own one (row, unit) of the block's, units
+  // running fastest: their loads and stores are contiguous over the units
+  const int ou = threadIdx.x % RES_UNITS, ob = threadIdx.x / RES_UNITS;
+  const int j = j0 + ou, b = b0 + ob;
+  const bool owner = threadIdx.x < OWNED && j < H && b < B;
+  typename Cell::State state = {};
+  const T* dhs = static_cast<const T*>(p.dhs);
+  T* dx = static_cast<T*>(p.dx);
+  T* dw = static_cast<T*>(p.dw);
+  const size_t step_rows = (size_t)D * B;
+
+  for (int t = p.steps - 1; t >= 0; --t) {
+    const size_t row = (size_t)t * step_rows + (size_t)d * B + b;
+    float cf[NC], g_out = 0.0f;
+    if (owner) {        // independent of the chain: in flight over the wait
+      const float* src = p.coef + (row * H + j) * NC;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) cf[i] = __ldg(src + i);
+      g_out = to_f32(dhs[row * H + j]);
+    }
+    float dot = 0.0f;
+    if (t + 1 < p.steps) {
+      if (CLUSTER)
+        cluster_wait();
+      else
+        group_wait(ticket, (unsigned int)p.members * (p.steps - 1 - t));
+      // stage the group's rows of da_{t+1}, eight L2 loads in flight per
+      // thread before the first is used
+      const T* next =
+          dw + ((size_t)(t + 1) * step_rows + (size_t)d * B + b0) * G;
+      for (int g = threadIdx.x; g < G; g += 2 * THREADS) {
+        float v[2][RES_BT];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int r = 0; r < RES_BT; ++r)
+            v[h][r] = g + h * THREADS < G && b0 + r < B
+                          ? load_shared_result(next + (size_t)r * G + g +
+                                               h * THREADS)
+                          : 0.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (g + h * THREADS < G)
+            vec[g + h * THREADS] =
+                make_float4(v[h][0], v[h][1], v[h][2], v[h][3]);
+      }
+      __syncthreads();
+      float acc[RES_UW][RES_BT];
+      resident_dot<Cell::MAXI, KS>(w, vec, G, c, ks, acc);
+      // the eight lanes of a group hold the same RES_UW * RES_BT sums: lane
+      // c stores sums c and c + 8
+#pragma unroll
+      for (int u = 0; u < RES_UW; ++u)
+#pragma unroll
+        for (int r = 0; r < RES_BT; ++r)
+          if ((u * RES_BT + r) % RES_LANES == c)
+            part[(ks * RES_UNITS + lu + u) * RES_BT + r] = acc[u][r];
+      __syncthreads();
+      if (owner) {        // the column warps' sums, in order
+#pragma unroll
+        for (int k = 0; k < KS; ++k)
+          dot += part[(k * RES_UNITS + ou) * RES_BT + ob];
+      }
+    }
+    if (owner) {
+      float vx[NG], vw[NG];
+      Cell::step(cf, dot, g_out, state, vx, vw);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        store(dx + row * G + g * H + j, vx[g]);
+        if (Cell::SPLIT) store(dw + row * G + g * H + j, vw[g]);
+      }
+    }
+    if (t > 0) {
+      if (CLUSTER)
+        cluster_arrive();
+      else
+        group_arrive(ticket);
+    }
+  }
+  if (owner && p.sums != nullptr)
+    p.sums[((size_t)b * D + d) * H + j] = Cell::total(state);
+}
+
+// The grid is groups * members blocks. With the ticket barrier all of them
+// must be resident at once, or the cooperative launch is refused
+// (cudaErrorCooperativeLaunchTooLarge comes back to the caller). With
+// `cluster` each group is one thread block cluster instead, which the
+// hardware schedules whole: the launch is refused where a group has more
+// than 16 blocks.
+// A launch call's own error also stays behind as the runtime's last error:
+// clear it, so that the next entry point's cudaGetLastError() does not
+// report a launch that this one already refused.
+inline cudaError_t reported(cudaError_t err) {
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+template <typename T, typename Cell>
+inline cudaError_t chain(ChainArgs p, bool cluster, cudaStream_t stream) {
+  if (Cell::NG * p.H > RES_LANES * Cell::MAXI * Cell::KS)
+    return cudaErrorInvalidValue;
+  p.members = (p.H + RES_UNITS - 1) / RES_UNITS;
+  const int groups = p.D * ((p.B + RES_BT - 1) / RES_BT);
+  const int threads = 32 * RES_UWARPS * Cell::KS;
+  const size_t smem = ((size_t)RES_BT * Cell::NG * p.H +
+                       Cell::KS * RES_UNITS * RES_BT) * sizeof(float);
+  if (!cluster) {
+    void* args[] = {&p};
+    return reported(cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(rnn_bwd_chain_kernel<T, Cell, false>),
+        dim3(groups * p.members), dim3(threads), args, smem, stream));
+  }
+  auto kernel = rnn_bwd_chain_kernel<T, Cell, true>;
+  if (p.members > 8) {      // past the portable cluster size
+    const cudaError_t err = reported(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = p.members;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(groups * p.members);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  return reported(cudaLaunchKernelEx(&config, kernel, p));
+}
+
+// ---- phase C: the weight gradient -----------------------------------------
+
+// dU[d, k, g] = sum over n = (t, b) of hprev[t, d, b, k] * da[t, d, b, g] in
+// f32. Block (x, y, z) takes a 64 x (NG * 32) output tile of direction
+// z / DU_SPLIT over slice z % DU_SPLIT of the n axis, walked 16 at a time in
+// a fixed order, and writes its partial; sum_partials_kernel adds the
+// DU_SPLIT partials in order.
+constexpr int DU_SPLIT = 16;
+
+template <typename T, int NG>
+__global__ void __launch_bounds__(TILE_THREADS, 2) du_partial_kernel(
     const T* __restrict__ hprev,   // (T, D, B, H)
     const T* __restrict__ da,      // (T, D, B, G)
-    float* __restrict__ du,        // (D, H, G)
+    float* __restrict__ part,      // (DU_SPLIT, D, H, G)
     int steps, int D, int B, int H, int G) {
-  __shared__ float as[DU_N][DU_T], bs[DU_N][DU_T];
-  const int g0 = blockIdx.x * DU_T, k0 = blockIdx.y * DU_T, d = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  __shared__ __align__(16) float as[TILE_K][TILE_LD];
+  __shared__ float bs[TILE_K][NG * 32];
+  const int g0 = blockIdx.x * NG * 32, k0 = blockIdx.y * TILE_M;
+  const int d = blockIdx.z / DU_SPLIT, s = blockIdx.z % DU_SPLIT;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   const int n_total = steps * B;
-  float acc[4][4] = {};
-  for (int n0 = 0; n0 < n_total; n0 += DU_N) {
-    for (int i = threadIdx.x; i < DU_N * DU_T; i += DU_THREADS) {
-      const int nn = i / DU_T, cc = i % DU_T, n = n0 + nn;
-      const size_t row = ((size_t)(n / B) * D + d) * B + n % B;
-      const bool live = n < n_total;
-      as[nn][cc] = live && k0 + cc < H ? to_f32(hprev[row * H + k0 + cc])
-                                       : 0.0f;
-      bs[nn][cc] = live && g0 + cc < G ? to_f32(da[row * G + g0 + cc]) : 0.0f;
-    }
-    __syncthreads();
+  const int chunk = (n_total + DU_SPLIT - 1) / DU_SPLIT;
+  const int n_lo = s * chunk, n_hi = min(n_total, n_lo + chunk);
+  __shared__ size_t rows[2][TILE_K];   // tdb_row of a slice, by its parity
+  float acc[8][NG];
+  tile_product<NG, false>(
+      (n_hi - n_lo + TILE_K - 1) / TILE_K,
+      [&](int sl, int nn, int m) {
+        return n_lo + sl * TILE_K + nn < n_hi && k0 + m < H
+                   ? to_f32(hprev[rows[sl & 1][nn] * H + k0 + m])
+                   : 0.0f;
+      },
+      [&](int sl, int nn, int c) {
+        return n_lo + sl * TILE_K + nn < n_hi && g0 + c < G
+                   ? to_f32(da[rows[sl & 1][nn] * G + g0 + c])
+                   : 0.0f;
+      },
+      [&](int sl) {
+        if (threadIdx.x < TILE_K)
+          rows[sl & 1][threadIdx.x] = tdb_row(
+              min(n_lo + sl * TILE_K + (int)threadIdx.x, n_hi - 1), d, D, B);
+      },
+      as, bs, acc);
+  float* out = part + ((size_t)s * D + d) * H * G;
 #pragma unroll
-    for (int nn = 0; nn < DU_N; ++nn) {
-      float av[4], bv[4];
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = as[nn][ty + 16 * i];
-        bv[i] = bs[nn][tx + 16 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int l = 0; l < 4; ++l) acc[i][l] = fmaf(av[i], bv[l], acc[i][l]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int k = k0 + ty + 16 * i, g = g0 + tx + 16 * l;
-      if (k < H && g < G) du[((size_t)d * H + k) * G + g] = acc[i][l];
+    for (int g = 0; g < NG; ++g) {
+      const int k = k0 + ty * 8 + i, col = g0 + g * 32 + tx;
+      if (k < H && col < G) out[(size_t)k * G + col] = acc[i][g];
     }
 }
 
-template <typename T>
-inline cudaError_t weight_grad(const T* hprev, const T* da, float* du,
-                               int steps, int D, int B, int H, int G,
-                               cudaStream_t stream) {
-  du_kernel<T><<<dim3((G + DU_T - 1) / DU_T, (H + DU_T - 1) / DU_T, D),
-                 DU_THREADS, 0, stream>>>(hprev, da, du, steps, D, B, H, G);
+// out[i] = part[0][i] + part[1][i] + ... over `parts` slabs of n values.
+static __global__ void sum_partials_kernel(const float* __restrict__ part,
+                                    float* __restrict__ out, int parts,
+                                    size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float total = 0.0f;
+  for (int s = 0; s < parts; ++s) total += part[(size_t)s * n + i];
+  out[i] = total;
+}
+
+inline cudaError_t sum_partials(const float* part, float* out, int parts,
+                                size_t n, cudaStream_t stream) {
+  sum_partials_kernel<<<(unsigned int)((n + 255) / 256), 256, 0, stream>>>(
+      part, out, parts, n);
   return cudaGetLastError();
+}
+
+// part: (DU_SPLIT, D, H, G) f32 scratch from the caller.
+template <typename T, int NG>
+inline cudaError_t weight_grad(const T* hprev, const T* da, float* du,
+                               float* part, int steps, int D, int B, int H,
+                               int G, cudaStream_t stream) {
+  const dim3 grid((G + NG * 32 - 1) / (NG * 32), (H + TILE_M - 1) / TILE_M,
+                  D * DU_SPLIT);
+  du_partial_kernel<T, NG><<<grid, TILE_THREADS, 0, stream>>>(
+      hprev, da, part, steps, D, B, H, G);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_partials(part, du, DU_SPLIT, (size_t)D * H * G, stream);
 }
 
 }  // namespace dl4ss

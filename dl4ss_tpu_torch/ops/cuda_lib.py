@@ -34,8 +34,8 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("stft_features.cu", "gru_fwd.cu", "maskhead_fwd.cu",
            "masked_istft.cu", "gru_bwd.cu", "maskhead_bwd.cu", "lstm_fwd.cu",
            "lstm_bwd.cu", "stft_ri.cu", "istft_ri.cu")
-HEADERS = ("dl4ss_common.cuh", "maskhead_tile.cuh", "rnn_bwd_common.cuh",
-           "stft_tile.cuh", "istft_tile.cuh")
+HEADERS = ("dl4ss_common.cuh", "maskhead_tile.cuh", "rnn_resident.cuh",
+           "rnn_bwd_common.cuh", "stft_tile.cuh", "istft_tile.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -48,10 +48,10 @@ SIGNATURES = {
     "maskhead_fwd": "pppppiiiiiii",
     "maskhead_pack": "ppiiii",       # K3's weight layout, once per W version
     "masked_istft": "pppppppiiiiiiii",
-    "gru_bwd": "ppppppppppppiiiii",
+    "gru_bwd": "ppppppppppppppiiiiii",
     "maskhead_bwd": "pppppppppiiiiii",
     "lstm_fwd": "pppppiiiii",
-    "lstm_bwd": "ppppppppppiiiii",
+    "lstm_bwd": "pppppppppppppiiiiii",
     "stft_ri": "ppppppiiiiiii",
     "istft_ri": "pppppiiiiii",
 }

@@ -8,17 +8,74 @@ PyTorch loop and a CUDA tensor to the hand-written kernel (csrc/gru_fwd.cu,
 csrc/lstm_fwd.cu), the backward likewise to the plain reverse loop or to
 csrc/gru_bwd.cu, csrc/lstm_bwd.cu; there is no fallback between them.
 Unlike the TPU kernels, the hidden width needs no 128-lane padding.
+
+The two backward kernels have two bodies each (csrc/rnn_bwd_common.cuh):
+the resident one (the gate recompute for all steps at once, then ONE
+persistent launch that walks the chain with its slice of U^T in registers,
+then a split dU reduction) and the stepwise one (a launch per step).
+`rnn_bwd_body` is the only rule that picks between them, from the shape
+alone; the launch names the body to the library, which refuses the
+resident body where it cannot run. The resident body's arithmetic, which
+runs only on the card, has plain-torch mirrors here
+(`gru_bwd_resident_mirror`, `lstm_bwd_resident_mirror`) for the CPU tests.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import collections
+from typing import Optional, Tuple
 
 import torch
 
 from dl4ss_tpu_torch.ops import cuda_lib
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# The two bodies of K5 and K8 and what the resident one can hold: a block
+# keeps the weights of RESIDENT_UNITS hidden units in registers (their 3H or
+# 4H columns split over 64 threads, which holds the LSTM's 4H up to H =
+# RESIDENT_MAX_HIDDEN), the blocks of one direction and RESIDENT_ROWS batch
+# rows share a barrier, and every block must be on an SM at once: one block
+# per SM of an H100.
+BODY_RESIDENT, BODY_STEPWISE = "resident", "stepwise"
+# The resident body with its barrier groups as thread block clusters (the
+# hardware's barrier in place of the ticket): the rule never names it; it
+# is there to be timed against the ticket barrier.
+BODY_CLUSTER = "cluster"
+_BODY_CODES = {BODY_RESIDENT: 1, BODY_STEPWISE: 2, BODY_CLUSTER: 3}
+RESIDENT_MAX_HIDDEN = 304
+RESIDENT_UNITS = 24
+RESIDENT_ROWS = 4
+RESIDENT_BLOCKS = 132
+DU_SPLIT = 16       # slices of the (t, b) axis in the dU reduction
+# Launches of K5 and K8 by the body that ran, keyed (kernel name, body);
+# cuda_lib.LAUNCHES counts both bodies under the kernel's name.
+BODY_LAUNCHES: collections.Counter = collections.Counter()
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def resident_groups(batch: int, directions: int = 2) -> int:
+    """Barrier groups of the resident body: one per direction and tile of
+    RESIDENT_ROWS batch rows."""
+    return directions * _ceil_div(batch, RESIDENT_ROWS)
+
+
+def rnn_bwd_body(hidden: int, batch: int, directions: int = 2) -> str:
+    """The shape rule of K5 and K8 on the card: the resident body where a
+    block's slice of U^T fits its registers (H <= 304) and the grid, one
+    block per RESIDENT_UNITS units of each barrier group, fits the card's
+    SMs at once (at H=300: B <= 20); the stepwise body for every other
+    shape. The dtype does not enter: the slice is held in f32 either way.
+    The launch is told the body by name; the library only refuses the
+    resident body on a shape it cannot take."""
+    blocks = resident_groups(batch, directions) * _ceil_div(hidden,
+                                                            RESIDENT_UNITS)
+    if hidden <= RESIDENT_MAX_HIDDEN and blocks <= RESIDENT_BLOCKS:
+        return BODY_RESIDENT
+    return BODY_STEPWISE
 
 
 class _GruScan(torch.autograd.Function):
@@ -127,11 +184,75 @@ def gru_scan_bwd_plain(xp, wh, bh_n, hprev, dhs
     return dxp, du.to(wh.dtype), dbn.to(bh_n.dtype)
 
 
-def gru_scan_bwd_cuda(xp, wh, bh_n, hprev, dhs
+def _du_partials(d: int, hidden: int, gates: int, dev) -> torch.Tensor:
+    return torch.empty((DU_SPLIT, d, hidden, gates), dtype=torch.float32,
+                       device=dev)
+
+
+def _sum_du_partials(hp: torch.Tensor, da: torch.Tensor) -> torch.Tensor:
+    """dU as the kernels' phase C takes it: the (t, b) axis cut into
+    DU_SPLIT slices, each slice's hprev^T . da, the partials added in
+    order. hp (T, D, B, H) and da (T, D, B, G) in f32 -> (D, H, G)."""
+    t, d, b, _ = hp.shape
+    rows_h = hp.transpose(0, 1).reshape(d, t * b, -1)
+    rows_a = da.transpose(0, 1).reshape(d, t * b, -1)
+    chunk = _ceil_div(t * b, DU_SPLIT)
+    du = torch.zeros((d, hp.shape[-1], da.shape[-1]), dtype=torch.float32,
+                     device=hp.device)
+    for lo in range(0, t * b, chunk):
+        du += torch.bmm(rows_h[:, lo:lo + chunk].transpose(1, 2),
+                        rows_a[:, lo:lo + chunk])
+    return du
+
+
+def gru_bwd_resident_mirror(xp, wh, bh_n, hprev, dhs
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The resident body of K5 step for step in plain torch, for the CPU
+    tests: phase A (the gates of every step from one product, turned into
+    the five coefficients c_r, c_z, c_n, c_h, z), phase B (the chain, linear
+    in dh), phase C (dU from DU_SPLIT partial sums; db_n summed over t per
+    row, then over the rows). Same contract as `gru_scan_bwd_plain`."""
+    t, d, b, g3 = xp.shape
+    hidden = g3 // 3
+    w, hp, x = wh.float(), hprev.float(), xp.float()
+    a = torch.einsum("tdbk,dkg->tdbg", hp, w)
+    r = torch.sigmoid(x[..., :hidden] + a[..., :hidden])
+    z = torch.sigmoid(x[..., hidden:2 * hidden] + a[..., hidden:2 * hidden])
+    hn = a[..., 2 * hidden:] + bh_n
+    n = torch.tanh(x[..., 2 * hidden:] + r * hn)
+    c_n = (1.0 - z) * (1.0 - n * n)
+    c_r = c_n * hn * r * (1.0 - r)
+    c_z = (hp - n) * z * (1.0 - z)
+    c_h = c_n * r
+    dxp = torch.empty_like(xp)
+    daw = torch.empty_like(xp)
+    dhz = torch.zeros((d, b, hidden), dtype=torch.float32, device=xp.device)
+    dot = torch.zeros_like(dhz)
+    dbn_rows = torch.zeros_like(dhz)
+    for s in reversed(range(t)):
+        dh = dhz + dot + dhs[s].float()
+        da_r, da_z, dhn = dh * c_r[s], dh * c_z[s], dh * c_h[s]
+        dxp[s] = torch.cat([da_r, da_z, dh * c_n[s]], dim=-1).to(xp.dtype)
+        daw[s] = torch.cat([da_r, da_z, dhn], dim=-1).to(xp.dtype)
+        dot = torch.bmm(daw[s].float(), w.transpose(1, 2))
+        dhz = dh * z[s]
+        dbn_rows += dhn
+    du = _sum_du_partials(hp, daw.float())
+    return dxp, du.to(wh.dtype), dbn_rows.sum(dim=1, keepdim=True)
+
+
+def gru_scan_bwd_cuda(xp, wh, bh_n, hprev, dhs, body: Optional[str] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K5 on the card: csrc/gru_bwd.cu, one ctypes call per layer that
+    """K5 on the card: csrc/gru_bwd.cu, one ctypes call per layer. The
+    resident body launches the coefficient product, one persistent chain
+    kernel for all steps and the dU / db_n reductions; the stepwise body
     transposes U, launches one step kernel per time step in reverse, then
-    reduces dU and db_n. Same contract as `gru_scan_bwd_plain`."""
+    reduces. `body` forces one of the two for a check or a timing; by
+    default `rnn_bwd_body` names it from the shape. Same contract as
+    `gru_scan_bwd_plain`. Scratch is allocated per call and freed after:
+    at T=313, B=16, H=300 in f32 the resident body's peak is 60 MB of
+    coefficients, 36 MB of da_w and 35 MB of dU partials."""
     t, d, b, g3 = xp.shape
     if g3 % 3:
         raise ValueError(f"xp's last axis must be 3H, got {g3}")
@@ -141,17 +262,28 @@ def gru_scan_bwd_cuda(xp, wh, bh_n, hprev, dhs
     cuda_lib.check(bh_n, "bh_n", (torch.float32,), (d, 1, hidden))
     cuda_lib.check(hprev, "hprev", (xp.dtype,), (t, d, b, hidden))
     cuda_lib.check(dhs, "dhs", (xp.dtype,), (t, d, b, hidden))
+    chosen = body or rnn_bwd_body(hidden, b, d)
     dev = xp.device
+    f32 = dict(dtype=torch.float32, device=dev)
     dxp = torch.empty_like(xp)
-    du = torch.empty((d, hidden, g3), dtype=torch.float32, device=dev)
-    dbn = torch.empty((d, 1, hidden), dtype=torch.float32, device=dev)
-    wht = torch.empty((d, g3, hidden), dtype=xp.dtype, device=dev)
+    du = torch.empty((d, hidden, g3), **f32)
+    dbn = torch.empty((d, 1, hidden), **f32)
     daw = torch.empty_like(xp)
-    dhz = torch.empty((d, b, hidden), dtype=torch.float32, device=dev)
-    dhn = torch.empty((t, d, b, hidden), dtype=torch.float32, device=dev)
+    du_part = _du_partials(d, hidden, g3, dev)
+    wht = dhz = tickets = 0
+    if chosen != BODY_STEPWISE:
+        # the coefficients (T, D, B, H, 5), then the db_n partials (B, D, H)
+        work = torch.empty(d * b * hidden * (5 * t + 1), **f32)
+        tickets = torch.zeros(resident_groups(b, d), dtype=torch.int32,
+                              device=dev)
+    else:
+        wht = torch.empty((d, g3, hidden), dtype=xp.dtype, device=dev)
+        dhz = torch.empty((d, b, hidden), **f32)
+        work = torch.empty((t, d, b, hidden), **f32)      # dhn
     cuda_lib.launch("gru_bwd", dev, xp, wh, bh_n, hprev, dhs, dxp, du, dbn,
-                    wht, daw, dhz, dhn, t, d, b, hidden,
-                    int(xp.dtype == torch.bfloat16))
+                    wht, daw, dhz, work, du_part, tickets, t, d, b, hidden,
+                    int(xp.dtype == torch.bfloat16), _BODY_CODES[chosen])
+    BODY_LAUNCHES["gru_bwd", chosen] += 1
     return dxp, du.to(wh.dtype), dbn
 
 
@@ -280,23 +412,69 @@ def lstm_scan_bwd_plain(xp, wh, hprev, cprev, cs, dhs
     return dxp, du.to(wh.dtype)
 
 
-def lstm_scan_bwd_cuda(xp, wh, hprev, cprev, cs, dhs
+def lstm_bwd_resident_mirror(xp, wh, hprev, cprev, cs, dhs
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The resident body of K8 step for step in plain torch, for the CPU
+    tests: phase A (the gates of every step from one product, turned into
+    the six coefficients k_c, k_i, k_f, k_g, k_o, f), phase B (the chain,
+    linear in dh and dc), phase C (dU from DU_SPLIT partial sums). Same
+    contract as `lstm_scan_bwd_plain`."""
+    t, d, b, g4 = xp.shape
+    hidden = g4 // 4
+    w, hp = wh.float(), hprev.float()
+    i, f, g, o = _lstm_gates(
+        xp.float() + torch.einsum("tdbk,dkg->tdbg", hp, w), hidden)
+    tc = torch.tanh(cs.float())
+    k_c = o * (1.0 - tc * tc)
+    k_i = g * i * (1.0 - i)
+    k_f = cprev.float() * f * (1.0 - f)
+    k_g = i * (1.0 - g * g)
+    k_o = tc * o * (1.0 - o)
+    dxp = torch.empty_like(xp)
+    dc_carry = torch.zeros((d, b, hidden), dtype=torch.float32,
+                           device=xp.device)
+    dot = torch.zeros_like(dc_carry)
+    for s in reversed(range(t)):
+        dh = dot + dhs[s].float()
+        dc = dc_carry + dh * k_c[s]
+        dxp[s] = torch.cat([dc * k_i[s], dc * k_f[s], dc * k_g[s],
+                            dh * k_o[s]], dim=-1).to(xp.dtype)
+        dot = torch.bmm(dxp[s].float(), w.transpose(1, 2))
+        dc_carry = dc * f[s]
+    return dxp, _sum_du_partials(hp, dxp.float()).to(wh.dtype)
+
+
+def lstm_scan_bwd_cuda(xp, wh, hprev, cprev, cs, dhs,
+                       body: Optional[str] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K8 on the card: csrc/lstm_bwd.cu, one ctypes call per layer that
-    transposes U, launches one step kernel per time step in reverse, then
-    reduces dU. Same contract as `lstm_scan_bwd_plain`."""
+    """K8 on the card: csrc/lstm_bwd.cu, one ctypes call per layer, with
+    the two bodies of `gru_scan_bwd_cuda` (`body` forces one; by default
+    `rnn_bwd_body` names it from the shape). Same contract as
+    `lstm_scan_bwd_plain`. Scratch is allocated per call and freed after:
+    at T=313, B=16, H=300 in f32 the resident body's peak is 72 MB of
+    coefficients and 46 MB of dU partials."""
     t, d, b, hidden = _lstm_shape(xp)
     cuda_lib.check(xp, "xp", _DTYPES)
     cuda_lib.check(wh, "wh", (xp.dtype,), (d, hidden, 4 * hidden))
     for name, arg in (("hprev", hprev), ("cprev", cprev), ("cs", cs),
                       ("dhs", dhs)):
         cuda_lib.check(arg, name, (xp.dtype,), (t, d, b, hidden))
+    chosen = body or rnn_bwd_body(hidden, b, d)
     dev = xp.device
+    f32 = dict(dtype=torch.float32, device=dev)
     dxp = torch.empty_like(xp)
-    du = torch.empty((d, hidden, 4 * hidden), dtype=torch.float32, device=dev)
-    wht = torch.empty((d, 4 * hidden, hidden), dtype=xp.dtype, device=dev)
-    dc = torch.empty((d, b, hidden), dtype=torch.float32, device=dev)
+    du = torch.empty((d, hidden, 4 * hidden), **f32)
+    du_part = _du_partials(d, hidden, 4 * hidden, dev)
+    wht = dc = work = tickets = 0
+    if chosen != BODY_STEPWISE:
+        work = torch.empty((t, d, b, hidden, 6), **f32)   # the coefficients
+        tickets = torch.zeros(resident_groups(b, d), dtype=torch.int32,
+                              device=dev)
+    else:
+        wht = torch.empty((d, 4 * hidden, hidden), dtype=xp.dtype, device=dev)
+        dc = torch.empty((d, b, hidden), **f32)
     cuda_lib.launch("lstm_bwd", dev, xp, wh, hprev, cprev, cs, dhs, dxp, du,
-                    wht, dc, t, d, b, hidden,
-                    int(xp.dtype == torch.bfloat16))
+                    wht, dc, work, du_part, tickets, t, d, b, hidden,
+                    int(xp.dtype == torch.bfloat16), _BODY_CODES[chosen])
+    BODY_LAUNCHES["lstm_bwd", chosen] += 1
     return dxp, du.to(wh.dtype)

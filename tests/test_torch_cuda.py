@@ -217,16 +217,56 @@ def _rel(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
+def _check_bwd_bodies(k, name, cuda, plain, args, h, b, tol, body, outs):
+    """One body of K5 or K8 against the plain version. The resident body
+    must refuse a shape that the rule sends to the stepwise one, and its
+    cluster variant (each barrier group a thread block cluster, which needs
+    no grid-wide residency) a width past the registers; the stepwise body
+    takes every shape that fits its shared memory. The resident body and
+    its variant are also held to the stepwise one, and two back-to-back
+    calls on one stream must agree bit for bit: that guards the barrier's
+    ticket, which each call gets zeroed."""
+    from dl4ss_tpu_torch.ops import cuda_lib
+    rule = k.rnn_bwd_body(h, b)
+    if (body == "resident" and rule != "resident") or (
+            body == "cluster" and h > k.RESIDENT_MAX_HIDDEN):
+        with pytest.raises(RuntimeError, match=f"{name} failed"):
+            cuda(*args, body=body)
+        torch.cuda.synchronize()
+        body = None             # the default call then runs the rule's body
+    before = k.BODY_LAUNCHES[name, body or rule], cuda_lib.LAUNCHES[name]
+    got = cuda(*args, body=body)
+    assert (k.BODY_LAUNCHES[name, body or rule],
+            cuda_lib.LAUNCHES[name]) == (before[0] + 1, before[1] + 1)
+    for what, g, r in zip(outs, got, plain(*args)):
+        assert g.shape == r.shape and g.dtype == r.dtype, what
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol,
+                                   msg=what)
+    if body in ("resident", "cluster"):
+        for what, g, g2, r in zip(outs, got, cuda(*args, body=body),
+                                  cuda(*args, body="stepwise")):
+            assert torch.equal(g, g2), what
+            torch.testing.assert_close(g.float(), r.float(), atol=tol,
+                                       rtol=tol, msg=what)
+    if body == "cluster" and rule == "resident":
+        # the same arithmetic behind another barrier
+        for what, g, r in zip(outs, got, cuda(*args)):
+            assert torch.equal(g, r), what
+
+
+# (4, 24, 300): 2 * 6 groups of 13 blocks are more than the card's SMs
 @pytest.mark.parametrize("t,b,h", [(7, 1, 37), (5, 17, 300), (3, 2, 8),
-                                   (12, 3, 45)])
+                                   (12, 3, 45), (4, 24, 300)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 5e-2)])
-def test_k5_gru_bwd(dev, t, b, h, dtype, tol):
-    """K5 against its plain version on the forward's own hs. f32: only
-    the summation order differs (1e-4). bf16: da_w is rounded to bf16
-    before both products, so an order difference can flip one rounding
-    and carry it back through the steps (5e-2, the repo's gradient bar
-    for bf16 kernels)."""
+@pytest.mark.parametrize("body", ["resident", "stepwise", "cluster"])
+def test_k5_gru_bwd(dev, t, b, h, dtype, tol, body):
+    """K5, both bodies, against its plain version on the forward's own hs.
+    f32: only the summation order and the order of the coefficient
+    products differ (1e-4). bf16: da_w is rounded to bf16 before both
+    products, so an order difference can flip one rounding and carry it
+    back through the steps (5e-2, the repo's gradient bar for bf16
+    kernels)."""
     from dl4ss_tpu_torch.ops import rnn_kernels as k
     rng = np.random.default_rng(6)
     s = 1 / np.sqrt(h)
@@ -236,12 +276,19 @@ def test_k5_gru_bwd(dev, t, b, h, dtype, tol):
     hs = k.gru_scan_cuda(xp, wh, bhn)
     hprev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
     dhs = _t(rng.standard_normal((t, 2, b, h)), dev, dtype)
-    got = k.gru_scan_bwd_cuda(xp, wh, bhn, hprev, dhs)
-    ref = k.gru_scan_bwd_plain(xp, wh, bhn, hprev, dhs)
-    for name, g, r in zip(("dxp", "dU", "db_n"), got, ref):
-        assert g.shape == r.shape and g.dtype == r.dtype, name
-        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol,
-                                   msg=name)
+    _check_bwd_bodies(k, "gru_bwd", k.gru_scan_bwd_cuda, k.gru_scan_bwd_plain,
+                      (xp, wh, bhn, hprev, dhs), h, b, tol, body,
+                      ("dxp", "dU", "db_n"))
+
+
+def test_k5_k8_refuse_an_unknown_body(dev):
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    xp = torch.zeros((2, 2, 1, 24), device=dev)
+    wh = torch.zeros((2, 8, 24), device=dev)
+    h = torch.zeros((2, 2, 1, 8), device=dev)
+    with pytest.raises(KeyError):
+        k.gru_scan_bwd_cuda(xp, wh, torch.zeros((2, 1, 8), device=dev), h, h,
+                            body="persistent")
 
 
 @pytest.mark.parametrize("b,t,d,f,e,k", [(1, 70, 24, 13, 5, 3),
@@ -334,15 +381,18 @@ def test_k7_lstm_fwd(dev, t, b, h, dtype, tol):
                                    msg=name)
 
 
+# (7, 5, 600): past the width the resident body holds in registers
 @pytest.mark.parametrize("t,b,h", [(7, 1, 33), (7, 5, 300), (7, 5, 600),
-                                   (12, 3, 45)])
+                                   (12, 3, 45), (4, 17, 300)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 5e-2)])
-def test_k8_lstm_bwd(dev, t, b, h, dtype, tol):
-    """K8 against its plain version on the forward's own hs and cs. f32:
-    only the summation order differs (1e-4). bf16: da is rounded to bf16
-    before both products, so an order difference can flip one rounding and
-    carry it back through the steps (5e-2, the repo's gradient bar for bf16
+@pytest.mark.parametrize("body", ["resident", "stepwise", "cluster"])
+def test_k8_lstm_bwd(dev, t, b, h, dtype, tol, body):
+    """K8, both bodies, against its plain version on the forward's own hs
+    and cs. f32: only the summation order and the order of the coefficient
+    products differ (1e-4). bf16: da is rounded to bf16 before both
+    products, so an order difference can flip one rounding and carry it
+    back through the steps (5e-2, the repo's gradient bar for bf16
     kernels)."""
     from dl4ss_tpu_torch.ops import rnn_kernels as k
     rng = np.random.default_rng(10)
@@ -353,11 +403,9 @@ def test_k8_lstm_bwd(dev, t, b, h, dtype, tol):
     zeros = torch.zeros_like(hs[:1])
     args = (xp, wh, torch.cat([zeros, hs[:-1]]), torch.cat([zeros, cs[:-1]]),
             cs, _t(rng.standard_normal((t, 2, b, h)), dev, dtype))
-    for name, g, r in zip(("dxp", "dU"), k.lstm_scan_bwd_cuda(*args),
-                          k.lstm_scan_bwd_plain(*args)):
-        assert g.shape == r.shape and g.dtype == r.dtype, name
-        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol,
-                                   msg=name)
+    _check_bwd_bodies(k, "lstm_bwd", k.lstm_scan_bwd_cuda,
+                      k.lstm_scan_bwd_plain, args, h, b, tol, body,
+                      ("dxp", "dU"))
 
 
 @pytest.mark.parametrize("b,n,length,hop,body", [
