@@ -252,6 +252,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     dev = resolve_device("cuda")
+    SMS = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"card: {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | tf32 matmul="
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
@@ -332,7 +333,7 @@ def main() -> int:
         against the plain version; the resident body against the stepwise
         one and against a second call of itself. Returns the rule's body's
         max abs error."""
-        rule = k2.rnn_bwd_body(hidden, BATCH)
+        rule = k2.rnn_bwd_body(hidden, BATCH, sms=SMS)
         ref = plain(*args)
         before = k2.BODY_LAUNCHES[name, rule]
         got = {rule: cuda(*args)}
@@ -347,12 +348,9 @@ def main() -> int:
             for what, g, r in zip(outs, got[rule], got[k2.BODY_STEPWISE]):
                 check_rel(f"{label} resident against stepwise {what}", g, r,
                           tol)
-            for what, g, g2, g3 in zip(outs, got[rule], cuda(*args),
-                                       cuda(*args, body=k2.BODY_CLUSTER)):
+            for what, g, g2 in zip(outs, got[rule], cuda(*args)):
                 if not torch.equal(g, g2):
                     fail(f"{label}: two calls in a row differ in {what}")
-                if not torch.equal(g, g3):
-                    fail(f"{label}: the cluster barrier changes {what}")
         return worst[rule]
 
     # K5 at the training shapes (T=313, D=2, B=16, H=300): the backward of
@@ -1057,16 +1055,15 @@ def main() -> int:
 
     def bwd_extras(name, cuda, args_by_label):
         """K5 or K8 beside its row (which times the rule's body): the
-        stepwise body re-measured in the same run, the resident body with
-        its groups as thread block clusters (the hardware's barrier in
-        place of the ticket), all of them in bf16, and the resident body's
-        phases by kernel name from one profiled call."""
+        stepwise body re-measured in the same run, both of them in bf16,
+        and the resident body's phases by kernel name from one profiled
+        call."""
         for label, args in args_by_label.items():
             parts = []
-            for body in (k2.BODY_RESIDENT, k2.BODY_CLUSTER,
-                         k2.BODY_STEPWISE):
+            for body in (k2.BODY_RESIDENT, k2.BODY_STEPWISE):
                 if body == k2.BODY_STEPWISE or k2.rnn_bwd_body(
-                        args[1].shape[1], BATCH) == k2.BODY_RESIDENT:
+                        args[1].shape[1], BATCH,
+                        sms=SMS) == k2.BODY_RESIDENT:
                     ms = device_ms(torch, lambda: cuda(*args, body=body), 5)
                     parts.append(f"{body} body {ms:.4f}")
             print(f"time {name} {label} per layer ms: " + ", ".join(parts),

@@ -246,8 +246,9 @@ template <typename T>
 cudaError_t run_resident(const void* xp, const void* wh, const void* bhn,
                          const void* hprev, const void* dhs, void* dxp,
                          void* du, void* dbn, void* daw, void* work,
-                         void* du_part, void* tickets, int steps, int D, int B,
-                         int H, bool cluster, cudaStream_t stream) {
+                         void* du_part, void* tickets, int du_parts,
+                         int groups, int steps, int D, int B, int H,
+                         cudaStream_t stream) {
   const int G = 3 * H;
   // work: the coefficients (T, D, B, H, 5), then the db_n partials (B, D, H)
   float* coef = static_cast<float*>(work);
@@ -257,7 +258,7 @@ cudaError_t run_resident(const void* xp, const void* wh, const void* bhn,
   if (err != cudaSuccess) return err;
   err = dl4ss::chain<T, GruCell>(
       {wh, coef, dhs, dxp, daw, sums, static_cast<unsigned int*>(tickets),
-       steps, D, B, H, 0}, cluster, stream);
+       steps, D, B, H, 0}, groups, stream);
   if (err != cudaSuccess) return err;
   err = dl4ss::sum_partials(sums, static_cast<float*>(dbn), B, (size_t)D * H,
                             stream);
@@ -265,16 +266,16 @@ cudaError_t run_resident(const void* xp, const void* wh, const void* bhn,
   return dl4ss::weight_grad<T, 3>(static_cast<const T*>(hprev),
                                   static_cast<const T*>(daw),
                                   static_cast<float*>(du),
-                                  static_cast<float*>(du_part), steps, D, B, H,
-                                  G, stream);
+                                  static_cast<float*>(du_part), du_parts,
+                                  steps, D, B, H, G, stream);
 }
 
 template <typename T>
 cudaError_t run_stepwise(const void* xp, const void* wh, const void* bhn,
                          const void* hprev, const void* dhs, void* dxp,
                          void* du, void* dbn, void* wht, void* daw, void* dhz,
-                         void* dhn, void* du_part, int steps, int D, int B,
-                         int H, cudaStream_t stream) {
+                         void* dhn, void* du_part, int du_parts, int steps,
+                         int D, int B, int H, cudaStream_t stream) {
   const int G = 3 * H;
   const T* U = static_cast<const T*>(wh);
   T* Ut = static_cast<T*>(wht);
@@ -303,8 +304,8 @@ cudaError_t run_stepwise(const void* xp, const void* wh, const void* bhn,
   }
 
   err = dl4ss::weight_grad<T, 3>(hp, dw, static_cast<float*>(du),
-                                 static_cast<float*>(du_part), steps, D, B, H,
-                                 G, stream);
+                                 static_cast<float*>(du_part), du_parts, steps,
+                                 D, B, H, G, stream);
   if (err != cudaSuccess) return err;
   gru_bwd_dbn_kernel<<<dim3((H + 31) / 32, D), 256, 0, stream>>>(
       dn, static_cast<float*>(dbn), steps, D, B, H);
@@ -315,15 +316,17 @@ template <typename T>
 cudaError_t run(const void* xp, const void* wh, const void* bhn,
                 const void* hprev, const void* dhs, void* dxp, void* du,
                 void* dbn, void* wht, void* daw, void* dhz, void* work,
-                void* du_part, void* tickets, int steps, int D, int B, int H,
-                int body, cudaStream_t stream) {
-  if (body == dl4ss::BODY_RESIDENT || body == dl4ss::BODY_CLUSTER)
+                void* du_part, void* tickets, int du_parts, int groups,
+                int steps, int D, int B, int H, int body,
+                cudaStream_t stream) {
+  if (body == dl4ss::BODY_RESIDENT)
     return run_resident<T>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, daw, work,
-                           du_part, tickets, steps, D, B, H,
-                           body == dl4ss::BODY_CLUSTER, stream);
+                           du_part, tickets, du_parts, groups, steps, D, B, H,
+                           stream);
   if (body == dl4ss::BODY_STEPWISE)
     return run_stepwise<T>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, wht, daw,
-                           dhz, work, du_part, steps, D, B, H, stream);
+                           dhz, work, du_part, du_parts, steps, D, B, H,
+                           stream);
   return cudaErrorInvalidValue;
 }
 
@@ -334,21 +337,24 @@ cudaError_t run(const void* xp, const void* wh, const void* bhn,
 // du (D, H, 3H) and dbn (D, 1, H) in f32. body: 1 resident, 2 stepwise; the
 // resident body returns an error for a shape it cannot hold. Scratch from
 // the caller, for both bodies: daw (T, D, B, 3H) in the input dtype and
-// du_part (16, D, H, 3H) f32. Resident: work = (T*D*B*H*5 + B*D*H) f32 and
-// tickets = one zeroed 32-bit counter per (direction, 4 batch rows).
+// du_part (du_parts, D, H, 3H) f32. Resident: work = (T*D*B*H*5 + B*D*H) f32
+// and tickets = `groups` zeroed 32-bit counters. du_parts and groups say
+// what the caller allocated: a count other than the kernels' own (16 slabs;
+// one group per direction and 4 batch rows) is refused with an error.
 // Stepwise: wht (D, 3H, H) in the input dtype, dhz (D, B, H) f32 and work =
 // (T, D, B, H) f32. What a body does not use may be null.
 extern "C" int dl4ss_gru_bwd(const void* xp, const void* wh, const void* bhn,
                              const void* hprev, const void* dhs, void* dxp,
                              void* du, void* dbn, void* wht, void* daw,
                              void* dhz, void* work, void* du_part,
-                             void* tickets, int steps, int D, int B, int H,
-                             int bf16, int body, void* stream) {
+                             void* tickets, int du_parts, int groups,
+                             int steps, int D, int B, int H, int bf16,
+                             int body, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? run<__nv_bfloat16>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, wht,
-                                   daw, dhz, work, du_part, tickets, steps, D,
-                                   B, H, body, s)
+                                   daw, dhz, work, du_part, tickets, du_parts,
+                                   groups, steps, D, B, H, body, s)
               : run<float>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, wht, daw,
-                           dhz, work, du_part, tickets, steps, D, B, H, body,
-                           s);
+                           dhz, work, du_part, tickets, du_parts, groups,
+                           steps, D, B, H, body, s);
 }

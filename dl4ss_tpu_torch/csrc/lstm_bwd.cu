@@ -234,8 +234,8 @@ template <typename T>
 cudaError_t run_resident(const void* xp, const void* wh, const void* hprev,
                          const void* cprev, const void* cs, const void* dhs,
                          void* dxp, void* du, void* work, void* du_part,
-                         void* tickets, int steps, int D, int B, int H,
-                         bool cluster, cudaStream_t stream) {
+                         void* tickets, int du_parts, int groups, int steps,
+                         int D, int B, int H, cudaStream_t stream) {
   const int G = 4 * H;
   float* coef = static_cast<float*>(work);    // (T, D, B, H, 6)
   cudaError_t err = dl4ss::coefficients<T, LstmCell>(
@@ -243,21 +243,21 @@ cudaError_t run_resident(const void* xp, const void* wh, const void* hprev,
   if (err != cudaSuccess) return err;
   err = dl4ss::chain<T, LstmCell>(
       {wh, coef, dhs, dxp, dxp, nullptr, static_cast<unsigned int*>(tickets),
-       steps, D, B, H, 0}, cluster, stream);
+       steps, D, B, H, 0}, groups, stream);
   if (err != cudaSuccess) return err;
   return dl4ss::weight_grad<T, 4>(static_cast<const T*>(hprev),
                                   static_cast<const T*>(dxp),
                                   static_cast<float*>(du),
-                                  static_cast<float*>(du_part), steps, D, B, H,
-                                  G, stream);
+                                  static_cast<float*>(du_part), du_parts,
+                                  steps, D, B, H, G, stream);
 }
 
 template <typename T>
 cudaError_t run_stepwise(const void* xp, const void* wh, const void* hprev,
                          const void* cprev, const void* cs, const void* dhs,
                          void* dxp, void* du, void* wht, void* dc,
-                         void* du_part, int steps, int D, int B, int H,
-                         cudaStream_t stream) {
+                         void* du_part, int du_parts, int steps, int D, int B,
+                         int H, cudaStream_t stream) {
   const int G = 4 * H;
   const T* U = static_cast<const T*>(wh);
   T* Ut = static_cast<T*>(wht);
@@ -285,23 +285,23 @@ cudaError_t run_stepwise(const void* xp, const void* wh, const void* hprev,
     if (err != cudaSuccess) return err;
   }
   return dl4ss::weight_grad<T, 4>(hp, dx, static_cast<float*>(du),
-                                  static_cast<float*>(du_part), steps, D, B, H,
-                                  G, stream);
+                                  static_cast<float*>(du_part), du_parts,
+                                  steps, D, B, H, G, stream);
 }
 
 template <typename T>
 cudaError_t run(const void* xp, const void* wh, const void* hprev,
                 const void* cprev, const void* cs, const void* dhs, void* dxp,
                 void* du, void* wht, void* dc, void* work, void* du_part,
-                void* tickets, int steps, int D, int B, int H, int body,
-                cudaStream_t stream) {
-  if (body == dl4ss::BODY_RESIDENT || body == dl4ss::BODY_CLUSTER)
+                void* tickets, int du_parts, int groups, int steps, int D,
+                int B, int H, int body, cudaStream_t stream) {
+  if (body == dl4ss::BODY_RESIDENT)
     return run_resident<T>(xp, wh, hprev, cprev, cs, dhs, dxp, du, work,
-                           du_part, tickets, steps, D, B, H,
-                           body == dl4ss::BODY_CLUSTER, stream);
+                           du_part, tickets, du_parts, groups, steps, D, B, H,
+                           stream);
   if (body == dl4ss::BODY_STEPWISE)
     return run_stepwise<T>(xp, wh, hprev, cprev, cs, dhs, dxp, du, wht, dc,
-                           du_part, steps, D, B, H, stream);
+                           du_part, du_parts, steps, D, B, H, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -311,20 +311,24 @@ cudaError_t run(const void* xp, const void* wh, const void* hprev,
 // bf16 (bf16 != 0) -> dxp (T, D, B, 4H) in the input dtype and du
 // (D, H, 4H) in f32. body: 1 resident, 2 stepwise; the resident body returns
 // an error for a shape it cannot hold. Scratch from the caller, for both
-// bodies: du_part (16, D, H, 4H) f32. Resident: work = (T, D, B, H, 6) f32
-// and tickets = one zeroed 32-bit counter per (direction, 4 batch rows).
+// bodies: du_part (du_parts, D, H, 4H) f32. Resident: work = (T, D, B, H, 6)
+// f32 and tickets = `groups` zeroed 32-bit counters. du_parts and groups say
+// what the caller allocated: a count other than the kernels' own (16 slabs;
+// one group per direction and 4 batch rows) is refused with an error.
 // Stepwise: wht (D, 4H, H) in the input dtype and dc (D, B, H) f32 (it need
 // not be initialised). What a body does not use may be null.
 extern "C" int dl4ss_lstm_bwd(const void* xp, const void* wh,
                               const void* hprev, const void* cprev,
                               const void* cs, const void* dhs, void* dxp,
                               void* du, void* wht, void* dc, void* work,
-                              void* du_part, void* tickets, int steps, int D,
-                              int B, int H, int bf16, int body, void* stream) {
+                              void* du_part, void* tickets, int du_parts,
+                              int groups, int steps, int D, int B, int H,
+                              int bf16, int body, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? run<__nv_bfloat16>(xp, wh, hprev, cprev, cs, dhs, dxp, du,
-                                   wht, dc, work, du_part, tickets, steps, D,
-                                   B, H, body, s)
+                                   wht, dc, work, du_part, tickets, du_parts,
+                                   groups, steps, D, B, H, body, s)
               : run<float>(xp, wh, hprev, cprev, cs, dhs, dxp, du, wht, dc,
-                           work, du_part, tickets, steps, D, B, H, body, s);
+                           work, du_part, tickets, du_parts, groups, steps, D,
+                           B, H, body, s);
 }

@@ -33,12 +33,10 @@
 //      8 groups of 13 blocks, 104 of the 132 SMs. The elementwise carry
 //      (dh*z, dc) and the GRU's db_n sum stay in the owner thread's
 //      registers across the steps. The barrier is a ticket in device
-//      memory; with `cluster` each group is a thread block cluster and the
-//      barrier the hardware's. Measured on an NVIDIA H100 80GB HBM3 the
-//      cluster barrier itself costs no more cycles a step, but eight
-//      clusters of 13 blocks do not all fit the card at once, so they run
-//      in two waves and the layer takes 1.4x as long: the ticket barrier
-//      is the resident body, the cluster one stays to be timed.
+//      memory (rnn_resident.cuh). A thread block cluster per group, with
+//      the hardware's barrier, was built and measured on an NVIDIA H100
+//      80GB HBM3: eight clusters of 13 blocks do not all fit the card at
+//      once, so they ran in two waves and the layer took 1.4x as long.
 //   C  `weight_grad`, after the loop: dU with the (t, b) axis split
 //      DU_SPLIT ways over the grid (the same `tile_product`), then a
 //      fixed-order sum of the partials. Deterministic: no atomics on data.
@@ -57,7 +55,7 @@
 
 namespace dl4ss {
 
-constexpr int BODY_RESIDENT = 1, BODY_STEPWISE = 2, BODY_CLUSTER = 3;
+constexpr int BODY_RESIDENT = 1, BODY_STEPWISE = 2;
 
 // ut[d, g, k] = u[d, k, g] for u (D, H, G), through 32 x 32 shared tiles.
 template <typename T>
@@ -178,7 +176,7 @@ struct ChainArgs {
   int members;         // blocks per group
 };
 
-template <typename T, typename Cell, bool CLUSTER>
+template <typename T, typename Cell>
 __global__ void __launch_bounds__(32 * RES_UWARPS * Cell::KS, 1)
     rnn_bwd_chain_kernel(ChainArgs p) {
   constexpr int NG = Cell::NG, NC = Cell::NC, KS = Cell::KS;
@@ -227,10 +225,7 @@ __global__ void __launch_bounds__(32 * RES_UWARPS * Cell::KS, 1)
     }
     float dot = 0.0f;
     if (t + 1 < p.steps) {
-      if (CLUSTER)
-        cluster_wait();
-      else
-        group_wait(ticket, (unsigned int)p.members * (p.steps - 1 - t));
+      group_wait(ticket, (unsigned int)p.members * (p.steps - 1 - t));
       // stage the group's rows of da_{t+1}, eight L2 loads in flight per
       // thread before the first is used
       const T* next =
@@ -278,23 +273,17 @@ __global__ void __launch_bounds__(32 * RES_UWARPS * Cell::KS, 1)
         if (Cell::SPLIT) store(dw + row * G + g * H + j, vw[g]);
       }
     }
-    if (t > 0) {
-      if (CLUSTER)
-        cluster_arrive();
-      else
-        group_arrive(ticket);
-    }
+    if (t > 0) group_arrive(ticket);
   }
   if (owner && p.sums != nullptr)
     p.sums[((size_t)b * D + d) * H + j] = Cell::total(state);
 }
 
-// The grid is groups * members blocks. With the ticket barrier all of them
-// must be resident at once, or the cooperative launch is refused
-// (cudaErrorCooperativeLaunchTooLarge comes back to the caller). With
-// `cluster` each group is one thread block cluster instead, which the
-// hardware schedules whole: the launch is refused where a group has more
-// than 16 blocks.
+// The grid is groups * members blocks, all of which must be resident at
+// once for the ticket barrier, or the cooperative launch is refused
+// (cudaErrorCooperativeLaunchTooLarge comes back to the caller). `groups` is
+// the number of tickets the caller zeroed: a count other than the grid's
+// own is refused before anything is launched.
 // A launch call's own error also stays behind as the runtime's last error:
 // clear it, so that the next entry point's cudaGetLastError() does not
 // report a launch that this one already refused.
@@ -304,39 +293,18 @@ inline cudaError_t reported(cudaError_t err) {
 }
 
 template <typename T, typename Cell>
-inline cudaError_t chain(ChainArgs p, bool cluster, cudaStream_t stream) {
-  if (Cell::NG * p.H > RES_LANES * Cell::MAXI * Cell::KS)
+inline cudaError_t chain(ChainArgs p, int groups, cudaStream_t stream) {
+  if (Cell::NG * p.H > RES_LANES * Cell::MAXI * Cell::KS ||
+      groups != p.D * ((p.B + RES_BT - 1) / RES_BT))
     return cudaErrorInvalidValue;
   p.members = (p.H + RES_UNITS - 1) / RES_UNITS;
-  const int groups = p.D * ((p.B + RES_BT - 1) / RES_BT);
   const int threads = 32 * RES_UWARPS * Cell::KS;
   const size_t smem = ((size_t)RES_BT * Cell::NG * p.H +
                        Cell::KS * RES_UNITS * RES_BT) * sizeof(float);
-  if (!cluster) {
-    void* args[] = {&p};
-    return reported(cudaLaunchCooperativeKernel(
-        reinterpret_cast<void*>(rnn_bwd_chain_kernel<T, Cell, false>),
-        dim3(groups * p.members), dim3(threads), args, smem, stream));
-  }
-  auto kernel = rnn_bwd_chain_kernel<T, Cell, true>;
-  if (p.members > 8) {      // past the portable cluster size
-    const cudaError_t err = reported(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
-    if (err != cudaSuccess) return err;
-  }
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = p.members;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(groups * p.members);
-  config.blockDim = dim3(threads);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
-  config.attrs = &attr;
-  config.numAttrs = 1;
-  return reported(cudaLaunchKernelEx(&config, kernel, p));
+  void* args[] = {&p};
+  return reported(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(rnn_bwd_chain_kernel<T, Cell>),
+      dim3(groups * p.members), dim3(threads), args, smem, stream));
 }
 
 // ---- phase C: the weight gradient -----------------------------------------
@@ -410,11 +378,13 @@ inline cudaError_t sum_partials(const float* part, float* out, int parts,
   return cudaGetLastError();
 }
 
-// part: (DU_SPLIT, D, H, G) f32 scratch from the caller.
+// part: (parts, D, H, G) f32 scratch from the caller, who says how many
+// slabs it allocated: any count but DU_SPLIT is refused.
 template <typename T, int NG>
 inline cudaError_t weight_grad(const T* hprev, const T* da, float* du,
-                               float* part, int steps, int D, int B, int H,
-                               int G, cudaStream_t stream) {
+                               float* part, int parts, int steps, int D, int B,
+                               int H, int G, cudaStream_t stream) {
+  if (parts != DU_SPLIT) return cudaErrorInvalidValue;
   const dim3 grid((G + NG * 32 - 1) / (NG * 32), (H + TILE_M - 1) / TILE_M,
                   D * DU_SPLIT);
   du_partial_kernel<T, NG><<<grid, TILE_THREADS, 0, stream>>>(

@@ -81,19 +81,6 @@ __device__ __forceinline__ void group_wait(const unsigned int* ticket,
   __syncthreads();
 }
 
-// The same barrier in hardware, for a group that is one thread block
-// cluster (cudaLaunchKernelEx with a cluster dimension of the group's size,
-// at most 16 blocks): every thread arrives with release and waits with
-// acquire semantics at cluster scope, so the group's global stores of the
-// phase are ordered before its loads of the next. Clusters are scheduled
-// whole, so this barrier needs no cooperative launch and no ticket.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
 // A value that another block of the launch wrote: read at L2, never L1.
 __device__ __forceinline__ float load_shared_result(const float* p) {
   return __ldcg(p);

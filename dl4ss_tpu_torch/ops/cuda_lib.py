@@ -48,10 +48,10 @@ SIGNATURES = {
     "maskhead_fwd": "pppppiiiiiii",
     "maskhead_pack": "ppiiii",       # K3's weight layout, once per W version
     "masked_istft": "pppppppiiiiiiii",
-    "gru_bwd": "ppppppppppppppiiiiii",
+    "gru_bwd": "ppppppppppppppiiiiiiii",
     "maskhead_bwd": "pppppppppiiiiii",
     "lstm_fwd": "pppppiiiii",
-    "lstm_bwd": "pppppppppppppiiiiii",
+    "lstm_bwd": "pppppppppppppiiiiiiii",
     "stft_ri": "ppppppiiiiiii",
     "istft_ri": "pppppiiiiii",
 }

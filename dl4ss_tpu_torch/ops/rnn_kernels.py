@@ -36,17 +36,17 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # 4H columns split over 64 threads, which holds the LSTM's 4H up to H =
 # RESIDENT_MAX_HIDDEN), the blocks of one direction and RESIDENT_ROWS batch
 # rows share a barrier, and every block must be on an SM at once: one block
-# per SM of an H100.
+# per SM of the card (H100_SMS on an H100 SXM, the default where no device
+# is named). RESIDENT_MAX_HIDDEN and RESIDENT_UNITS only steer the rule: if
+# they drift from csrc/rnn_resident.cuh the launch is refused, nothing is
+# overrun. RESIDENT_ROWS and DU_SPLIT size scratch, so the launch passes the
+# sizes it allocated and the library refuses any but its own.
 BODY_RESIDENT, BODY_STEPWISE = "resident", "stepwise"
-# The resident body with its barrier groups as thread block clusters (the
-# hardware's barrier in place of the ticket): the rule never names it; it
-# is there to be timed against the ticket barrier.
-BODY_CLUSTER = "cluster"
-_BODY_CODES = {BODY_RESIDENT: 1, BODY_STEPWISE: 2, BODY_CLUSTER: 3}
+_BODY_CODES = {BODY_RESIDENT: 1, BODY_STEPWISE: 2}
 RESIDENT_MAX_HIDDEN = 304
 RESIDENT_UNITS = 24
 RESIDENT_ROWS = 4
-RESIDENT_BLOCKS = 132
+H100_SMS = 132
 DU_SPLIT = 16       # slices of the (t, b) axis in the dU reduction
 # Launches of K5 and K8 by the body that ran, keyed (kernel name, body);
 # cuda_lib.LAUNCHES counts both bodies under the kernel's name.
@@ -63,19 +63,26 @@ def resident_groups(batch: int, directions: int = 2) -> int:
     return directions * _ceil_div(batch, RESIDENT_ROWS)
 
 
-def rnn_bwd_body(hidden: int, batch: int, directions: int = 2) -> str:
+def rnn_bwd_body(hidden: int, batch: int, directions: int = 2,
+                 sms: int = H100_SMS) -> str:
     """The shape rule of K5 and K8 on the card: the resident body where a
     block's slice of U^T fits its registers (H <= 304) and the grid, one
     block per RESIDENT_UNITS units of each barrier group, fits the card's
-    SMs at once (at H=300: B <= 20); the stepwise body for every other
-    shape. The dtype does not enter: the slice is held in f32 either way.
-    The launch is told the body by name; the library only refuses the
-    resident body on a shape it cannot take."""
+    `sms` SMs at once (at H=300 on 132 SMs: B <= 20); the stepwise body
+    for every other shape. The dtype does not enter: the slice is held in
+    f32 either way. The launch is told the body by name; the library only
+    refuses the resident body on a shape it cannot take."""
     blocks = resident_groups(batch, directions) * _ceil_div(hidden,
                                                             RESIDENT_UNITS)
-    if hidden <= RESIDENT_MAX_HIDDEN and blocks <= RESIDENT_BLOCKS:
+    if hidden <= RESIDENT_MAX_HIDDEN and blocks <= sms:
         return BODY_RESIDENT
     return BODY_STEPWISE
+
+
+def _body_on(dev, hidden: int, batch: int, directions: int) -> str:
+    """The rule's body on the card `dev`, by its own count of SMs."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return rnn_bwd_body(hidden, batch, directions, sms)
 
 
 class _GruScan(torch.autograd.Function):
@@ -262,27 +269,28 @@ def gru_scan_bwd_cuda(xp, wh, bh_n, hprev, dhs, body: Optional[str] = None
     cuda_lib.check(bh_n, "bh_n", (torch.float32,), (d, 1, hidden))
     cuda_lib.check(hprev, "hprev", (xp.dtype,), (t, d, b, hidden))
     cuda_lib.check(dhs, "dhs", (xp.dtype,), (t, d, b, hidden))
-    chosen = body or rnn_bwd_body(hidden, b, d)
     dev = xp.device
+    chosen = body or _body_on(dev, hidden, b, d)
     f32 = dict(dtype=torch.float32, device=dev)
     dxp = torch.empty_like(xp)
     du = torch.empty((d, hidden, g3), **f32)
     dbn = torch.empty((d, 1, hidden), **f32)
     daw = torch.empty_like(xp)
     du_part = _du_partials(d, hidden, g3, dev)
-    wht = dhz = tickets = 0
+    wht = dhz = tickets = groups = 0
     if chosen != BODY_STEPWISE:
         # the coefficients (T, D, B, H, 5), then the db_n partials (B, D, H)
         work = torch.empty(d * b * hidden * (5 * t + 1), **f32)
-        tickets = torch.zeros(resident_groups(b, d), dtype=torch.int32,
-                              device=dev)
+        groups = resident_groups(b, d)
+        tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
     else:
         wht = torch.empty((d, g3, hidden), dtype=xp.dtype, device=dev)
         dhz = torch.empty((d, b, hidden), **f32)
         work = torch.empty((t, d, b, hidden), **f32)      # dhn
     cuda_lib.launch("gru_bwd", dev, xp, wh, bh_n, hprev, dhs, dxp, du, dbn,
-                    wht, daw, dhz, work, du_part, tickets, t, d, b, hidden,
-                    int(xp.dtype == torch.bfloat16), _BODY_CODES[chosen])
+                    wht, daw, dhz, work, du_part, tickets, du_part.shape[0],
+                    groups, t, d, b, hidden, int(xp.dtype == torch.bfloat16),
+                    _BODY_CODES[chosen])
     BODY_LAUNCHES["gru_bwd", chosen] += 1
     return dxp, du.to(wh.dtype), dbn
 
@@ -459,22 +467,23 @@ def lstm_scan_bwd_cuda(xp, wh, hprev, cprev, cs, dhs,
     for name, arg in (("hprev", hprev), ("cprev", cprev), ("cs", cs),
                       ("dhs", dhs)):
         cuda_lib.check(arg, name, (xp.dtype,), (t, d, b, hidden))
-    chosen = body or rnn_bwd_body(hidden, b, d)
     dev = xp.device
+    chosen = body or _body_on(dev, hidden, b, d)
     f32 = dict(dtype=torch.float32, device=dev)
     dxp = torch.empty_like(xp)
     du = torch.empty((d, hidden, 4 * hidden), **f32)
     du_part = _du_partials(d, hidden, 4 * hidden, dev)
-    wht = dc = work = tickets = 0
+    wht = dc = work = tickets = groups = 0
     if chosen != BODY_STEPWISE:
         work = torch.empty((t, d, b, hidden, 6), **f32)   # the coefficients
-        tickets = torch.zeros(resident_groups(b, d), dtype=torch.int32,
-                              device=dev)
+        groups = resident_groups(b, d)
+        tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
     else:
         wht = torch.empty((d, 4 * hidden, hidden), dtype=xp.dtype, device=dev)
         dc = torch.empty((d, b, hidden), **f32)
     cuda_lib.launch("lstm_bwd", dev, xp, wh, hprev, cprev, cs, dhs, dxp, du,
-                    wht, dc, work, du_part, tickets, t, d, b, hidden,
-                    int(xp.dtype == torch.bfloat16), _BODY_CODES[chosen])
+                    wht, dc, work, du_part, tickets, du_part.shape[0], groups,
+                    t, d, b, hidden, int(xp.dtype == torch.bfloat16),
+                    _BODY_CODES[chosen])
     BODY_LAUNCHES["lstm_bwd", chosen] += 1
     return dxp, du.to(wh.dtype)

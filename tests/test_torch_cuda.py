@@ -219,17 +219,15 @@ def _rel(a, b):
 
 def _check_bwd_bodies(k, name, cuda, plain, args, h, b, tol, body, outs):
     """One body of K5 or K8 against the plain version. The resident body
-    must refuse a shape that the rule sends to the stepwise one, and its
-    cluster variant (each barrier group a thread block cluster, which needs
-    no grid-wide residency) a width past the registers; the stepwise body
-    takes every shape that fits its shared memory. The resident body and
-    its variant are also held to the stepwise one, and two back-to-back
+    must refuse a shape that the rule sends to the stepwise one; the
+    stepwise body takes every shape that fits its shared memory. The
+    resident body is also held to the stepwise one, and two back-to-back
     calls on one stream must agree bit for bit: that guards the barrier's
     ticket, which each call gets zeroed."""
     from dl4ss_tpu_torch.ops import cuda_lib
-    rule = k.rnn_bwd_body(h, b)
-    if (body == "resident" and rule != "resident") or (
-            body == "cluster" and h > k.RESIDENT_MAX_HIDDEN):
+    sms = torch.cuda.get_device_properties(args[0].device)
+    rule = k.rnn_bwd_body(h, b, sms=sms.multi_processor_count)
+    if body == "resident" and rule != "resident":
         with pytest.raises(RuntimeError, match=f"{name} failed"):
             cuda(*args, body=body)
         torch.cuda.synchronize()
@@ -242,16 +240,12 @@ def _check_bwd_bodies(k, name, cuda, plain, args, h, b, tol, body, outs):
         assert g.shape == r.shape and g.dtype == r.dtype, what
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol,
                                    msg=what)
-    if body in ("resident", "cluster"):
+    if body == "resident":
         for what, g, g2, r in zip(outs, got, cuda(*args, body=body),
                                   cuda(*args, body="stepwise")):
             assert torch.equal(g, g2), what
             torch.testing.assert_close(g.float(), r.float(), atol=tol,
                                        rtol=tol, msg=what)
-    if body == "cluster" and rule == "resident":
-        # the same arithmetic behind another barrier
-        for what, g, r in zip(outs, got, cuda(*args)):
-            assert torch.equal(g, r), what
 
 
 # (4, 24, 300): 2 * 6 groups of 13 blocks are more than the card's SMs
@@ -259,7 +253,7 @@ def _check_bwd_bodies(k, name, cuda, plain, args, h, b, tol, body, outs):
                                    (12, 3, 45), (4, 24, 300)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 5e-2)])
-@pytest.mark.parametrize("body", ["resident", "stepwise", "cluster"])
+@pytest.mark.parametrize("body", ["resident", "stepwise"])
 def test_k5_gru_bwd(dev, t, b, h, dtype, tol, body):
     """K5, both bodies, against its plain version on the forward's own hs.
     f32: only the summation order and the order of the coefficient
@@ -289,6 +283,26 @@ def test_k5_k8_refuse_an_unknown_body(dev):
     with pytest.raises(KeyError):
         k.gru_scan_bwd_cuda(xp, wh, torch.zeros((2, 1, 8), device=dev), h, h,
                             body="persistent")
+
+
+@pytest.mark.parametrize("constant,value", [("DU_SPLIT", 8),
+                                            ("RESIDENT_ROWS", 8)])
+def test_k5_refuses_scratch_of_another_size(dev, monkeypatch, constant,
+                                            value):
+    """The wrapper sizes the dU partials and the tickets from its own copies
+    of the kernels' constants and tells the library the sizes: with a copy
+    that has drifted the library refuses the call instead of writing past
+    the scratch."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    xp = torch.zeros((2, 2, 5, 24), device=dev)
+    wh = torch.zeros((2, 8, 24), device=dev)
+    h = torch.zeros((2, 2, 5, 8), device=dev)
+    bhn = torch.zeros((2, 1, 8), device=dev)
+    k.gru_scan_bwd_cuda(xp, wh, bhn, h, h)
+    monkeypatch.setattr(k, constant, value)
+    with pytest.raises(RuntimeError, match="gru_bwd failed"):
+        k.gru_scan_bwd_cuda(xp, wh, bhn, h, h)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("b,t,d,f,e,k", [(1, 70, 24, 13, 5, 3),
@@ -386,7 +400,7 @@ def test_k7_lstm_fwd(dev, t, b, h, dtype, tol):
                                    (12, 3, 45), (4, 17, 300)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 5e-2)])
-@pytest.mark.parametrize("body", ["resident", "stepwise", "cluster"])
+@pytest.mark.parametrize("body", ["resident", "stepwise"])
 def test_k8_lstm_bwd(dev, t, b, h, dtype, tol, body):
     """K8, both bodies, against its plain version on the forward's own hs
     and cs. f32: only the summation order and the order of the coefficient
