@@ -11,10 +11,14 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      backward, K7 and K8 the BiLSTM forward and backward at the classifier
      width 300 and at 600, K9 and K10 the packed STFT and iSTFT); K1 and
      K9 run their FFT body there, which is also held against its plain
-     torch mirror, and their direct body on a frame length of 96; K5 and
-     K8 run both their bodies (the resident one, which the shape rule
-     names at width 300, and the stepwise one, which it names at 600),
-     each against the plain version and the resident against the stepwise;
+     torch mirror, and their direct body on a frame length of 96; K2, K5,
+     K7 and K8 run both their bodies (the resident one, which the shape
+     rule names at width 300 for B=1, 16 and 32, and K5/K8's also at 128,
+     in chunked launches past 20 rows; the stepwise one, which it names at
+     600), each against the plain
+     version and the resident against the stepwise and against a second
+     call of itself; the build log's registers and spills of the resident
+     chain kernels are printed;
   3. round trips: STFT features then masked iSTFT with all-ones masks, and
      the packed STFT then iSTFT through the public `ops` exports,
      reconstruct the waveform;
@@ -25,9 +29,11 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      speakers given (the classifier selects them), each with the launch
      counters zeroed just before and read just after; outputs finite and
      close to the same model's plain path (kernel flags off), the selected
-     speakers equal to the plain path's;
+     speakers equal to the plain path's, and every K2 and K7 launch run by
+     the body the shape rule names (the resident one);
   5. CLI: run.separate on two synthetic wavs writes four wavs with
-     --speakers, and 2 x recursive_max_steps wavs with --mode recursive;
+     --speakers, and 2 x recursive_max_steps wavs with --mode recursive,
+     every K2 and K7 launch of the latter by the resident body;
   6. train steps: one torch_multi joint step, then one classifier step, at
      full width on the card (the kernel route) against the same step on a
      CPU copy of the model and batch (the same autograd.Functions on their
@@ -38,17 +44,20 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      of 2 utterances per speaker, each with the launch counters zeroed
      just before and read just after; every step's loss finite, the eval
      SI-SDR finite, the metric report printed, the launches of one step
-     printed, and every K5 and K8 launch of the two trainers run by the
-     resident body;
+     printed, and every K2, K5, K7 and K8 launch of the two trainers run by
+     the resident body;
   8. timing: CUDA-event medians of each kernel, its plain version and a
      one-call library yardstick, the end-to-end batch, request and train
      step times with given and with classifier-selected speakers, and a
      torch.profiler breakdown of one batch, one request and one step of
      each trainer; for K1 and K9 also the direct body at the same shape,
      both bodies at B=1 and at the 32 source signals of a train step, and
-     what an empty launch costs; for K5 and K8 also the stepwise body
-     re-measured, the resident body's three phases (coefficients, chain,
-     dU and db_n) by kernel name, bf16, and K8 at width 600.
+     what an empty launch costs; for K2 and K7 both bodies at B=1, 16, 32,
+     48, 64, 96 and 128 (the numbers the shape rule follows); for K5 and
+     K8 also the stepwise body re-measured at B=16, 32 and 128, the
+     resident body's three phases (coefficients, chain, dU and db_n) by
+     kernel name, bf16, and K8 at width 600; every profile counts the
+     kernel launches of the call.
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
 those lines; so does a machine without CUDA.
@@ -177,7 +186,8 @@ def host_ms(torch, fn, iters: int) -> float:
 
 def profile_ms(torch, fn, top: int = 8, expect=()):
     """Device time of one call of `fn` by kernel name, from torch.profiler
-    (CUPTI): (busy ms, [(name, launches, ms), ...] largest first). The
+    (CUPTI): (busy ms, [(name, launches, ms), ...] largest first, kernel
+    launches of the call). The
     tracer can miss the kernels launched right after it starts, so `fn`
     runs once unmeasured inside the trace, then again under a marker, and
     only the kernels that start after the marker count. If the trace still
@@ -213,7 +223,7 @@ def profile_ms(torch, fn, top: int = 8, expect=()):
             break
     rows = sorted(((k, n, ms) for k, (n, ms) in by_name.items()),
                   key=lambda r: -r[2])
-    return sum(r[2] for r in rows), rows[:top]
+    return sum(r[2] for r in rows), rows[:top], sum(r[1] for r in rows)
 
 
 def rfft_flops(frames: int, length: int) -> float:
@@ -262,9 +272,21 @@ def main() -> int:
     print(f"build: {len(cuda_lib.SOURCES)} kernels, nvcc "
           f"{lib.build_seconds:.1f} s, load {time.perf_counter() - t0:.1f} s "
           f"-> {lib.path.name}", flush=True)
-    for line in lib.log.splitlines():
+    log = lib.log.splitlines()
+    for line in log:
         if "Used" in line or "spill" in line:
             print("  ptxas:", line.strip(), file=sys.stderr)
+    for i, line in enumerate(log):     # the resident chains, one line each
+        if "Compiling entry" in line and "_chain_kernel" in line:
+            name = line.split("'")[1]
+            kind = "fwd" if "fwd_chain" in name else "bwd"
+            cell = next(c for c in ("Gru", "Lstm") if c in name)
+            dtype = "bf16" if "bfloat16" in name else "f32"
+            info = " ".join(x.strip() for x in log[i + 1:i + 4])
+            regs = info.split("Used ")[1].split(" registers")[0]
+            spill = info.split("spill stores")[0].split(",")[-1].strip()
+            print(f"ptxas {cell} {kind} chain {dtype}: {regs} registers, "
+                  f"{spill} spill stores", flush=True)
 
     cfg = preset("torch_multi")
     L, hop, F = cfg.frame_length, cfg.frame_shift, cfg.freq_bins
@@ -298,17 +320,64 @@ def main() -> int:
     if k14.BODY_LAUNCHES["stft_features", k14.BODY_DIRECT] != before + 1:
         fail("L=96 did not run the direct body")
 
+    def check_bodies(label, name, cuda, plain, args, outs, tol, rel):
+        """K2, K5, K7 or K8: the body the shape rule names (it must be the
+        one a default call launches) and the other one where it can run,
+        each against the plain version (max abs error, or relative L2 where
+        `rel`); the resident body against the stepwise one and against a
+        second call of itself. Returns the rule's body's max abs error."""
+        hidden = args[1].shape[1]          # wh (D, H, NG * H)
+        rule = k2.rnn_body(hidden, args[0].shape[2], sms=SMS,
+                           backward=name.endswith("_bwd"))
+
+        def outputs(fn, **kw):          # K2 returns hs alone
+            res = fn(*args, **kw)
+            return (res,) if isinstance(res, torch.Tensor) else res
+
+        def gate(what, g, r):
+            return (check_rel(what, g, r, tol) if rel
+                    else check(what, max_err(g, r), tol))
+        ref = outputs(plain)
+        before = k2.BODY_LAUNCHES[name, rule]
+        got = {rule: outputs(cuda)}
+        if k2.BODY_LAUNCHES[name, rule] != before + 1:
+            fail(f"{label}: the default call did not run the {rule} body")
+        if rule == k2.BODY_RESIDENT:
+            got[k2.BODY_STEPWISE] = outputs(cuda, body=k2.BODY_STEPWISE)
+        elif hidden <= k2.RESIDENT_MAX_HIDDEN:
+            got[k2.BODY_RESIDENT] = outputs(cuda, body=k2.BODY_RESIDENT)
+        worst = {body: max(gate(f"{label} {body} body {what}", g, r)
+                           for what, g, r in zip(outs, res, ref))
+                 for body, res in got.items()}
+        if len(got) == 2:
+            res = got[k2.BODY_RESIDENT]
+            for what, g, r in zip(outs, res, got[k2.BODY_STEPWISE]):
+                gate(f"{label} resident against stepwise {what}", g, r)
+            for what, g, g2 in zip(outs, res,
+                                   outputs(cuda, body=k2.BODY_RESIDENT)):
+                if not torch.equal(g, g2):
+                    fail(f"{label}: two resident calls in a row differ in "
+                         f"{what}")
+        return worst[rule]
+
+    # K2 at the serving shapes (T=313, D=2, H=300): B=16 in f32 and bf16,
+    # a B=1 request, and B=32, which the resident body takes in two
+    # launches
     scale = 1.0 / np.sqrt(H)
     xp = tensor(0.5 * rng.standard_normal((T, 2, BATCH, 3 * H)))
     wh = tensor(rng.uniform(-scale, scale, (2, H, 3 * H)))
     bhn = tensor(rng.uniform(-scale, scale, (2, 1, H)))
-    errs["gru_fwd"] = check("K2 gru_fwd f32", max_err(
-        k2.gru_scan_cuda(xp, wh, bhn), k2.gru_scan_plain(xp, wh, bhn)),
-        TOL["gru_fwd"])
-    xpb, whb = xp.to(torch.bfloat16), wh.to(torch.bfloat16)
-    check("K2 gru_fwd bf16", max_err(k2.gru_scan_cuda(xpb, whb, bhn),
-                                     k2.gru_scan_plain(xpb, whb, bhn)),
-          TOL["gru_fwd_bf16"])
+    xp32 = tensor(0.5 * rng.standard_normal((T, 2, 2 * BATCH, 3 * H)))
+    for label, args, tol in (
+            ("f32", (xp, wh, bhn), TOL["gru_fwd"]),
+            ("bf16", (xp.to(torch.bfloat16), wh.to(torch.bfloat16), bhn),
+             TOL["gru_fwd_bf16"]),
+            ("f32 B=1", (xp[:, :, :1].contiguous(), wh, bhn), TOL["gru_fwd"]),
+            (f"f32 B={2 * BATCH}", (xp32, wh, bhn), TOL["gru_fwd"])):
+        err = check_bodies(f"K2 gru_fwd {label}", "gru_fwd", k2.gru_scan_cuda,
+                           k2.gru_scan_plain, args, ("hs",), tol, rel=False)
+        if label == "f32":
+            errs["gru_fwd"] = err
 
     d2 = 2 * H
     hb = tensor(rng.uniform(-1, 1, (BATCH, T, d2)), torch.bfloat16)
@@ -327,47 +396,27 @@ def main() -> int:
         k14.masked_ola_cuda(*k4_args), k14.masked_ola_plain(*k4_args)),
         TOL["masked_istft"])
 
-    def check_bwd_bodies(label, name, cuda, plain, args, hidden, outs, tol):
-        """K5 or K8: the body the shape rule names (it must be the one a
-        default call launches) and the other one where it can run, each
-        against the plain version; the resident body against the stepwise
-        one and against a second call of itself. Returns the rule's body's
-        max abs error."""
-        rule = k2.rnn_bwd_body(hidden, BATCH, sms=SMS)
-        ref = plain(*args)
-        before = k2.BODY_LAUNCHES[name, rule]
-        got = {rule: cuda(*args)}
-        if k2.BODY_LAUNCHES[name, rule] != before + 1:
-            fail(f"{label}: the default call did not run the {rule} body")
-        if rule == k2.BODY_RESIDENT:
-            got[k2.BODY_STEPWISE] = cuda(*args, body=k2.BODY_STEPWISE)
-        worst = {body: max(check_rel(f"{label} {body} body {what}", g, r, tol)
-                           for what, g, r in zip(outs, res, ref))
-                 for body, res in got.items()}
-        if rule == k2.BODY_RESIDENT:
-            for what, g, r in zip(outs, got[rule], got[k2.BODY_STEPWISE]):
-                check_rel(f"{label} resident against stepwise {what}", g, r,
-                          tol)
-            for what, g, g2 in zip(outs, got[rule], cuda(*args)):
-                if not torch.equal(g, g2):
-                    fail(f"{label}: two calls in a row differ in {what}")
-        return worst[rule]
-
-    # K5 at the training shapes (T=313, D=2, B=16, H=300): the backward of
-    # the forward just checked, on that forward's own hs
-    dhs = tensor(rng.standard_normal((T, 2, BATCH, H)))
+    # K5 at the training shapes (T=313, D=2, B=16, H=300), and at B=32 and
+    # 128, which the resident body takes in 2 and 7 chain launches: the
+    # backward of the forward just checked, on that forward's own hs
+    dhs = tensor(rng.standard_normal((T, 2, 8 * BATCH, H)))
+    xp128 = tensor(0.5 * rng.standard_normal((T, 2, 8 * BATCH, 3 * H)))
     k5_args = {}
-    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        x5, w5, g5 = xp.to(dt), wh.to(dt), dhs.to(dt)
+    for label, dt, x5 in (("f32", torch.float32, xp),
+                          ("bf16", torch.bfloat16, xp),
+                          (f"f32 B={2 * BATCH}", torch.float32, xp32),
+                          (f"f32 B={8 * BATCH}", torch.float32, xp128)):
+        x5, w5 = x5.to(dt), wh.to(dt)
+        g5 = dhs[:, :, :x5.shape[2]].contiguous().to(dt)
         hs = k2.gru_scan_cuda(x5, w5, bhn)
         k5_args[label] = (x5, w5, bhn,
                           torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]), g5)
         tol = TOL["gru_bwd" if dt == torch.float32 else "gru_bwd_bf16"]
-        err = check_bwd_bodies(
+        err = check_bodies(
             f"K5 gru_bwd {label}", "gru_bwd", k2.gru_scan_bwd_cuda,
-            k2.gru_scan_bwd_plain, k5_args[label], H, ("dxp", "dU", "db_n"),
-            tol)
-        if dt == torch.float32:
+            k2.gru_scan_bwd_plain, k5_args[label], ("dxp", "dU", "db_n"),
+            tol, rel=True)
+        if label == "f32":
             errs["gru_bwd"] = err
 
     # K6 at the training shapes (B=16, T=313, F=129, E=50, K=2), on K3's
@@ -385,35 +434,44 @@ def main() -> int:
                                  k3.dacc_products(hb, wb, dacc),
                                  k3.dacc_products(hb, wb, dacc_p))])
 
-    # K7 and K8 at the classifier's shapes (T=313, D=2, B=16, H=300), f32
-    # and bf16, and once at H=600 (the TDAA classifier width): the backward
-    # runs on the forward's own hs and cs
-    def lstm_case(hidden, dt):
+    # K7 and K8 at the classifier's shapes (T=313, D=2, H=300): B=16 in
+    # f32 and bf16, a B=1 request, B=32 (two resident launches) and, for
+    # K8, B=128 (seven), and B=16 at H=600 (the TDAA classifier width,
+    # stepwise): the backward runs on the forward's own hs and cs
+    def lstm_case(hidden, dt, batch=BATCH):
         sc = 1.0 / np.sqrt(hidden)
-        x7 = tensor(0.5 * rng.standard_normal((T, 2, BATCH, 4 * hidden)), dt)
+        x7 = tensor(0.5 * rng.standard_normal((T, 2, batch, 4 * hidden)), dt)
         w7 = tensor(rng.uniform(-sc, sc, (2, hidden, 4 * hidden)), dt)
-        g7 = tensor(rng.standard_normal((T, 2, BATCH, hidden)), dt)
+        g7 = tensor(rng.standard_normal((T, 2, batch, hidden)), dt)
         hs7, cs7 = k2.lstm_scan_cuda(x7, w7)
         zeros = torch.zeros_like(hs7[:1])
-        return (x7, w7), (hs7, cs7), (
+        return (x7, w7), (
             x7, w7, torch.cat([zeros, hs7[:-1]]),
             torch.cat([zeros, cs7[:-1]]), cs7, g7)
 
     k7_args, k8_args = {}, {}
-    for label, hidden, dt in (("f32", H, torch.float32),
-                              ("bf16", H, torch.bfloat16),
-                              (f"f32 H={WIDE}", WIDE, torch.float32)):
-        k7_args[label], got7, k8_args[label] = lstm_case(hidden, dt)
+    for label, hidden, dt, batch in (
+            ("f32", H, torch.float32, BATCH),
+            ("bf16", H, torch.bfloat16, BATCH),
+            ("f32 B=1", H, torch.float32, 1),
+            (f"f32 B={2 * BATCH}", H, torch.float32, 2 * BATCH),
+            (f"f32 B={8 * BATCH}", H, torch.float32, 8 * BATCH),
+            (f"f32 H={WIDE}", WIDE, torch.float32, BATCH)):
+        fwd_args, k8_args[label] = lstm_case(hidden, dt, batch)
         suffix = "_bf16" if dt == torch.bfloat16 else ""
-        err7 = max(check(f"K7 lstm_fwd {label} {name}", max_err(g, r),
-                         TOL["lstm_fwd" + suffix])
-                   for name, g, r in zip(
-                       ("hs", "cs"), got7,
-                       k2.lstm_scan_plain(*k7_args[label])))
-        err8 = check_bwd_bodies(
+        if batch <= 2 * BATCH:
+            k7_args[label] = fwd_args
+            err7 = check_bodies(
+                f"K7 lstm_fwd {label}", "lstm_fwd", k2.lstm_scan_cuda,
+                k2.lstm_scan_plain, fwd_args, ("hs", "cs"),
+                TOL["lstm_fwd" + suffix], rel=False)
+        if batch == 1:
+            del k8_args[label]
+            continue
+        err8 = check_bodies(
             f"K8 lstm_bwd {label}", "lstm_bwd", k2.lstm_scan_bwd_cuda,
-            k2.lstm_scan_bwd_plain, k8_args[label], hidden, ("dxp", "dU"),
-            TOL["lstm_bwd" + suffix])
+            k2.lstm_scan_bwd_plain, k8_args[label], ("dxp", "dU"),
+            TOL["lstm_bwd" + suffix], rel=True)
         if label == "f32":
             errs["lstm_fwd"], errs["lstm_bwd"] = err7, err8
 
@@ -479,9 +537,20 @@ def main() -> int:
     reqs = [(tensor(rng.uniform(-1, 1, (1, N_SAMPLES))),
              torch.as_tensor(rng.integers(0, cfg.num_speakers, (1, K)),
                              device=dev)) for _ in range(REQUESTS)]
+    def check_resident(path, name, count):
+        """Every launch of K2, K5, K7 or K8 on a main path ran the resident
+        body, the one the shape rule names at the path's shapes."""
+        bodies = {b: n for (kern, b), n in k2.BODY_LAUNCHES.items()
+                  if kern == name}
+        print(f"{path}: {name} bodies {bodies}", flush=True)
+        if bodies != {k2.BODY_RESIDENT: count}:
+            fail(f"{path}: {name} launched {bodies}, expected {count} "
+                 f"launches of the resident body")
+
     torch.cuda.synchronize()
     cuda_lib.LAUNCHES.clear()
     k14.BODY_LAUNCHES.clear()
+    k2.BODY_LAUNCHES.clear()
     out16 = separate_waveforms(model, wav, cfg, spk, length=N_SAMPLES)
     outs1 = [separate_waveforms(model, w, cfg, s, length=N_SAMPLES)
              for w, s in reqs]
@@ -497,6 +566,7 @@ def main() -> int:
     missing = [n for n in cuda_lib.SERVING_KERNELS if not launches.get(n)]
     if missing:
         fail(f"kernels never launched on the serving path: {missing}")
+    check_resident("given-speaker serving", "gru_fwd", launches["gru_fwd"])
     ref16 = separate_waveforms(model, wav, plain_cfg, spk, length=N_SAMPLES)
     refs1 = [separate_waveforms(model, w, plain_cfg, s, length=N_SAMPLES)
              for w, s in reqs]
@@ -518,6 +588,7 @@ def main() -> int:
     # speakers given
     torch.cuda.synchronize()
     cuda_lib.LAUNCHES.clear()
+    k2.BODY_LAUNCHES.clear()
     sel16 = separate_waveforms(model, wav, cfg, length=N_SAMPLES)
     sels1 = [separate_waveforms(model, w, cfg, length=N_SAMPLES)
              for w, _ in reqs]
@@ -531,6 +602,8 @@ def main() -> int:
     got = {n: sel_launches.get(n, 0) for n in cuda_lib.SELECTION_KERNELS}
     if got != want:
         fail(f"classifier-selected path launched {got}, expected {want}")
+    for name in ("gru_fwd", "lstm_fwd"):
+        check_resident("classifier-selected serving", name, want[name])
     launches["lstm_fwd"] = sel_launches["lstm_fwd"]
     from dl4ss_tpu_torch.models import classify_speakers
     from dl4ss_tpu_torch.ops.stft import spectral_feature_cfg
@@ -593,6 +666,7 @@ def main() -> int:
         rec_dir = os.path.join(tmp, "recursive")
         torch.cuda.synchronize()
         cuda_lib.LAUNCHES.clear()
+        k2.BODY_LAUNCHES.clear()
         separate_cli.main([*paths, "--mode", "recursive", "--out", rec_dir,
                            "--device", "cuda"])
         torch.cuda.synchronize()
@@ -615,6 +689,8 @@ def main() -> int:
               flush=True)
         if got != want:
             fail(f"recursive CLI launched {got}, expected {want}")
+        for name, count in want.items():
+            check_resident("recursive CLI", name, count)
 
     # ---- 6. train step: kernel route on the card against the CPU --------
     import copy
@@ -760,20 +836,11 @@ def main() -> int:
     launches.update({n: train_launches[n] for n in ("gru_bwd",
                                                      "maskhead_bwd")})
 
-    def check_resident(path, name, count):
-        """Every launch of K5 or K8 on a trainer's path ran the resident
-        body."""
-        bodies = {b: n for (kern, b), n in k2.BODY_LAUNCHES.items()
-                  if kern == name}
-        print(f"{path}: {name} bodies {bodies}", flush=True)
-        if bodies != {k2.BODY_RESIDENT: count}:
-            fail(f"{path}: {name} launched {bodies}, expected {count} "
-                 f"launches of the resident body")
-
     # each step runs the two encoder layers backward: K5 twice
     if train_launches["gru_bwd"] != cfg.encoder_layers * TRAIN_STEPS:
         fail(f"trainer launched gru_bwd {train_launches['gru_bwd']} times")
-    check_resident("trainer", "gru_bwd", train_launches["gru_bwd"])
+    for name in ("gru_fwd", "gru_bwd"):
+        check_resident("trainer", name, train_launches[name])
     # one step in steady state: the step before it updated W, so K3 packs
     # the new version once
     fused = make_fused_step(cfg)
@@ -840,8 +907,8 @@ def main() -> int:
     if got != want:
         fail(f"classifier trainer launched {got}, expected {want}")
     launches["lstm_bwd"] = classify_launches["lstm_bwd"]
-    check_resident("classifier trainer", "lstm_bwd",
-                   classify_launches["lstm_bwd"])
+    for name in ("lstm_fwd", "lstm_bwd"):
+        check_resident("classifier trainer", name, classify_launches[name])
 
     def classifier_step():
         return cstep(state, featurize(sample_mixtures(state.generator, bank,
@@ -1005,10 +1072,10 @@ def main() -> int:
                     model, wav, cfg, spk, length=N_SAMPLES), batch_ms),
                 ("B=1 request", lambda: separate_waveforms(
                     model, w1, cfg, s1, length=N_SAMPLES), req_ms)):
-            busy, rows = profile_ms(torch, fn)
+            busy, rows, n_launch = profile_ms(torch, fn)
             print(f"profile {label}: device busy {busy:.3f} ms of "
-                  f"{wall:.3f} ms wall (idle {1 - busy / wall:.1%})",
-                  flush=True)
+                  f"{wall:.3f} ms wall (idle {1 - busy / wall:.1%}), "
+                  f"{n_launch} kernel launches", flush=True)
             for name, n, ms in rows:
                 print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
 
@@ -1054,26 +1121,28 @@ def main() -> int:
         time_row(name, r, 5 if slow else 20, 2 if slow else 5)
 
     def bwd_extras(name, cuda, args_by_label):
-        """K5 or K8 beside its row (which times the rule's body): the
-        stepwise body re-measured in the same run, both of them in bf16,
-        and the resident body's phases by kernel name from one profiled
-        call."""
+        """K5 or K8 beside its row (which times the rule's body): both
+        bodies re-measured in the same run at every shape checked (bf16,
+        B=32 and 128, H=600 stepwise only), the rule's body named, and the
+        resident body's phases by kernel name from one profiled call."""
         for label, args in args_by_label.items():
             parts = []
+            hidden, batch = args[1].shape[1], args[0].shape[2]
             for body in (k2.BODY_RESIDENT, k2.BODY_STEPWISE):
-                if body == k2.BODY_STEPWISE or k2.rnn_bwd_body(
-                        args[1].shape[1], BATCH,
-                        sms=SMS) == k2.BODY_RESIDENT:
-                    ms = device_ms(torch, lambda: cuda(*args, body=body), 5)
+                if (body == k2.BODY_STEPWISE
+                        or hidden <= k2.RESIDENT_MAX_HIDDEN):
+                    ms = device_ms(torch, lambda: cuda(*args, body=body),
+                                   5 if batch <= BATCH else 3)
                     parts.append(f"{body} body {ms:.4f}")
-            print(f"time {name} {label} per layer ms: " + ", ".join(parts),
-                  flush=True)
+            rule = k2.rnn_body(hidden, batch, sms=SMS, backward=True)
+            print(f"time {name} {label} per layer ms: " + ", ".join(parts)
+                  + f" (rule: {rule})", flush=True)
         args = args_by_label["f32"]
         phases = {"coefficients (phase A)": "rnn_bwd_coef_kernel",
                   f"chain of {T} steps (phase B)": "rnn_bwd_chain_kernel",
                   "dU and db_n (phase C)": "_partial"}
-        busy, prow = profile_ms(torch, lambda: cuda(*args), top=8,
-                                expect=phases.values())
+        busy, prow, _ = profile_ms(torch, lambda: cuda(*args), top=8,
+                                   expect=phases.values())
         print(f"time {name} f32 resident body by phase, one profiled call, "
               f"{busy:.4f} ms busy: " + ", ".join(
                   f"{what} {sum(ms for kern, _, ms in prow if key in kern):.4f}"
@@ -1083,10 +1152,11 @@ def main() -> int:
     bwd_extras("gru_bwd", k2.gru_scan_bwd_cuda, k5_args)
     # the training step, sample -> featurize -> forward -> backward -> Adam
     step_ms = host_ms(torch, lambda: fused(state, bank), 10)
-    busy, prow = profile_ms(torch, lambda: fused(state, bank), top=12)
+    busy, prow, n_launch = profile_ms(torch, lambda: fused(state, bank),
+                                      top=12)
     print(f"profile B={BATCH} train step: device busy {busy:.3f} ms of "
-          f"{step_ms:.3f} ms wall (idle {1 - busy / step_ms:.1%})",
-          flush=True)
+          f"{step_ms:.3f} ms wall (idle {1 - busy / step_ms:.1%}), "
+          f"{n_launch} kernel launches", flush=True)
     for name, n, ms in prow:
         print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
     print(f"train: {step_ms:.3f} ms per B={BATCH} step (median of 10 "
@@ -1156,10 +1226,42 @@ def main() -> int:
         slow = name.startswith("lstm")
         time_row(name, r, 5 if slow else 20,
                  (2 if name == "lstm_bwd" else 3) if slow else 10)
-    for label in ("bf16", f"f32 H={WIDE}"):
-        fwd_args = k7_args[label]
-        fwd_ms = device_ms(torch, lambda: k2.lstm_scan_cuda(*fwd_args), 5)
-        print(f"time lstm_fwd {label} per layer: {fwd_ms:.4f} ms", flush=True)
+    def fwd_sweep():
+        """K2 and K7 per layer, both bodies, by batch at H=300 (f32; bf16
+        at B=1 and 16), beside the body the rule names: the numbers the
+        forward's RESIDENT_MAX_CHUNKS follows. K7 also at H=600, where only
+        the stepwise body runs."""
+        sc = 1.0 / np.sqrt(H)
+        for name, gates in (("gru_fwd", 3), ("lstm_fwd", 4)):
+            w = tensor(rng.uniform(-sc, sc, (2, H, gates * H)))
+            for batch in (1, BATCH, 2 * BATCH, 3 * BATCH, 4 * BATCH,
+                          6 * BATCH, 8 * BATCH):
+                x = tensor(0.5 * rng.standard_normal((T, 2, batch,
+                                                      gates * H)))
+                dts = ((torch.float32, torch.bfloat16) if batch <= BATCH
+                       else (torch.float32,))
+                for dt in dts:
+                    xd, wd = x.to(dt), w.to(dt)
+                    args = (xd, wd, bhn) if gates == 3 else (xd, wd)
+                    fn = (k2.gru_scan_cuda if gates == 3
+                          else k2.lstm_scan_cuda)
+                    parts = []
+                    for body in (k2.BODY_RESIDENT, k2.BODY_STEPWISE):
+                        ms = device_ms(torch, lambda: fn(*args, body=body),
+                                       5 if batch <= 2 * BATCH else 3)
+                        parts.append(f"{body} {ms:.4f}")
+                    rule = k2.rnn_body(H, batch, sms=SMS)
+                    label = "bf16" if dt == torch.bfloat16 else "f32"
+                    print(f"time {name} B={batch} {label} per layer ms: "
+                          + ", ".join(parts) + f" (rule: {rule})", flush=True)
+                del x
+        wide = k7_args[f"f32 H={WIDE}"]
+        print(f"time lstm_fwd f32 H={WIDE} B={BATCH} per layer ms: stepwise "
+              f"{device_ms(torch, lambda: k2.lstm_scan_cuda(*wide), 5):.4f}",
+              flush=True)
+
+    with torch.inference_mode():
+        fwd_sweep()
     bwd_extras("lstm_bwd", k2.lstm_scan_bwd_cuda, k8_args)
     # serving with classifier-selected speakers, and the classifier step
     with torch.inference_mode():
@@ -1167,18 +1269,19 @@ def main() -> int:
             model, wav, cfg, length=N_SAMPLES), 5)
         sel_req_ms = host_ms(torch, lambda: separate_waveforms(
             model, w1, cfg, length=N_SAMPLES), 10)
-        busy, prow = profile_ms(torch, lambda: separate_waveforms(
+        busy, prow, n_launch = profile_ms(torch, lambda: separate_waveforms(
             model, w1, cfg, length=N_SAMPLES))
     print(f"profile B=1 request, classifier-selected: device busy "
           f"{busy:.3f} ms of {sel_req_ms:.3f} ms wall (idle "
-          f"{1 - busy / sel_req_ms:.1%})", flush=True)
+          f"{1 - busy / sel_req_ms:.1%}), {n_launch} kernel launches",
+          flush=True)
     for name, n, ms in prow:
         print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
     cstep_ms = host_ms(torch, classifier_step, 10)
-    busy, prow = profile_ms(torch, classifier_step, top=12)
+    busy, prow, n_launch = profile_ms(torch, classifier_step, top=12)
     print(f"profile B={BATCH} classifier train step: device busy {busy:.3f} "
-          f"ms of {cstep_ms:.3f} ms wall (idle {1 - busy / cstep_ms:.1%})",
-          flush=True)
+          f"ms of {cstep_ms:.3f} ms wall (idle {1 - busy / cstep_ms:.1%}), "
+          f"{n_launch} kernel launches", flush=True)
     for name, n, ms in prow:
         print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
     print(f"classifier: {cstep_ms:.3f} ms per B={BATCH} train step (median "

@@ -22,7 +22,7 @@
 // the time, not the operations.
 //
 // Design: two bodies, named to the entry point by the caller
-// (ops/rnn_kernels.py::rnn_bwd_body, by shape alone).
+// (ops/rnn_kernels.py::rnn_body, by shape alone).
 //
 // The resident body (rnn_bwd_common.cuh has the three phases). The step is
 // linear in dh = carry + dhs_t, so phase A turns the recomputed gates of
@@ -207,7 +207,10 @@ __global__ void gru_bwd_dbn_kernel(const float* __restrict__ dhn,
 
 // The resident body's cell: see the note at the top of this file.
 struct GruCell {
-  static constexpr int NG = 3, NC = 5, KS = 8, MAXI = 15;   // G <= 960
+  static constexpr int NG = 3, NC = 5;
+  // one output a unit (its row of U), 3 a lane group; 2 unit warps x 8
+  // column warps split G <= 960 columns, 15 a lane
+  using Tiling = dl4ss::ResidentTiling<3, 1, 2, 8, 15>;
   static constexpr bool SPLIT = true;    // da_w differs from dxp (dhn / da_n)
   struct State {
     float dhz, dbn;
@@ -247,8 +250,8 @@ cudaError_t run_resident(const void* xp, const void* wh, const void* bhn,
                          const void* hprev, const void* dhs, void* dxp,
                          void* du, void* dbn, void* daw, void* work,
                          void* du_part, void* tickets, int du_parts,
-                         int groups, int steps, int D, int B, int H,
-                         cudaStream_t stream) {
+                         int groups, int chunk, int steps, int D, int B,
+                         int H, cudaStream_t stream) {
   const int G = 3 * H;
   // work: the coefficients (T, D, B, H, 5), then the db_n partials (B, D, H)
   float* coef = static_cast<float*>(work);
@@ -258,7 +261,7 @@ cudaError_t run_resident(const void* xp, const void* wh, const void* bhn,
   if (err != cudaSuccess) return err;
   err = dl4ss::chain<T, GruCell>(
       {wh, coef, dhs, dxp, daw, sums, static_cast<unsigned int*>(tickets),
-       steps, D, B, H, 0}, groups, stream);
+       steps, D, B, H, 0, 0, 0}, groups, chunk, stream);
   if (err != cudaSuccess) return err;
   err = dl4ss::sum_partials(sums, static_cast<float*>(dbn), B, (size_t)D * H,
                             stream);
@@ -317,12 +320,12 @@ cudaError_t run(const void* xp, const void* wh, const void* bhn,
                 const void* hprev, const void* dhs, void* dxp, void* du,
                 void* dbn, void* wht, void* daw, void* dhz, void* work,
                 void* du_part, void* tickets, int du_parts, int groups,
-                int steps, int D, int B, int H, int body,
+                int chunk, int steps, int D, int B, int H, int body,
                 cudaStream_t stream) {
   if (body == dl4ss::BODY_RESIDENT)
     return run_resident<T>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, daw, work,
-                           du_part, tickets, du_parts, groups, steps, D, B, H,
-                           stream);
+                           du_part, tickets, du_parts, groups, chunk, steps,
+                           D, B, H, stream);
   if (body == dl4ss::BODY_STEPWISE)
     return run_stepwise<T>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, wht, daw,
                            dhz, work, du_part, du_parts, steps, D, B, H,
@@ -338,9 +341,11 @@ cudaError_t run(const void* xp, const void* wh, const void* bhn,
 // resident body returns an error for a shape it cannot hold. Scratch from
 // the caller, for both bodies: daw (T, D, B, 3H) in the input dtype and
 // du_part (du_parts, D, H, 3H) f32. Resident: work = (T*D*B*H*5 + B*D*H) f32
-// and tickets = `groups` zeroed 32-bit counters. du_parts and groups say
-// what the caller allocated: a count other than the kernels' own (16 slabs;
-// one group per direction and 4 batch rows) is refused with an error.
+// and tickets = `groups` zeroed 32-bit counters; the chain walks the batch
+// in chunks of `chunk` rows (a multiple of 4), one launch each. du_parts and
+// groups say what the caller allocated: a count other than the kernels' own
+// (16 slabs; one group per direction and 4 batch rows) is refused with an
+// error.
 // Stepwise: wht (D, 3H, H) in the input dtype, dhz (D, B, H) f32 and work =
 // (T, D, B, H) f32. What a body does not use may be null.
 extern "C" int dl4ss_gru_bwd(const void* xp, const void* wh, const void* bhn,
@@ -348,13 +353,13 @@ extern "C" int dl4ss_gru_bwd(const void* xp, const void* wh, const void* bhn,
                              void* du, void* dbn, void* wht, void* daw,
                              void* dhz, void* work, void* du_part,
                              void* tickets, int du_parts, int groups,
-                             int steps, int D, int B, int H, int bf16,
-                             int body, void* stream) {
+                             int chunk, int steps, int D, int B, int H,
+                             int bf16, int body, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? run<__nv_bfloat16>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, wht,
                                    daw, dhz, work, du_part, tickets, du_parts,
-                                   groups, steps, D, B, H, body, s)
+                                   groups, chunk, steps, D, B, H, body, s)
               : run<float>(xp, wh, bhn, hprev, dhs, dxp, du, dbn, wht, daw,
                            dhz, work, du_part, tickets, du_parts, groups,
-                           steps, D, B, H, body, s);
+                           chunk, steps, D, B, H, body, s);
 }

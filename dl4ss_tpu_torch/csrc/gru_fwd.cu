@@ -11,12 +11,20 @@
 //
 // Bound on the H100: at H=300, B=16, T=313 the h.U products are 5.4 GFLOP
 // per layer, ~80 us at the f32 CUDA-core rate. The real limit is the 313
-// dependent steps: this version launches one kernel per step (a C loop in
-// the same library, so one ctypes call per layer), and each step costs the
-// latency of one pass over U plus a launch. The U-resident persistent
-// design is later work: one direction's U is 1.08 MB in f32 (540 KB in
-// bf16), more than one SM's 227 KB of shared memory, so it must be split
-// across the blocks of a cluster or a cooperative grid.
+// dependent steps.
+//
+// Design: two bodies, named to the entry point by the caller
+// (ops/rnn_kernels.py::rnn_body, by shape alone).
+//
+// The resident body (rnn_fwd_common.cuh): ONE persistent cooperative launch
+// per chunk of batch rows walks all steps of both directions, each block
+// with the gate columns of its 24 hidden units of U in registers and a
+// ticket barrier per (direction, 4 rows). GruFwdCell below is its gate math.
+//
+// The stepwise body, for the widths the resident one cannot hold (H > 304):
+// one kernel per step, launched from a C loop in the same library, so one
+// ctypes call per layer; each step costs the latency of one pass over U
+// plus a launch.
 //
 // Design of one step: a block owns K2_JT hidden units j of one direction
 // for a tile of up to K2_BT batch rows, whose h_prev (= hs[t-1]; no
@@ -28,7 +36,7 @@
 // chain of U loads short (19 k at H=300). The partial sums meet in shared
 // memory, where each (row, j) output gets its gate math and is written to
 // hs[t].
-#include "dl4ss_common.cuh"
+#include "rnn_fwd_common.cuh"
 
 namespace {
 
@@ -111,8 +119,9 @@ __global__ void __launch_bounds__(K2_THREADS) gru_step_kernel(
 }
 
 template <typename T>
-cudaError_t run(const void* xp, const void* wh, const void* bhn, void* hs,
-                int steps, int D, int B, int H, cudaStream_t stream) {
+cudaError_t run_stepwise(const void* xp, const void* wh, const void* bhn,
+                         void* hs, int steps, int D, int B, int H,
+                         cudaStream_t stream) {
   const dim3 grid((H + K2_JT - 1) / K2_JT, D, (B + K2_BT - 1) / K2_BT);
   const size_t smem =
       ((size_t)K2_BT * H + (size_t)K2_KW * K2_BT * 3 * K2_JT) * sizeof(float);
@@ -132,14 +141,59 @@ cudaError_t run(const void* xp, const void* wh, const void* bhn, void* hs,
   return cudaSuccess;
 }
 
+// The resident body's gate math: r, z = sigmoid(x_rz + a_rz),
+// n = tanh(x_n + r * (a_n + b_n)), h' = (1 - z) * n + z * h.
+struct GruFwdCell {
+  static constexpr int NG = 3;
+  static constexpr bool CELL_OUT = false;
+  // 3 outputs a unit (its gate columns of U), 3 a lane group; 6 unit
+  // warps x 2 column warps split H <= 304 rows of U, 19 a lane: 57 floats
+  using Tiling = dl4ss::ResidentTiling<3, 3, 6, 2, 19>;
+  struct State {
+    float bn;
+  };
+  __device__ static State init(const float* bias, int d, int j, int H) {
+    return {bias[(size_t)d * H + j]};
+  }
+  __device__ static float step(const float (&x)[NG], const float (&a)[NG],
+                               float hp, State& s, float&) {
+    const float r = dl4ss::sigmoid(x[0] + a[0]);
+    const float z = dl4ss::sigmoid(x[1] + a[1]);
+    const float n = tanhf(x[2] + r * (a[2] + s.bn));
+    return (1.0f - z) * n + z * hp;
+  }
+};
+
+template <typename T>
+cudaError_t run(const void* xp, const void* wh, const void* bhn, void* hs,
+                void* tickets, int groups, int chunk, int steps, int D,
+                int B, int H, int body, cudaStream_t stream) {
+  if (body == dl4ss::BODY_RESIDENT)
+    return dl4ss::fwd_chain<T, GruFwdCell>(
+        {xp, wh, static_cast<const float*>(bhn), hs, nullptr,
+         static_cast<unsigned int*>(tickets), steps, D, B, H, 0, 0, 0},
+        groups, chunk, stream);
+  if (body == dl4ss::BODY_STEPWISE)
+    return run_stepwise<T>(xp, wh, bhn, hs, steps, D, B, H, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // xp (T, D, B, 3H) and wh (D, H, 3H) in f32, or both in bf16 (bf16 != 0);
-// bhn (D, 1, H) f32; hs (T, D, B, H) in the input dtype.
+// bhn (D, 1, H) f32; hs (T, D, B, H) in the input dtype. body: 1 resident,
+// 2 stepwise; the resident body returns an error for a shape it cannot
+// hold. Resident: tickets = `groups` zeroed 32-bit counters, one per
+// direction and 4 batch rows (any other count is refused), and the batch
+// runs in chunks of `chunk` rows (a multiple of 4), one launch each. What a
+// body does not use may be null.
 extern "C" int dl4ss_gru_fwd(const void* xp, const void* wh, const void* bhn,
-                             void* hs, int steps, int D, int B, int H,
-                             int bf16, void* stream) {
+                             void* hs, void* tickets, int groups, int chunk,
+                             int steps, int D, int B, int H, int bf16,
+                             int body, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? run<__nv_bfloat16>(xp, wh, bhn, hs, steps, D, B, H, s)
-              : run<float>(xp, wh, bhn, hs, steps, D, B, H, s);
+  return bf16 ? run<__nv_bfloat16>(xp, wh, bhn, hs, tickets, groups, chunk,
+                                   steps, D, B, H, body, s)
+              : run<float>(xp, wh, bhn, hs, tickets, groups, chunk, steps, D,
+                           B, H, body, s);
 }

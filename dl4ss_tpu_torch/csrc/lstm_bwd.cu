@@ -22,7 +22,7 @@
 // products set the time, not the operations.
 //
 // Design, after K5: two bodies, named to the entry point by the caller
-// (ops/rnn_kernels.py::rnn_bwd_body, by shape alone).
+// (ops/rnn_kernels.py::rnn_body, by shape alone).
 //
 // The resident body (rnn_bwd_common.cuh has the three phases). The step is
 // linear in dh and dc, so phase A turns the recomputed gates of every step
@@ -192,7 +192,9 @@ __global__ void __launch_bounds__(K8_THREADS) lstm_bwd_step_kernel(
 
 // The resident body's cell: see the note at the top of this file.
 struct LstmCell {
-  static constexpr int NG = 4, NC = 6, KS = 8, MAXI = 19;   // G <= 1216
+  static constexpr int NG = 4, NC = 6;
+  // as GruCell's: G <= 1216 columns, 19 a lane
+  using Tiling = dl4ss::ResidentTiling<3, 1, 2, 8, 19>;
   static constexpr bool SPLIT = false;   // one da serves dxp, carry and dU
   struct State {
     float dc;
@@ -234,8 +236,9 @@ template <typename T>
 cudaError_t run_resident(const void* xp, const void* wh, const void* hprev,
                          const void* cprev, const void* cs, const void* dhs,
                          void* dxp, void* du, void* work, void* du_part,
-                         void* tickets, int du_parts, int groups, int steps,
-                         int D, int B, int H, cudaStream_t stream) {
+                         void* tickets, int du_parts, int groups, int chunk,
+                         int steps, int D, int B, int H,
+                         cudaStream_t stream) {
   const int G = 4 * H;
   float* coef = static_cast<float*>(work);    // (T, D, B, H, 6)
   cudaError_t err = dl4ss::coefficients<T, LstmCell>(
@@ -243,7 +246,7 @@ cudaError_t run_resident(const void* xp, const void* wh, const void* hprev,
   if (err != cudaSuccess) return err;
   err = dl4ss::chain<T, LstmCell>(
       {wh, coef, dhs, dxp, dxp, nullptr, static_cast<unsigned int*>(tickets),
-       steps, D, B, H, 0}, groups, stream);
+       steps, D, B, H, 0, 0, 0}, groups, chunk, stream);
   if (err != cudaSuccess) return err;
   return dl4ss::weight_grad<T, 4>(static_cast<const T*>(hprev),
                                   static_cast<const T*>(dxp),
@@ -293,12 +296,12 @@ template <typename T>
 cudaError_t run(const void* xp, const void* wh, const void* hprev,
                 const void* cprev, const void* cs, const void* dhs, void* dxp,
                 void* du, void* wht, void* dc, void* work, void* du_part,
-                void* tickets, int du_parts, int groups, int steps, int D,
-                int B, int H, int body, cudaStream_t stream) {
+                void* tickets, int du_parts, int groups, int chunk, int steps,
+                int D, int B, int H, int body, cudaStream_t stream) {
   if (body == dl4ss::BODY_RESIDENT)
     return run_resident<T>(xp, wh, hprev, cprev, cs, dhs, dxp, du, work,
-                           du_part, tickets, du_parts, groups, steps, D, B, H,
-                           stream);
+                           du_part, tickets, du_parts, groups, chunk, steps,
+                           D, B, H, stream);
   if (body == dl4ss::BODY_STEPWISE)
     return run_stepwise<T>(xp, wh, hprev, cprev, cs, dhs, dxp, du, wht, dc,
                            du_part, du_parts, steps, D, B, H, stream);
@@ -322,13 +325,13 @@ extern "C" int dl4ss_lstm_bwd(const void* xp, const void* wh,
                               const void* cs, const void* dhs, void* dxp,
                               void* du, void* wht, void* dc, void* work,
                               void* du_part, void* tickets, int du_parts,
-                              int groups, int steps, int D, int B, int H,
-                              int bf16, int body, void* stream) {
+                              int groups, int chunk, int steps, int D, int B,
+                              int H, int bf16, int body, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? run<__nv_bfloat16>(xp, wh, hprev, cprev, cs, dhs, dxp, du,
                                    wht, dc, work, du_part, tickets, du_parts,
-                                   groups, steps, D, B, H, body, s)
+                                   groups, chunk, steps, D, B, H, body, s)
               : run<float>(xp, wh, hprev, cprev, cs, dhs, dxp, du, wht, dc,
-                           work, du_part, tickets, du_parts, groups, steps, D,
-                           B, H, body, s);
+                           work, du_part, tickets, du_parts, groups, chunk,
+                           steps, D, B, H, body, s);
 }

@@ -16,23 +16,30 @@
 //
 // Bound on the H100: at H=300, B=16, T=313 the h.U products are 7.2 GFLOP
 // per layer, ~0.11 ms at the f32 CUDA-core rate. As for K2 (gru_fwd.cu) the
-// real limit is the 313 dependent steps: one kernel per step from a C loop
-// (one ctypes call per layer), each costing a launch and one pass over U
-// (1.44 MB per direction in f32 at H=300, L2-resident).
+// real limit is the 313 dependent steps.
 //
-// Design of one step, after K2: a block owns K7_JT hidden units j of one
-// direction for a tile of up to K7_BT batch rows, whose h_prev (= hs[t-1])
-// it stages in shared memory. Its K7_KW warps split the k-reduction of
-// h.U: lane j of warp w reads U[k, {j, H+j, 2H+j, 3H+j}] for its k-slice
-// once (coalesced across j) and applies each value to every batch row of
-// the tile. The partial sums meet in shared memory, where each (row, j)
-// output gets its gate math. With four gates a thread holds 4*K7_BT
-// accumulators, so the batch tile is 8 rows (K2's is 16): 32 registers of
-// accumulators and 64 KB of partial sums plus K7_BT*H*4 B of staged h:
-// 74 KB at H=300, 83 KB at H=600 (the TDAA classifier width), 96 KB at
-// H=1024. Past H=5216 the block exceeds the 227 KB limit: the opt-in then
-// fails, the entry point returns its error and the wrapper raises.
-#include "dl4ss_common.cuh"
+// Design, after K2: two bodies, named to the entry point by the caller
+// (ops/rnn_kernels.py::rnn_body, by shape alone). The resident body is
+// rnn_fwd_common.cuh's chain with LstmFwdCell below: c stays in the owner
+// thread's register for all steps. The stepwise body stays for the widths
+// the registers cannot hold (H > 304, the TDAA classifier's H=600 among
+// them): one kernel per step from a C loop (one ctypes call per layer),
+// each costing a launch and one pass over U (1.44 MB per direction in f32
+// at H=300, L2-resident).
+//
+// Design of one step of the stepwise body: a block owns K7_JT hidden units
+// j of one direction for a tile of up to K7_BT batch rows, whose h_prev (=
+// hs[t-1]) it stages in shared memory. Its K7_KW warps split the
+// k-reduction of h.U: lane j of warp w reads U[k, {j, H+j, 2H+j, 3H+j}] for
+// its k-slice once (coalesced across j) and applies each value to every
+// batch row of the tile. The partial sums meet in shared memory, where each
+// (row, j) output gets its gate math. With four gates a thread holds
+// 4*K7_BT accumulators, so the batch tile is 8 rows (K2's is 16): 32
+// registers of accumulators and 64 KB of partial sums plus K7_BT*H*4 B of
+// staged h: 74 KB at H=300, 83 KB at H=600 (the TDAA classifier width), 96
+// KB at H=1024. Past H=5216 the block exceeds the 227 KB limit: the opt-in
+// then fails, the entry point returns its error and the wrapper raises.
+#include "rnn_fwd_common.cuh"
 
 namespace {
 
@@ -121,8 +128,9 @@ __global__ void __launch_bounds__(K7_THREADS) lstm_step_kernel(
 }
 
 template <typename T>
-cudaError_t run(const void* xp, const void* wh, void* hs, void* cs, void* c,
-                int steps, int D, int B, int H, cudaStream_t stream) {
+cudaError_t run_stepwise(const void* xp, const void* wh, void* hs, void* cs,
+                         void* c, int steps, int D, int B, int H,
+                         cudaStream_t stream) {
   const dim3 grid((H + K7_JT - 1) / K7_JT, D, (B + K7_BT - 1) / K7_BT);
   const size_t smem =
       ((size_t)K7_BT * H + (size_t)K7_KW * K7_BT * 4 * K7_JT) * sizeof(float);
@@ -143,15 +151,62 @@ cudaError_t run(const void* xp, const void* wh, void* hs, void* cs, void* c,
   return cudaSuccess;
 }
 
+// The resident body's gate math: i, f, o = sigmoid, g = tanh of x + a;
+// c' = f * c + i * g (c in f32 in the owner's register), h' = o * tanh(c').
+struct LstmFwdCell {
+  static constexpr int NG = 4;
+  static constexpr bool CELL_OUT = true;
+  // 4 outputs a unit, 3 a lane group (a unit's gates may span two); 8
+  // unit warps x 2 column warps split H <= 304 rows, 19 a lane: 57 floats,
+  // the fastest of the tilings measured (PERF.md, PR 6)
+  using Tiling = dl4ss::ResidentTiling<3, 4, 8, 2, 19>;
+  struct State {
+    float c;
+  };
+  __device__ static State init(const float*, int, int, int) { return {0.0f}; }
+  __device__ static float step(const float (&x)[NG], const float (&a)[NG],
+                               float, State& s, float& c_out) {
+    const float ig = dl4ss::sigmoid(x[0] + a[0]);
+    const float fg = dl4ss::sigmoid(x[1] + a[1]);
+    const float gg = tanhf(x[2] + a[2]);
+    const float og = dl4ss::sigmoid(x[3] + a[3]);
+    s.c = fg * s.c + ig * gg;
+    c_out = s.c;
+    return og * tanhf(s.c);
+  }
+};
+
+template <typename T>
+cudaError_t run(const void* xp, const void* wh, void* hs, void* cs, void* c,
+                void* tickets, int groups, int chunk, int steps, int D, int B,
+                int H, int body, cudaStream_t stream) {
+  if (body == dl4ss::BODY_RESIDENT)
+    return dl4ss::fwd_chain<T, LstmFwdCell>(
+        {xp, wh, nullptr, hs, cs, static_cast<unsigned int*>(tickets), steps,
+         D, B, H, 0, 0, 0},
+        groups, chunk, stream);
+  if (body == dl4ss::BODY_STEPWISE)
+    return run_stepwise<T>(xp, wh, hs, cs, c, steps, D, B, H, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // xp (T, D, B, 4H) and wh (D, H, 4H) in f32, or both in bf16 (bf16 != 0);
-// hs, cs (T, D, B, H) in the input dtype; c (D, B, H) f32 scratch (the cell
-// carry; it need not be initialised).
+// hs, cs (T, D, B, H) in the input dtype. body: 1 resident, 2 stepwise; the
+// resident body returns an error for a shape it cannot hold. Resident:
+// tickets = `groups` zeroed 32-bit counters, one per direction and 4 batch
+// rows (any other count is refused), and the batch runs in chunks of
+// `chunk` rows (a multiple of 4), one launch each. Stepwise: c (D, B, H) f32
+// scratch (the cell carry; it need not be initialised). What a body does not
+// use may be null.
 extern "C" int dl4ss_lstm_fwd(const void* xp, const void* wh, void* hs,
-                              void* cs, void* c, int steps, int D, int B,
-                              int H, int bf16, void* stream) {
+                              void* cs, void* c, void* tickets, int groups,
+                              int chunk, int steps, int D, int B, int H,
+                              int bf16, int body, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? run<__nv_bfloat16>(xp, wh, hs, cs, c, steps, D, B, H, s)
-              : run<float>(xp, wh, hs, cs, c, steps, D, B, H, s);
+  return bf16 ? run<__nv_bfloat16>(xp, wh, hs, cs, c, tickets, groups, chunk,
+                                   steps, D, B, H, body, s)
+              : run<float>(xp, wh, hs, cs, c, tickets, groups, chunk, steps,
+                           D, B, H, body, s);
 }

@@ -23,7 +23,8 @@
 //      runs all T steps of both directions. A block owns RES_UNITS hidden
 //      units j of one direction for one tile of RES_BT batch rows and holds
 //      its columns of U^T (= rows j of U, no transpose needed) in registers
-//      for all steps (rnn_resident.cuh: 16 warps, 45-57 floats a thread).
+//      for all steps (rnn_resident.cuh, the cell's ResidentTiling: 16 warps,
+//      45-57 floats a thread).
 //      A step: wait for the group's barrier, stage da_{t+1} of the group's
 //      rows from L2 in shared memory, the resident product, the cell's
 //      coefficient math for the owned (row, unit), store dxp_t and da_t,
@@ -41,21 +42,22 @@
 //      DU_SPLIT ways over the grid (the same `tile_product`), then a
 //      fixed-order sum of the partials. Deterministic: no atomics on data.
 //
-// The stepwise body (one kernel launch per step, gru_bwd.cu / lstm_bwd.cu)
-// stays for the shapes the resident body cannot hold: a width whose slice
-// does not fit the registers (G > 8 * MAXI * KS, H > 304) or more groups than
-// the card has SMs. ops/rnn_kernels.py::rnn_bwd_body is the only rule; the
-// entry points here are told the body and refuse the resident one where it
-// cannot run (the chain launch checks the width and the grid; the
-// coefficient product before it takes any shape). `transpose` serves the
-// stepwise body alone.
+// A batch whose chain grid does not fit the card at once runs the chain in
+// chunks of rows, one launch each (rnn_resident.cuh's `chunked`); phases A
+// and C take the whole batch. The stepwise body (one kernel launch per
+// step, gru_bwd.cu / lstm_bwd.cu) stays for a width whose slice does not fit
+// the registers (G > the tiling's COLS, H > 304) and for batches past the
+// chunks where the resident body was measured faster.
+// ops/rnn_kernels.py::rnn_body is the only rule; the entry points here are
+// told the body and refuse the resident one where it cannot run (the chain
+// launch checks the width, the tickets and the grid; the coefficient
+// product before it takes any shape). `transpose` serves the stepwise body
+// alone.
 #pragma once
 
 #include "rnn_resident.cuh"
 
 namespace dl4ss {
-
-constexpr int BODY_RESIDENT = 1, BODY_STEPWISE = 2;
 
 // ut[d, g, k] = u[d, k, g] for u (D, H, G), through 32 x 32 shared tiles.
 template <typename T>
@@ -171,37 +173,48 @@ struct ChainArgs {
                        // LSTM: dxp itself)
   float* sums;         // (B, D, H): the cell's per-(row, unit) sum over t
                        // (GRU: dhn, for db_n); null where the cell has none
-  unsigned int* tickets;   // one per group, zero at launch
+  unsigned int* tickets;   // one per group of the launch, zero at launch
   int steps, D, B, H;
+  int row0, rows;      // the launch's batch rows: row0 .. row0 + rows - 1
   int members;         // blocks per group
 };
 
 template <typename T, typename Cell>
-__global__ void __launch_bounds__(32 * RES_UWARPS * Cell::KS, 1)
+__global__ void __launch_bounds__(Cell::Tiling::THREADS, 1)
     rnn_bwd_chain_kernel(ChainArgs p) {
-  constexpr int NG = Cell::NG, NC = Cell::NC, KS = Cell::KS;
-  constexpr int THREADS = 32 * RES_UWARPS * KS, OWNED = RES_UNITS * RES_BT;
+  using Ti = typename Cell::Tiling;
+  constexpr int NG = Cell::NG, NC = Cell::NC, KS = Ti::KS, UW = Ti::UW;
+  constexpr int UWARPS = Ti::UWARPS, WARP_UNITS = UW * 32 / RES_LANES;
+  constexpr int THREADS = Ti::THREADS, OWNED = RES_UNITS * RES_BT;
+  static_assert(Ti::OUTS == 1, "one output a unit: its row of U");
   static_assert(OWNED <= THREADS, "one owner thread per (row, unit)");
   extern __shared__ float4 vec[];     // (G): da_{t+1}, the 4 rows per column
   const int H = p.H, G = NG * H, B = p.B, D = p.D;
   // (KS, RES_UNITS, RES_BT): the column warps' sums
   float* part = reinterpret_cast<float*>(vec + G);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int ks = warp / RES_UWARPS;
+  const int ks = warp / UWARPS;
   const int q = lane / RES_LANES, c = lane % RES_LANES;
   // the first of this lane group's units, within the block
-  const int lu = (warp % RES_UWARPS) * RES_WARP_UNITS + q * RES_UW;
+  const int lu = (warp % UWARPS) * WARP_UNITS + q * UW;
   const int group = blockIdx.x / p.members, member = blockIdx.x % p.members;
-  const int tiles = (B + RES_BT - 1) / RES_BT;
-  const int d = group / tiles, b0 = (group % tiles) * RES_BT;
+  // a launch's rows are whole tiles but for the batch's last one, so B
+  // bounds the rows of every tile
+  const int tiles = (p.rows + RES_BT - 1) / RES_BT;
+  const int d = group / tiles, b0 = p.row0 + (group % tiles) * RES_BT;
   const int j0 = member * RES_UNITS;        // the block's first unit
   unsigned int* ticket = p.tickets + group;
 
-  float w[RES_UW][Cell::MAXI];
-  resident_load<Cell::MAXI, KS>(
-      w,
-      static_cast<const T*>(p.wh) + ((size_t)d * H + min(j0 + lu, H - 1)) * G,
-      max(0, min(RES_UW, H - j0 - lu)), G, c, ks);
+  float w[UW][Ti::MAXI];
+  {
+    const T* rows = static_cast<const T*>(p.wh) +
+                    ((size_t)d * H + min(j0 + lu, H - 1)) * G;
+    const int valid = max(0, min(UW, H - j0 - lu));
+    resident_load<UW, Ti::MAXI, KS>(
+        w, [&](int u, int g) {
+          return u < valid ? to_f32(rows[(size_t)u * G + g]) : 0.0f;
+        }, G, c, ks);
+  }
 
   // threads 0 .. OWNED - 1 each own one (row, unit) of the block's, units
   // running fastest: their loads and stores are contiguous over the units
@@ -247,12 +260,12 @@ __global__ void __launch_bounds__(32 * RES_UWARPS * Cell::KS, 1)
                 make_float4(v[h][0], v[h][1], v[h][2], v[h][3]);
       }
       __syncthreads();
-      float acc[RES_UW][RES_BT];
-      resident_dot<Cell::MAXI, KS>(w, vec, G, c, ks, acc);
-      // the eight lanes of a group hold the same RES_UW * RES_BT sums: lane
+      float acc[UW][RES_BT];
+      resident_dot<UW, Ti::MAXI, KS>(w, vec, G, c, ks, acc);
+      // the eight lanes of a group hold the same UW * RES_BT sums: lane
       // c stores sums c and c + 8
 #pragma unroll
-      for (int u = 0; u < RES_UW; ++u)
+      for (int u = 0; u < UW; ++u)
 #pragma unroll
         for (int r = 0; r < RES_BT; ++r)
           if ((u * RES_BT + r) % RES_LANES == c)
@@ -279,32 +292,33 @@ __global__ void __launch_bounds__(32 * RES_UWARPS * Cell::KS, 1)
     p.sums[((size_t)b * D + d) * H + j] = Cell::total(state);
 }
 
-// The grid is groups * members blocks, all of which must be resident at
-// once for the ticket barrier, or the cooperative launch is refused
-// (cudaErrorCooperativeLaunchTooLarge comes back to the caller). `groups` is
-// the number of tickets the caller zeroed: a count other than the grid's
-// own is refused before anything is launched.
-// A launch call's own error also stays behind as the runtime's last error:
-// clear it, so that the next entry point's cudaGetLastError() does not
-// report a launch that this one already refused.
-inline cudaError_t reported(cudaError_t err) {
-  if (err != cudaSuccess) cudaGetLastError();
-  return err;
-}
-
+// The chain of the whole batch: one cooperative launch per chunk of
+// `chunk` rows (rnn_resident.cuh's `chunked`), each of D * tiles groups of
+// `members` blocks, all of which must be resident at once for the ticket
+// barrier, or the launch is refused (cudaErrorCooperativeLaunchTooLarge
+// comes back to the caller). A width past the slice is refused first.
 template <typename T, typename Cell>
-inline cudaError_t chain(ChainArgs p, int groups, cudaStream_t stream) {
-  if (Cell::NG * p.H > RES_LANES * Cell::MAXI * Cell::KS ||
-      groups != p.D * ((p.B + RES_BT - 1) / RES_BT))
-    return cudaErrorInvalidValue;
+inline cudaError_t chain(ChainArgs p, int groups, int chunk,
+                         cudaStream_t stream) {
+  using Ti = typename Cell::Tiling;
+  if (Cell::NG * p.H > Ti::COLS) return cudaErrorInvalidValue;
   p.members = (p.H + RES_UNITS - 1) / RES_UNITS;
-  const int threads = 32 * RES_UWARPS * Cell::KS;
   const size_t smem = ((size_t)RES_BT * Cell::NG * p.H +
-                       Cell::KS * RES_UNITS * RES_BT) * sizeof(float);
-  void* args[] = {&p};
-  return reported(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(rnn_bwd_chain_kernel<T, Cell>),
-      dim3(groups * p.members), dim3(threads), args, smem, stream));
+                       Ti::KS * RES_UNITS * RES_BT) * sizeof(float);
+  return chunked(p.D, p.B, chunk, groups, p.tickets,
+                 [&](int row0, int rows, unsigned int* tickets) {
+                   ChainArgs q = p;
+                   q.row0 = row0;
+                   q.rows = rows;
+                   q.tickets = tickets;
+                   void* args[] = {&q};
+                   const int tiles = (rows + RES_BT - 1) / RES_BT;
+                   return reported(cudaLaunchCooperativeKernel(
+                       reinterpret_cast<void*>(
+                           rnn_bwd_chain_kernel<T, Cell>),
+                       dim3(p.D * tiles * p.members), dim3(Ti::THREADS),
+                       args, smem, stream));
+                 });
 }
 
 // ---- phase C: the weight gradient -----------------------------------------

@@ -7,14 +7,15 @@
 // step because nothing stays on the SM when the block ends. The parts here
 // let one launch walk all steps instead:
 //
-//   * `resident_load` / `resident_dot`: a block owns RES_UNITS output units
-//     of one direction and holds their weight rows in REGISTERS for the
-//     whole launch, so a step reads no weight from any memory. A warp is
-//     four groups of eight lanes; a group owns RES_UW units, and its eight
-//     lanes, together with the same group of the block's other KS - 1
-//     column warps, split the G columns (lane c of column warp ks holds
-//     columns c + 8 * (i * KS + ks): RES_UW * G / (8 * KS) floats a
-//     thread). The step's input vector is staged in shared memory as one
+//   * `resident_load` / `resident_dot`: a block owns RES_UNITS hidden units
+//     of one direction and holds the weights of their outputs in REGISTERS
+//     for the whole launch, so a step reads no weight from any memory. An
+//     output is one sum over a vector of `ncols` columns. A warp is four
+//     groups of eight lanes; a group owns UW outputs (the cell's
+//     ResidentTiling says which), and its eight lanes, together with the
+//     same group of the block's other KS - 1 column warps, split the columns
+//     (lane c of column warp ks holds columns c + 8 * (i * KS + ks): UW *
+//     MAXI floats a thread). The step's input vector is staged in shared memory as one
 //     float4 of the RES_BT batch rows per column, so the eight lanes of a
 //     group read eight neighbouring float4 in one 128-byte access and the
 //     four groups read the same ones. A fixed xor butterfly adds the eight
@@ -37,20 +38,44 @@
 //     chain and can run for all steps at once. Full f32 on the CUDA cores:
 //     the 1e-4 bar of the f32 kernels rules TF32 out.
 //
-// Nothing here names a forward or a backward pass; the recurrent backward
-// kernels (rnn_bwd_common.cuh, gru_bwd.cu, lstm_bwd.cu) are the first users.
+// Nothing here names a forward or a backward pass. The backward chain
+// (rnn_bwd_common.cuh) gives each hidden unit ONE output, its row of U over
+// the G = NG * H columns of da; the forward chain (rnn_fwd_common.cuh) gives
+// each unit NG outputs, its gate columns of U over the H columns of h. The
+// two split a block's slice the same size, differently: `ResidentTiling`.
 #pragma once
 
 #include "dl4ss_common.cuh"
 
 namespace dl4ss {
 
-constexpr int RES_UW = 3;        // output units per group of eight lanes
-constexpr int RES_LANES = 8;     // lanes that split a unit's columns
-constexpr int RES_WARP_UNITS = RES_UW * 32 / RES_LANES;   // units per warp
-constexpr int RES_UWARPS = 2;    // unit warps per block, times its KS
-constexpr int RES_UNITS = RES_UWARPS * RES_WARP_UNITS;    // units per block
+// The body an entry point is told to run (ops/rnn_kernels.py names it).
+constexpr int BODY_RESIDENT = 1, BODY_STEPWISE = 2;
+
+constexpr int RES_LANES = 8;     // lanes that split an output's columns
+constexpr int RES_UNITS = 24;    // hidden units per block, both passes
 constexpr int RES_BT = 4;        // batch rows per barrier group (a float4)
+
+// How a block splits the weights of its RES_UNITS units: each unit has
+// OUTS outputs (output o of the block is output o % OUTS of unit o / OUTS),
+// a lane group owns UW consecutive outputs, a warp four lane groups, UWARPS
+// unit warps cover the block's outputs, and KS column warps split the
+// columns, MAXI a lane: UW * MAXI floats a thread, up to COLS columns.
+template <int UW_, int OUTS_, int UWARPS_, int KS_, int MAXI_>
+struct ResidentTiling {
+  static constexpr int UW = UW_, OUTS = OUTS_, UWARPS = UWARPS_;
+  static constexpr int KS = KS_, MAXI = MAXI_;
+  static constexpr int OUTPUTS = RES_UNITS * OUTS;
+  static constexpr int THREADS = 32 * UWARPS * KS;
+  static constexpr int COLS = RES_LANES * MAXI * KS;
+  static_assert(UWARPS * (32 / RES_LANES) * UW == OUTPUTS,
+                "the lane groups cover the block's outputs once");
+  // the first output (within the block) of this thread's lane group
+  __device__ static int lane_output(int warp, int lane) {
+    return ((warp % UWARPS) * (32 / RES_LANES) + lane / RES_LANES) * UW;
+  }
+  __device__ static int column_warp(int warp) { return warp / UWARPS; }
+};
 
 // ---- the barrier of one group of blocks -----------------------------------
 
@@ -92,42 +117,42 @@ __device__ __forceinline__ float load_shared_result(const __nv_bfloat16* p) {
 
 // ---- the resident slice ---------------------------------------------------
 
-// rows: the weight rows of this lane group's units, G contiguous values
-// each (row u at rows + u * G); units past `valid` and columns past G hold
-// 0. c is the lane within its group of eight, ks the column warp.
-template <int MAXI, int KS, typename T>
-__device__ __forceinline__ void resident_load(float (&w)[RES_UW][MAXI],
-                                              const T* rows, int valid, int G,
-                                              int c, int ks) {
+// w[u][i] = fetch(u, col) for the column col = c + 8 * (i * KS + ks) of
+// output u of this lane group, 0 past `ncols`; fetch returns 0 for an output
+// past the layer's edge. c is the lane within its group of eight, ks the
+// column warp.
+template <int UW, int MAXI, int KS, typename F>
+__device__ __forceinline__ void resident_load(float (&w)[UW][MAXI], F fetch,
+                                              int ncols, int c, int ks) {
 #pragma unroll
-  for (int u = 0; u < RES_UW; ++u)
+  for (int u = 0; u < UW; ++u)
 #pragma unroll
     for (int i = 0; i < MAXI; ++i) {
-      const int g = c + RES_LANES * (i * KS + ks);
-      w[u][i] = (u < valid && g < G) ? to_f32(rows[(size_t)u * G + g]) : 0.0f;
+      const int col = c + RES_LANES * (i * KS + ks);
+      w[u][i] = col < ncols ? fetch(u, col) : 0.0f;
     }
 }
 
 // acc[u][b] = sum over the columns g of this lane group and column warp of
-// vec[g][b] * w[u][g], for the group's RES_UW units and the barrier group's
+// vec[g][b] * w[u][g], for the group's UW outputs and the barrier group's
 // RES_BT rows; vec holds one float4 of the rows per column, in shared
 // memory. The eight lanes of the group return the same sums.
-template <int MAXI, int KS>
-__device__ __forceinline__ void resident_dot(const float (&w)[RES_UW][MAXI],
-                                             const float4* vec, int G, int c,
-                                             int ks,
-                                             float (&acc)[RES_UW][RES_BT]) {
+template <int UW, int MAXI, int KS>
+__device__ __forceinline__ void resident_dot(const float (&w)[UW][MAXI],
+                                             const float4* vec, int ncols,
+                                             int c, int ks,
+                                             float (&acc)[UW][RES_BT]) {
 #pragma unroll
-  for (int u = 0; u < RES_UW; ++u)
+  for (int u = 0; u < UW; ++u)
 #pragma unroll
     for (int b = 0; b < RES_BT; ++b) acc[u][b] = 0.0f;
 #pragma unroll
   for (int i = 0; i < MAXI; ++i) {
     const int g0 = RES_LANES * (i * KS + ks);
-    if (g0 < G) {
-      const float4 v = vec[min(g0 + c, G - 1)];      // w is 0 past G
+    if (g0 < ncols) {
+      const float4 v = vec[min(g0 + c, ncols - 1)];  // w is 0 past ncols
 #pragma unroll
-      for (int u = 0; u < RES_UW; ++u) {
+      for (int u = 0; u < UW; ++u) {
         acc[u][0] = fmaf(v.x, w[u][i], acc[u][0]);
         acc[u][1] = fmaf(v.y, w[u][i], acc[u][1]);
         acc[u][2] = fmaf(v.z, w[u][i], acc[u][2]);
@@ -136,7 +161,7 @@ __device__ __forceinline__ void resident_dot(const float (&w)[RES_UW][MAXI],
     }
   }
 #pragma unroll
-  for (int u = 0; u < RES_UW; ++u)
+  for (int u = 0; u < UW; ++u)
 #pragma unroll
     for (int b = 0; b < RES_BT; ++b)
 #pragma unroll
@@ -144,6 +169,62 @@ __device__ __forceinline__ void resident_dot(const float (&w)[RES_UW][MAXI],
         acc[u][b] += __shfl_xor_sync(0xffffffffu, acc[u][b], off);
 }
 static_assert(RES_BT == 4, "the staged vector is one float4 per column");
+
+// Stage rows b0 .. b0 + RES_BT - 1 of a (rows, n) array that other blocks
+// of the launch wrote, as one float4 per column, into vec[0 .. n): two
+// columns a thread per turn, RES_BT L2 loads each, all in flight before the
+// first is used. Rows at or past `rows` read as 0. Ends with the block's
+// barrier.
+template <int THREADS, typename T>
+__device__ __forceinline__ void stage_rows(float4* vec, const T* src,
+                                           size_t stride, int n, int b0,
+                                           int rows) {
+  for (int g = threadIdx.x; g < n; g += 2 * THREADS) {
+    float v[2][RES_BT];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < RES_BT; ++r)
+        v[h][r] = g + h * THREADS < n && b0 + r < rows
+                      ? load_shared_result(src + (size_t)r * stride + g +
+                                           h * THREADS)
+                      : 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (g + h * THREADS < n)
+        vec[g + h * THREADS] = make_float4(v[h][0], v[h][1], v[h][2], v[h][3]);
+  }
+  __syncthreads();
+}
+
+// A cooperative launch needs every block of the grid on the card at once.
+// A call that walks the batch in chunks of `chunk` rows (a multiple of
+// RES_BT) makes one launch per chunk, each with its own D * tiles tickets,
+// in order, from `tickets`: `groups` is the count the caller zeroed, and any
+// count or chunk other than these is refused before anything is launched.
+// launch(row0, rows, tickets) makes the chunk's launch.
+template <typename L>
+inline cudaError_t chunked(int D, int B, int chunk, int groups,
+                           unsigned int* tickets, L launch) {
+  if (chunk <= 0 || chunk % RES_BT != 0 ||
+      groups != D * ((B + RES_BT - 1) / RES_BT))
+    return cudaErrorInvalidValue;
+  for (int row0 = 0; row0 < B; row0 += chunk) {
+    const int rows = std::min(chunk, B - row0);
+    const cudaError_t err = launch(row0, rows, tickets);
+    if (err != cudaSuccess) return err;
+    tickets += D * ((rows + RES_BT - 1) / RES_BT);
+  }
+  return cudaSuccess;
+}
+
+// A launch call's own error also stays behind as the runtime's last error:
+// clear it, so that the next entry point's cudaGetLastError() does not
+// report a launch that this one already refused.
+inline cudaError_t reported(cudaError_t err) {
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
 
 // ---- the off-chain product tile -------------------------------------------
 

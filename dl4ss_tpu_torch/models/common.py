@@ -32,6 +32,14 @@ class Linear(nn.Module):
         self.b = uniform(out_dim) if bias else None
 
 
+def refuse_remat(cfg) -> None:
+    """The reference wraps each recurrent layer in `jax.checkpoint` under
+    `cfg.remat`; the port has no such recompute yet, so it refuses the
+    option rather than run without it."""
+    if cfg.remat:
+        raise NotImplementedError("remat is not ported yet (ROADMAP P9)")
+
+
 def linear_init(in_dim: int, out_dim: int, bias: bool = True,
                 generator: Optional[torch.Generator] = None,
                 dtype=torch.float32, device=None) -> Linear:

@@ -35,7 +35,8 @@ SOURCES = ("stft_features.cu", "gru_fwd.cu", "maskhead_fwd.cu",
            "masked_istft.cu", "gru_bwd.cu", "maskhead_bwd.cu", "lstm_fwd.cu",
            "lstm_bwd.cu", "stft_ri.cu", "istft_ri.cu")
 HEADERS = ("dl4ss_common.cuh", "maskhead_tile.cuh", "rnn_resident.cuh",
-           "rnn_bwd_common.cuh", "stft_tile.cuh", "istft_tile.cuh")
+           "rnn_bwd_common.cuh", "rnn_fwd_common.cuh", "stft_tile.cuh",
+           "istft_tile.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -44,14 +45,14 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # is appended as a pointer; every function returns an int error code.
 SIGNATURES = {
     "stft_features": "ppppppppiiiiiiii",
-    "gru_fwd": "ppppiiiii",
+    "gru_fwd": "pppppiiiiiiii",
     "maskhead_fwd": "pppppiiiiiii",
     "maskhead_pack": "ppiiii",       # K3's weight layout, once per W version
     "masked_istft": "pppppppiiiiiiii",
-    "gru_bwd": "ppppppppppppppiiiiiiii",
+    "gru_bwd": "ppppppppppppppiiiiiiiii",
     "maskhead_bwd": "pppppppppiiiiii",
-    "lstm_fwd": "pppppiiiii",
-    "lstm_bwd": "pppppppppppppiiiiiiii",
+    "lstm_fwd": "ppppppiiiiiiii",
+    "lstm_bwd": "pppppppppppppiiiiiiiii",
     "stft_ri": "ppppppiiiiiii",
     "istft_ri": "pppppiiiiii",
 }

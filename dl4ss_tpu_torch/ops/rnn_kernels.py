@@ -9,15 +9,18 @@ csrc/lstm_fwd.cu), the backward likewise to the plain reverse loop or to
 csrc/gru_bwd.cu, csrc/lstm_bwd.cu; there is no fallback between them.
 Unlike the TPU kernels, the hidden width needs no 128-lane padding.
 
-The two backward kernels have two bodies each (csrc/rnn_bwd_common.cuh):
-the resident one (the gate recompute for all steps at once, then ONE
-persistent launch that walks the chain with its slice of U^T in registers,
-then a split dU reduction) and the stepwise one (a launch per step).
-`rnn_bwd_body` is the only rule that picks between them, from the shape
-alone; the launch names the body to the library, which refuses the
-resident body where it cannot run. The resident body's arithmetic, which
-runs only on the card, has plain-torch mirrors here
-(`gru_bwd_resident_mirror`, `lstm_bwd_resident_mirror`) for the CPU tests.
+All four kernels have two bodies each. The resident one walks the whole
+chain of T steps in ONE persistent cooperative launch (per chunk of batch
+rows) with each block's slice of U in registers: the forward's
+(csrc/rnn_fwd_common.cuh) holds the gate columns of its units, the
+backward's (csrc/rnn_bwd_common.cuh) their rows, after the gate recompute
+for all steps at once and before a split dU reduction. The stepwise one
+launches a kernel per step. `rnn_body` is the only rule that picks between
+them, from the shape alone, for both passes; the launch names the body to
+the library, which refuses the resident body where it cannot run. The
+backward's resident arithmetic, which runs only on the card, has plain-torch
+mirrors here (`gru_bwd_resident_mirror`, `lstm_bwd_resident_mirror`) for the
+CPU tests; the forward's is the plain loop's, summed in another order.
 """
 
 from __future__ import annotations
@@ -31,25 +34,34 @@ from dl4ss_tpu_torch.ops import cuda_lib
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
-# The two bodies of K5 and K8 and what the resident one can hold: a block
-# keeps the weights of RESIDENT_UNITS hidden units in registers (their 3H or
-# 4H columns split over 64 threads, which holds the LSTM's 4H up to H =
-# RESIDENT_MAX_HIDDEN), the blocks of one direction and RESIDENT_ROWS batch
-# rows share a barrier, and every block must be on an SM at once: one block
-# per SM of the card (H100_SMS on an H100 SXM, the default where no device
-# is named). RESIDENT_MAX_HIDDEN and RESIDENT_UNITS only steer the rule: if
-# they drift from csrc/rnn_resident.cuh the launch is refused, nothing is
-# overrun. RESIDENT_ROWS and DU_SPLIT size scratch, so the launch passes the
-# sizes it allocated and the library refuses any but its own.
+# The two bodies of K2, K5, K7 and K8 and what the resident one can hold: a
+# block keeps the weights of RESIDENT_UNITS hidden units in registers (the
+# LSTM's 4H columns a unit up to H = RESIDENT_MAX_HIDDEN), the blocks of one
+# direction and RESIDENT_ROWS batch rows share a barrier, and every block of
+# a launch must be on an SM at once: one block per SM of the card (H100_SMS
+# on an H100 SXM, the default where no device is named). A batch whose grid
+# does not fit runs in chunks of rows, one launch each. RESIDENT_MAX_HIDDEN
+# and RESIDENT_UNITS only steer the rule: if they drift from
+# csrc/rnn_resident.cuh the launch is refused, nothing is overrun.
+# RESIDENT_ROWS and DU_SPLIT size scratch, so the launch passes the sizes it
+# allocated and the library refuses any but its own.
 BODY_RESIDENT, BODY_STEPWISE = "resident", "stepwise"
 _BODY_CODES = {BODY_RESIDENT: 1, BODY_STEPWISE: 2}
 RESIDENT_MAX_HIDDEN = 304
 RESIDENT_UNITS = 24
 RESIDENT_ROWS = 4
 H100_SMS = 132
+# The most launches (chunks of rows) per call at which the resident body is
+# named, by pass; past it the stepwise body was as fast or faster on an
+# NVIDIA H100 80GB HBM3 at H=300 (PERF.md, PR 6): a forward chunk costs
+# ~1.1 ms (GRU) / ~1.3 (LSTM), the stepwise forward 3.1-3.9 ms up to B=96 and
+# 7-8 at B=128, so the forward's resident body won at 2 chunks (B=32) and
+# lost from 3 (LSTM) or 4 (GRU) on; the backward's won at 2 and at 7 (B=128,
+# 12-14 ms against 22-24), the most measured.
+RESIDENT_MAX_CHUNKS = {"forward": 2, "backward": 7}
 DU_SPLIT = 16       # slices of the (t, b) axis in the dU reduction
-# Launches of K5 and K8 by the body that ran, keyed (kernel name, body);
-# cuda_lib.LAUNCHES counts both bodies under the kernel's name.
+# Launches of K2, K5, K7 and K8 by the body that ran, keyed (kernel name,
+# body); cuda_lib.LAUNCHES counts both bodies under the kernel's name.
 BODY_LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -63,26 +75,55 @@ def resident_groups(batch: int, directions: int = 2) -> int:
     return directions * _ceil_div(batch, RESIDENT_ROWS)
 
 
-def rnn_bwd_body(hidden: int, batch: int, directions: int = 2,
-                 sms: int = H100_SMS) -> str:
-    """The shape rule of K5 and K8 on the card: the resident body where a
-    block's slice of U^T fits its registers (H <= 304) and the grid, one
-    block per RESIDENT_UNITS units of each barrier group, fits the card's
-    `sms` SMs at once (at H=300 on 132 SMs: B <= 20); the stepwise body
-    for every other shape. The dtype does not enter: the slice is held in
-    f32 either way. The launch is told the body by name; the library only
+def resident_chunk_rows(hidden: int, directions: int = 2,
+                        sms: int = H100_SMS) -> int:
+    """Batch rows per launch of the resident body: the most tiles of
+    RESIDENT_ROWS rows whose blocks, ceil(H / RESIDENT_UNITS) per direction
+    and tile, fit `sms` SMs at once (20 rows at H=300 on 132 SMs); 0 where
+    not one tile fits."""
+    per_tile = directions * _ceil_div(hidden, RESIDENT_UNITS)
+    return RESIDENT_ROWS * (sms // per_tile)
+
+
+def resident_chunks(batch: int, hidden: int, directions: int = 2,
+                    sms: int = H100_SMS):
+    """The resident body's launches for a batch, as the library makes them
+    (csrc/rnn_resident.cuh, `chunked`): (first row, rows) of each chunk, in
+    order; none where not one tile fits."""
+    step = resident_chunk_rows(hidden, directions, sms)
+    if not step:
+        return []
+    return [(r, min(step, batch - r)) for r in range(0, batch, step)]
+
+
+def rnn_body(hidden: int, batch: int, directions: int = 2,
+             sms: int = H100_SMS, backward: bool = False) -> str:
+    """The shape rule of K2 and K7 (forward) and K5 and K8 (`backward`) on
+    the card: the resident body where a block's slice of U fits its
+    registers (H <= 304) and the batch takes at most the pass's
+    RESIDENT_MAX_CHUNKS launches of the grid that fits the card's `sms` SMs
+    at once (at H=300 on 132 SMs 20 rows a launch: the forward's resident
+    body up to B=40, the backward's up to B=140); the stepwise body for
+    every other shape. The dtype does not enter: the slice is held in f32
+    either way. The launch is told the body by name; the library only
     refuses the resident body on a shape it cannot take."""
-    blocks = resident_groups(batch, directions) * _ceil_div(hidden,
-                                                            RESIDENT_UNITS)
-    if hidden <= RESIDENT_MAX_HIDDEN and blocks <= sms:
+    chunks = resident_chunks(batch, hidden, directions, sms)
+    most = RESIDENT_MAX_CHUNKS["backward" if backward else "forward"]
+    if hidden <= RESIDENT_MAX_HIDDEN and 0 < len(chunks) <= most:
         return BODY_RESIDENT
     return BODY_STEPWISE
 
 
-def _body_on(dev, hidden: int, batch: int, directions: int) -> str:
-    """The rule's body on the card `dev`, by its own count of SMs."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return rnn_bwd_body(hidden, batch, directions, sms)
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _resident_scratch(dev, hidden: int, batch: int, directions: int):
+    """The resident body's tickets (zeroed, one per group), their count and
+    the rows per launch, on the card `dev`."""
+    groups = resident_groups(batch, directions)
+    return (torch.zeros(groups, dtype=torch.int32, device=dev), groups,
+            resident_chunk_rows(hidden, directions, _sms(dev)))
 
 
 class _GruScan(torch.autograd.Function):
@@ -135,10 +176,13 @@ def gru_scan_plain(xp: torch.Tensor, wh: torch.Tensor, bh_n: torch.Tensor
     return hs
 
 
-def gru_scan_cuda(xp: torch.Tensor, wh: torch.Tensor, bh_n: torch.Tensor
-                  ) -> torch.Tensor:
-    """K2 on the card: csrc/gru_fwd.cu, one ctypes call per layer that
-    launches one step kernel per time step on the current stream."""
+def gru_scan_cuda(xp: torch.Tensor, wh: torch.Tensor, bh_n: torch.Tensor,
+                  body: Optional[str] = None) -> torch.Tensor:
+    """K2 on the card: csrc/gru_fwd.cu, one ctypes call per layer on the
+    current stream. The resident body makes one persistent launch for all
+    steps (per chunk of rows); the stepwise body one launch per step.
+    `body` forces one of the two for a check or a timing; by default
+    `rnn_body` names it from the shape. Same contract as `gru_scan_plain`."""
     t, d, b, g3 = xp.shape
     if g3 % 3:
         raise ValueError(f"xp's last axis must be 3H, got {g3}")
@@ -146,9 +190,16 @@ def gru_scan_cuda(xp: torch.Tensor, wh: torch.Tensor, bh_n: torch.Tensor
     cuda_lib.check(xp, "xp", _DTYPES)
     cuda_lib.check(wh, "wh", (xp.dtype,), (d, hidden, g3))
     cuda_lib.check(bh_n, "bh_n", (torch.float32,), (d, 1, hidden))
-    hs = torch.empty((t, d, b, hidden), dtype=xp.dtype, device=xp.device)
-    cuda_lib.launch("gru_fwd", xp.device, xp, wh, bh_n, hs, t, d, b, hidden,
-                    int(xp.dtype == torch.bfloat16))
+    dev = xp.device
+    chosen = body or rnn_body(hidden, b, d, _sms(dev))
+    hs = torch.empty((t, d, b, hidden), dtype=xp.dtype, device=dev)
+    tickets = groups = chunk = 0
+    if chosen != BODY_STEPWISE:
+        tickets, groups, chunk = _resident_scratch(dev, hidden, b, d)
+    cuda_lib.launch("gru_fwd", dev, xp, wh, bh_n, hs, tickets, groups, chunk,
+                    t, d, b, hidden, int(xp.dtype == torch.bfloat16),
+                    _BODY_CODES[chosen])
+    BODY_LAUNCHES["gru_fwd", chosen] += 1
     return hs
 
 
@@ -256,7 +307,7 @@ def gru_scan_bwd_cuda(xp, wh, bh_n, hprev, dhs, body: Optional[str] = None
     kernel for all steps and the dU / db_n reductions; the stepwise body
     transposes U, launches one step kernel per time step in reverse, then
     reduces. `body` forces one of the two for a check or a timing; by
-    default `rnn_bwd_body` names it from the shape. Same contract as
+    default `rnn_body` names it from the shape. Same contract as
     `gru_scan_bwd_plain`. Scratch is allocated per call and freed after:
     at T=313, B=16, H=300 in f32 the resident body's peak is 60 MB of
     coefficients, 36 MB of da_w and 35 MB of dU partials."""
@@ -270,27 +321,26 @@ def gru_scan_bwd_cuda(xp, wh, bh_n, hprev, dhs, body: Optional[str] = None
     cuda_lib.check(hprev, "hprev", (xp.dtype,), (t, d, b, hidden))
     cuda_lib.check(dhs, "dhs", (xp.dtype,), (t, d, b, hidden))
     dev = xp.device
-    chosen = body or _body_on(dev, hidden, b, d)
+    chosen = body or rnn_body(hidden, b, d, _sms(dev), backward=True)
     f32 = dict(dtype=torch.float32, device=dev)
     dxp = torch.empty_like(xp)
     du = torch.empty((d, hidden, g3), **f32)
     dbn = torch.empty((d, 1, hidden), **f32)
     daw = torch.empty_like(xp)
     du_part = _du_partials(d, hidden, g3, dev)
-    wht = dhz = tickets = groups = 0
+    wht = dhz = tickets = groups = chunk = 0
     if chosen != BODY_STEPWISE:
         # the coefficients (T, D, B, H, 5), then the db_n partials (B, D, H)
         work = torch.empty(d * b * hidden * (5 * t + 1), **f32)
-        groups = resident_groups(b, d)
-        tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
+        tickets, groups, chunk = _resident_scratch(dev, hidden, b, d)
     else:
         wht = torch.empty((d, g3, hidden), dtype=xp.dtype, device=dev)
         dhz = torch.empty((d, b, hidden), **f32)
         work = torch.empty((t, d, b, hidden), **f32)      # dhn
     cuda_lib.launch("gru_bwd", dev, xp, wh, bh_n, hprev, dhs, dxp, du, dbn,
                     wht, daw, dhz, work, du_part, tickets, du_part.shape[0],
-                    groups, t, d, b, hidden, int(xp.dtype == torch.bfloat16),
-                    _BODY_CODES[chosen])
+                    groups, chunk, t, d, b, hidden,
+                    int(xp.dtype == torch.bfloat16), _BODY_CODES[chosen])
     BODY_LAUNCHES["gru_bwd", chosen] += 1
     return dxp, du.to(wh.dtype), dbn
 
@@ -369,19 +419,29 @@ def _lstm_shape(xp: torch.Tensor):
     return t, d, b, g4 // 4
 
 
-def lstm_scan_cuda(xp: torch.Tensor, wh: torch.Tensor
+def lstm_scan_cuda(xp: torch.Tensor, wh: torch.Tensor,
+                   body: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K7 on the card: csrc/lstm_fwd.cu, one ctypes call per layer that
-    launches one step kernel per time step on the current stream. Returns
-    (hs, cs) as `lstm_scan_plain`."""
+    """K7 on the card: csrc/lstm_fwd.cu, one ctypes call per layer, with
+    the two bodies of `gru_scan_cuda` (`body` forces one; by default
+    `rnn_body` names it from the shape). Returns (hs, cs) as
+    `lstm_scan_plain`."""
     t, d, b, hidden = _lstm_shape(xp)
     cuda_lib.check(xp, "xp", _DTYPES)
     cuda_lib.check(wh, "wh", (xp.dtype,), (d, hidden, 4 * hidden))
-    hs = torch.empty((t, d, b, hidden), dtype=xp.dtype, device=xp.device)
+    dev = xp.device
+    chosen = body or rnn_body(hidden, b, d, _sms(dev))
+    hs = torch.empty((t, d, b, hidden), dtype=xp.dtype, device=dev)
     cs = torch.empty_like(hs)
-    carry = torch.empty((d, b, hidden), dtype=torch.float32, device=xp.device)
-    cuda_lib.launch("lstm_fwd", xp.device, xp, wh, hs, cs, carry, t, d, b,
-                    hidden, int(xp.dtype == torch.bfloat16))
+    carry = tickets = groups = chunk = 0
+    if chosen != BODY_STEPWISE:
+        tickets, groups, chunk = _resident_scratch(dev, hidden, b, d)
+    else:
+        carry = torch.empty((d, b, hidden), dtype=torch.float32, device=dev)
+    cuda_lib.launch("lstm_fwd", dev, xp, wh, hs, cs, carry, tickets, groups,
+                    chunk, t, d, b, hidden, int(xp.dtype == torch.bfloat16),
+                    _BODY_CODES[chosen])
+    BODY_LAUNCHES["lstm_fwd", chosen] += 1
     return hs, cs
 
 
@@ -457,7 +517,7 @@ def lstm_scan_bwd_cuda(xp, wh, hprev, cprev, cs, dhs,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K8 on the card: csrc/lstm_bwd.cu, one ctypes call per layer, with
     the two bodies of `gru_scan_bwd_cuda` (`body` forces one; by default
-    `rnn_bwd_body` names it from the shape). Same contract as
+    `rnn_body` names it from the shape). Same contract as
     `lstm_scan_bwd_plain`. Scratch is allocated per call and freed after:
     at T=313, B=16, H=300 in f32 the resident body's peak is 72 MB of
     coefficients and 46 MB of dU partials."""
@@ -468,22 +528,21 @@ def lstm_scan_bwd_cuda(xp, wh, hprev, cprev, cs, dhs,
                       ("dhs", dhs)):
         cuda_lib.check(arg, name, (xp.dtype,), (t, d, b, hidden))
     dev = xp.device
-    chosen = body or _body_on(dev, hidden, b, d)
+    chosen = body or rnn_body(hidden, b, d, _sms(dev), backward=True)
     f32 = dict(dtype=torch.float32, device=dev)
     dxp = torch.empty_like(xp)
     du = torch.empty((d, hidden, 4 * hidden), **f32)
     du_part = _du_partials(d, hidden, 4 * hidden, dev)
-    wht = dc = work = tickets = groups = 0
+    wht = dc = work = tickets = groups = chunk = 0
     if chosen != BODY_STEPWISE:
         work = torch.empty((t, d, b, hidden, 6), **f32)   # the coefficients
-        groups = resident_groups(b, d)
-        tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
+        tickets, groups, chunk = _resident_scratch(dev, hidden, b, d)
     else:
         wht = torch.empty((d, 4 * hidden, hidden), dtype=xp.dtype, device=dev)
         dc = torch.empty((d, b, hidden), **f32)
     cuda_lib.launch("lstm_bwd", dev, xp, wh, hprev, cprev, cs, dhs, dxp, du,
                     wht, dc, work, du_part, tickets, du_part.shape[0], groups,
-                    t, d, b, hidden, int(xp.dtype == torch.bfloat16),
+                    chunk, t, d, b, hidden, int(xp.dtype == torch.bfloat16),
                     _BODY_CODES[chosen])
     BODY_LAUNCHES["lstm_bwd", chosen] += 1
     return dxp, du.to(wh.dtype)

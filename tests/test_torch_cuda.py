@@ -217,38 +217,110 @@ def _rel(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def _check_bwd_bodies(k, name, cuda, plain, args, h, b, tol, body, outs):
-    """One body of K5 or K8 against the plain version. The resident body
-    must refuse a shape that the rule sends to the stepwise one; the
-    stepwise body takes every shape that fits its shared memory. The
-    resident body is also held to the stepwise one, and two back-to-back
-    calls on one stream must agree bit for bit: that guards the barrier's
-    ticket, which each call gets zeroed."""
+def _check_bodies(k, name, cuda, plain, args, h, tol, body, outs,
+                  rtol=None):
+    """One body of K2, K5, K7 or K8 against the plain version. The resident
+    body must refuse a width its registers cannot hold (H > 304), and
+    nothing may fall back: no launch is counted; a batch past one launch's
+    grid it walks in chunks. The stepwise body takes every shape that fits
+    its shared memory. The resident body is also held to the stepwise one,
+    and two back-to-back calls on one stream must agree bit for bit: that
+    guards the barrier's tickets, which each call gets zeroed. `rtol`
+    defaults to `tol`."""
     from dl4ss_tpu_torch.ops import cuda_lib
+    rtol = tol if rtol is None else rtol
     sms = torch.cuda.get_device_properties(args[0].device)
-    rule = k.rnn_bwd_body(h, b, sms=sms.multi_processor_count)
-    if body == "resident" and rule != "resident":
+    rule = k.rnn_body(h, args[0].shape[2], sms=sms.multi_processor_count,
+                      backward=name.endswith("_bwd"))
+    if body == "resident" and h > k.RESIDENT_MAX_HIDDEN:
+        assert rule == "stepwise"
+        before = dict(k.BODY_LAUNCHES), dict(cuda_lib.LAUNCHES)
         with pytest.raises(RuntimeError, match=f"{name} failed"):
             cuda(*args, body=body)
         torch.cuda.synchronize()
+        assert (dict(k.BODY_LAUNCHES), dict(cuda_lib.LAUNCHES)) == before
         body = None             # the default call then runs the rule's body
     before = k.BODY_LAUNCHES[name, body or rule], cuda_lib.LAUNCHES[name]
     got = cuda(*args, body=body)
     assert (k.BODY_LAUNCHES[name, body or rule],
             cuda_lib.LAUNCHES[name]) == (before[0] + 1, before[1] + 1)
-    for what, g, r in zip(outs, got, plain(*args)):
+
+    def outputs(fn, **kw):      # K2 returns hs alone, the others a tuple
+        res = fn(*args, **kw)
+        return (res,) if isinstance(res, torch.Tensor) else res
+    got = (got,) if isinstance(got, torch.Tensor) else got
+    for what, g, r in zip(outs, got, outputs(plain)):
         assert g.shape == r.shape and g.dtype == r.dtype, what
-        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol,
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=rtol,
                                    msg=what)
     if body == "resident":
-        for what, g, g2, r in zip(outs, got, cuda(*args, body=body),
-                                  cuda(*args, body="stepwise")):
+        for what, g, g2, r in zip(outs, got, outputs(cuda, body=body),
+                                  outputs(cuda, body="stepwise")):
             assert torch.equal(g, g2), what
             torch.testing.assert_close(g.float(), r.float(), atol=tol,
-                                       rtol=tol, msg=what)
+                                       rtol=rtol, msg=what)
 
 
-# (4, 24, 300): 2 * 6 groups of 13 blocks are more than the card's SMs
+# (t, b, h): B=21 and 32 at H=300 walk the resident body in two launches of
+# at most 20 rows on 132 SMs; H=37 fits B=32 in one; B=1 and 21 leave
+# ragged row tiles
+FWD_SHAPES = [(7, 1, 37), (6, 16, 37), (5, 21, 37), (4, 32, 37),
+              (5, 1, 300), (5, 16, 300), (4, 21, 300), (3, 32, 300)]
+
+
+@pytest.mark.parametrize("t,b,h", FWD_SHAPES + [(3, 5, 600)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("body", ["resident", "stepwise"])
+def test_k2_gru_fwd_bodies(dev, t, b, h, dtype, tol, body):
+    """K2, both bodies, against its plain version. f32: summation order
+    only (1e-4). bf16: h is carried in bf16, so an order difference can
+    flip one rounding and carry it on through the steps (2e-2, the repo's
+    bar for bf16 forward kernels). H=600 is past the resident body."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    rng = np.random.default_rng(16)
+    s = 1 / np.sqrt(h)
+    args = (_t(0.5 * rng.standard_normal((t, 2, b, 3 * h)), dev, dtype),
+            _t(rng.uniform(-s, s, (2, h, 3 * h)), dev, dtype),
+            _t(rng.uniform(-s, s, (2, 1, h)), dev))
+    _check_bodies(k, "gru_fwd", k.gru_scan_cuda, k.gru_scan_plain, args, h,
+                  tol, body, ("hs",), rtol=0)
+
+
+@pytest.mark.parametrize("t,b,h", FWD_SHAPES + [(3, 5, 600)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("body", ["resident", "stepwise"])
+def test_k7_lstm_fwd_bodies(dev, t, b, h, dtype, tol, body):
+    """K7, both bodies, hs and cs against its plain version; tolerances as
+    for K2. H=600 (the TDAA classifier width) is past the resident body."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    rng = np.random.default_rng(17)
+    s = 1 / np.sqrt(h)
+    args = (_t(0.5 * rng.standard_normal((t, 2, b, 4 * h)), dev, dtype),
+            _t(rng.uniform(-s, s, (2, h, 4 * h)), dev, dtype))
+    _check_bodies(k, "lstm_fwd", k.lstm_scan_cuda, k.lstm_scan_plain, args,
+                  h, tol, body, ("hs", "cs"), rtol=0)
+
+
+def test_k2_k7_refuse_a_drifted_ticket_count(dev, monkeypatch):
+    """The forward wrappers size the tickets from their own copy of the
+    rows per barrier group: a copy that has drifted is refused."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    xp = torch.zeros((2, 2, 5, 24), device=dev)
+    wh = torch.zeros((2, 8, 24), device=dev)
+    k.gru_scan_cuda(xp, wh, torch.zeros((2, 1, 8), device=dev))
+    monkeypatch.setattr(k, "RESIDENT_ROWS", 8)
+    with pytest.raises(RuntimeError, match="gru_fwd failed"):
+        k.gru_scan_cuda(xp, wh, torch.zeros((2, 1, 8), device=dev))
+    with pytest.raises(RuntimeError, match="lstm_fwd failed"):
+        k.lstm_scan_cuda(torch.zeros((2, 2, 5, 32), device=dev),
+                         torch.zeros((2, 8, 32), device=dev))
+    torch.cuda.synchronize()
+
+
+# (4, 24, 300): 2 * 6 groups of 13 blocks are more than the card's SMs, so
+# the resident body runs in two launches
 @pytest.mark.parametrize("t,b,h", [(7, 1, 37), (5, 17, 300), (3, 2, 8),
                                    (12, 3, 45), (4, 24, 300)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -270,9 +342,9 @@ def test_k5_gru_bwd(dev, t, b, h, dtype, tol, body):
     hs = k.gru_scan_cuda(xp, wh, bhn)
     hprev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
     dhs = _t(rng.standard_normal((t, 2, b, h)), dev, dtype)
-    _check_bwd_bodies(k, "gru_bwd", k.gru_scan_bwd_cuda, k.gru_scan_bwd_plain,
-                      (xp, wh, bhn, hprev, dhs), h, b, tol, body,
-                      ("dxp", "dU", "db_n"))
+    _check_bodies(k, "gru_bwd", k.gru_scan_bwd_cuda, k.gru_scan_bwd_plain,
+                  (xp, wh, bhn, hprev, dhs), h, tol, body,
+                  ("dxp", "dU", "db_n"))
 
 
 def test_k5_k8_refuse_an_unknown_body(dev):
@@ -417,9 +489,8 @@ def test_k8_lstm_bwd(dev, t, b, h, dtype, tol, body):
     zeros = torch.zeros_like(hs[:1])
     args = (xp, wh, torch.cat([zeros, hs[:-1]]), torch.cat([zeros, cs[:-1]]),
             cs, _t(rng.standard_normal((t, 2, b, h)), dev, dtype))
-    _check_bwd_bodies(k, "lstm_bwd", k.lstm_scan_bwd_cuda,
-                      k.lstm_scan_bwd_plain, args, h, b, tol, body,
-                      ("dxp", "dU"))
+    _check_bodies(k, "lstm_bwd", k.lstm_scan_bwd_cuda,
+                  k.lstm_scan_bwd_plain, args, h, tol, body, ("dxp", "dU"))
 
 
 @pytest.mark.parametrize("b,n,length,hop,body", [

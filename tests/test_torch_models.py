@@ -170,6 +170,31 @@ def test_unported_paths_raise():
                            cfg.replace(log_spectral=True))
 
 
+@pytest.mark.parametrize("build", ["encoder", "classifier", "separator"])
+def test_remat_is_refused_not_ignored(build):
+    """The reference recomputes each recurrent layer in the backward under
+    cfg.remat (jax.checkpoint); the port has no such recompute yet, so its
+    builders and the functions that run the recurrences refuse the option
+    with a one-line error naming ROADMAP P9, and take remat=False."""
+    from dl4ss_tpu_torch.models import (apply_classifier, init_classifier,
+                                        init_encoder)
+    from dl4ss_tpu_torch.models.encoder import encoder_hidden
+    builders = {"encoder": init_encoder, "classifier": init_classifier,
+                "separator": init_separator}
+    cfg = preset("synth_tiny")
+    with pytest.raises(NotImplementedError, match="remat.*ROADMAP P9"):
+        builders[build](cfg.replace(remat=True), device="cpu")
+    model = builders[build](cfg, device="cpu")
+    feat = torch.zeros((1, 4, cfg.freq_bins))
+    run = {"encoder": lambda c: encoder_hidden(model, feat, c),
+           "classifier": lambda c: apply_classifier(model, feat, c),
+           "separator": lambda c: separate(model, feat, c,
+                                           spk_idx=torch.tensor([[0, 1]]))}
+    run[build](cfg)
+    with pytest.raises(NotImplementedError, match="remat.*ROADMAP P9"):
+        run[build](cfg.replace(remat=True))
+
+
 def _feat(seed, shape=(3, 12, 129)):
     return np.abs(np.random.default_rng(seed).standard_normal(shape)).astype(
         np.float32)

@@ -1,0 +1,117 @@
+"""The recurrent forward kernels K2 and K7 and their shape rule, on the CPU.
+
+Both bodies of each forward kernel (csrc/rnn_fwd_common.cuh's resident
+chain, and the step kernel per time step) run only on the card; they compute
+the plain loop's arithmetic in another summation order. Here the routes a
+user calls (`gru_scan`, `lstm_scan`, which take the plain versions on CPU
+tensors) are held to the JAX kernels (`pallas_gru_scan`, `pallas_lstm_scan`
+in interpret mode) at batches that cross a chunk of the resident body and a
+ragged row tile, and the rule `rnn_body` and its chunk plan to the shapes
+the main paths and the card tests use.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dl4ss_tpu.ops.pallas_rnn import (_lstm_fwd, pallas_gru_scan,
+                                      pallas_lstm_scan)
+from dl4ss_tpu_torch.ops import rnn_kernels as k
+
+# (T, B, H): B=1 a lone row in a 4-row tile; B=5 a ragged second tile;
+# B=21 past one launch of the resident body at H=300 on 132 SMs
+SHAPES = [(12, 1, 48), (9, 5, 37), (6, 21, 16)]
+
+
+def _inputs(gates, t, b, h, seed, dtype):
+    rng = np.random.default_rng(seed)
+    s = 1 / np.sqrt(h)
+    xp = (0.5 * rng.standard_normal((t, 2, b, gates * h))).astype(np.float32)
+    wh = rng.uniform(-s, s, (2, h, gates * h)).astype(np.float32)
+    bhn = rng.uniform(-s, s, (2, 1, h)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jax_in = (jnp.asarray(xp, jdt), jnp.asarray(wh, jdt), jnp.asarray(bhn))
+    torch_in = (torch.as_tensor(xp).to(dtype), torch.as_tensor(wh).to(dtype),
+                torch.as_tensor(bhn))
+    return jax_in, torch_in
+
+
+def _close(got, ref, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("t,b,h", SHAPES)
+def test_gru_scan_matches_pallas_gru_scan(dtype, tol, t, b, h):
+    """K2's route against `_gru_fwd_kernel` in interpret mode. f32:
+    summation order only, 1e-4. bf16: both carry h in bf16; one flipped
+    rounding carries on through the steps, 2e-2."""
+    (jxp, jwh, jb), (xp, wh, bhn) = _inputs(3, t, b, h, 30, dtype)
+    ref = pallas_gru_scan(jxp, jwh, jb)
+    hs = k.gru_scan(xp, wh, bhn)
+    assert hs.dtype == dtype and tuple(hs.shape) == ref.shape == (t, 2, b, h)
+    _close(hs, ref, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("t,b,h", SHAPES)
+def test_lstm_scan_matches_pallas_lstm_scan(dtype, tol, t, b, h):
+    """K7's route against `_lstm_fwd_kernel` in interpret mode: hs through
+    `pallas_lstm_scan`, cs through `_lstm_fwd`. Both keep c in f32 and
+    round only the stored cs; tolerances as for the GRU."""
+    (jxp, jwh, _), (xp, wh, _) = _inputs(4, t, b, h, 31, dtype)
+    ref_hs = pallas_lstm_scan(jxp, jwh)
+    _, ref_cs = _lstm_fwd(jxp, jwh)
+    hs = k.lstm_scan(xp, wh)
+    _, cs = k.lstm_scan_plain(xp, wh)
+    assert hs.dtype == cs.dtype == dtype
+    assert tuple(hs.shape) == ref_hs.shape == (t, 2, b, h)
+    _close(hs, ref_hs, tol)
+    _close(cs, ref_cs, tol)
+
+
+# the shapes of the main paths (torch_multi: H=300 at B=16 a step or a
+# batch, B=1 a request), the edge of one launch (B=20), the card tests'
+# batches past it, and widths past the registers (H=600, the TDAA
+# classifier)
+@pytest.mark.parametrize("hidden,batch", [
+    (300, 1), (300, 16), (300, 20), (300, 21), (300, 32), (300, 40),
+    (300, 41), (300, 128),
+    (37, 32), (8, 512), (304, 16), (305, 1), (600, 5), (600, 16)])
+def test_rnn_body_and_its_chunks(hidden, batch):
+    """Resident where H <= 304 and the batch needs at most the forward's
+    RESIDENT_MAX_CHUNKS launches (2: the measurements at B=32 and B=48 on
+    the card) of the grid that fits the 132 SMs, each
+    launch 2 * ceil(rows / 4) * ceil(H / 24) blocks; the chunks cover every
+    row once, in order."""
+    rows = k.resident_chunk_rows(hidden)
+    chunks = k.resident_chunks(batch, hidden)
+    assert [r for r0, n in chunks for r in range(r0, r0 + n)] == list(
+        range(batch))
+    for _, n in chunks:
+        assert n % 4 == 0 or n == chunks[-1][1]
+        assert 2 * -(-n // 4) * -(-hidden // 24) <= k.H100_SMS
+    want = ("resident" if hidden <= 304
+            and len(chunks) <= k.RESIDENT_MAX_CHUNKS["forward"]
+            else "stepwise")
+    assert k.rnn_body(hidden, batch) == want
+    if hidden == 300:
+        assert rows == 20
+        assert want == ("resident" if batch <= 40 else "stepwise")
+    if hidden > 304:
+        assert want == "stepwise"
+
+
+def test_rnn_body_takes_the_sm_count_from_its_argument():
+    """At H=300 a 4-row tile of both directions is 26 blocks: 52 SMs hold
+    two tiles (8 rows a launch), 25 SMs not one."""
+    assert k.resident_chunk_rows(300, sms=52) == 8
+    assert k.resident_chunks(10, 300, sms=52) == [(0, 8), (8, 2)]
+    assert k.rnn_body(300, 8, sms=52) == "resident"
+    assert k.resident_chunk_rows(300, sms=25) == 0
+    assert k.rnn_body(300, 1, sms=25) == "stepwise"
+    assert k.rnn_body(300, 16, sms=10_000) == "resident"

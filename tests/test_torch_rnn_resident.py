@@ -8,7 +8,7 @@ db_n summed over t first), is mirrored step for step in plain torch by
 `gru_bwd_resident_mirror` / `lstm_bwd_resident_mirror`. Here the mirrors are
 held to the plain versions and to the gradients of the JAX kernels
 (`pallas_gru_scan`, `pallas_lstm_scan`, whose backward passes are the Pallas
-kernels in interpret mode), and the shape rule `rnn_bwd_body` to the shapes
+kernels in interpret mode), and the shape rule `rnn_body` to the shapes
 the main path and the card tests use.
 """
 
@@ -148,22 +148,25 @@ def test_du_partials_cover_a_ragged_last_slice():
 
 
 # the main path (torch_multi: H=300, B=16 a step, f32 or bf16), the card
-# tests' ragged shapes, and shapes past what the resident body holds
+# tests' ragged shapes, batches in chunks of 20 rows up to the 7 launches
+# measured, and shapes past what the resident body holds
 @pytest.mark.parametrize("hidden,batch,body", [
     (300, 16, "resident"), (300, 1, "resident"), (300, 17, "resident"),
     (300, 20, "resident"), (8, 2, "resident"), (37, 1, "resident"),
     (45, 3, "resident"), (33, 1, "resident"), (304, 16, "resident"),
     (305, 1, "stepwise"), (600, 5, "stepwise"), (600, 16, "stepwise"),
-    (300, 21, "stepwise"), (300, 128, "stepwise"), (8, 512, "stepwise")])
+    (300, 21, "resident"), (300, 128, "resident"), (300, 140, "resident"),
+    (300, 141, "stepwise"), (8, 512, "resident")])
 def test_rnn_bwd_body_rule(hidden, batch, body):
-    """The resident body takes H <= 304 (a block's 24 units of U^T in
-    registers) while 2 * ceil(B / 4) * ceil(H / 24) blocks fit the 132 SMs
-    at once; every other shape gets the stepwise body."""
-    assert k.rnn_bwd_body(hidden, batch) == body
+    """The backward's resident body takes H <= 304 (a block's 24 units of
+    U^T in registers) while the batch needs at most 7 launches of the
+    2 * ceil(rows / 4) * ceil(H / 24) blocks that fit the 132 SMs at once;
+    every other shape gets the stepwise body."""
+    assert k.rnn_body(hidden, batch, backward=True) == body
     assert {k.BODY_RESIDENT, k.BODY_STEPWISE} == {"resident", "stepwise"}
 
 
 def test_rnn_bwd_body_counts_directions():
-    assert k.rnn_bwd_body(300, 40, directions=1) == "resident"
-    assert k.rnn_bwd_body(300, 41, directions=1) == "stepwise"
+    assert k.rnn_body(300, 280, directions=1, backward=True) == "resident"
+    assert k.rnn_body(300, 281, directions=1, backward=True) == "stepwise"
     assert k.resident_groups(16) == 8 and k.resident_groups(17, 1) == 5
