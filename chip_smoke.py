@@ -18,7 +18,11 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      600), each against the plain
      version and the resident against the stepwise and against a second
      call of itself; the build log's registers and spills of the resident
-     chain kernels are printed;
+     chain kernels and of the wgmma mask-head kernels K3 and K6 are
+     printed; K3 also at B=1 and with bf16 masks, its W pack against the
+     plain mirror (bit-equal), K3 and K6 each against a second call of
+     itself (bit-equal), K6's db (from its partials) and the bf16-operand
+     dW and dh products (f32 output) against the f32 products;
   3. round trips: STFT features then masked iSTFT with all-ones masks, and
      the packed STFT then iSTFT through the public `ops` exports,
      reconstruct the waveform;
@@ -30,7 +34,8 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      counters zeroed just before and read just after; outputs finite and
      close to the same model's plain path (kernel flags off), the selected
      speakers equal to the plain path's, and every K2 and K7 launch run by
-     the body the shape rule names (the resident one);
+     the body the shape rule names (the resident one), one K3 launch per
+     call;
   5. CLI: run.separate on two synthetic wavs writes four wavs with
      --speakers, and 2 x recursive_max_steps wavs with --mode recursive,
      every K2 and K7 launch of the latter by the resident body;
@@ -44,8 +49,8 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      of 2 utterances per speaker, each with the launch counters zeroed
      just before and read just after; every step's loss finite, the eval
      SI-SDR finite, the metric report printed, the launches of one step
-     printed, and every K2, K5, K7 and K8 launch of the two trainers run by
-     the resident body;
+     printed, every K2, K5, K7 and K8 launch of the two trainers run by
+     the resident body, and one K3, one K6 and one W pack a joint step;
   8. timing: CUDA-event medians of each kernel, its plain version and a
      one-call library yardstick, the end-to-end batch, request and train
      step times with given and with classifier-selected speakers, and a
@@ -57,7 +62,11 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      K8 also the stepwise body re-measured at B=16, 32 and 128, the
      resident body's three phases (coefficients, chain, dU and db_n) by
      kernel name, bf16, and K8 at width 600; every profile counts the
-     kernel launches of the call.
+     kernel launches of the call; K3 at B=1 beside its bound; the dW + dh
+     products both ways (bf16 operands with f32 output, and the f32
+     products) as a yardstick row; and the profiler's K3 / K6 kernel names
+     for one batch and one joint step, which must be the wgmma kernels, as
+     many as the wrappers counted.
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
 those lines; so does a machine without CUDA.
@@ -99,6 +108,13 @@ TOL = {"stft_features": 1e-4, "gru_fwd": 1e-4, "gru_fwd_bf16": 2e-2,
        # K6: the recomputed g differs by summation order, which can flip
        # one bf16 rounding of de or dacc (2^-8 relative).
        "gru_bwd": 1e-4, "gru_bwd_bf16": 5e-2, "maskhead_bwd": 1e-2,
+       # K6's db, summed from its per-unit partials, against the f32 sum of
+       # its own dacc: summation order only
+       "maskhead_db": 1e-5,
+       # dW and dh as bf16-operand products with f32 output against the f32
+       # products of the upcast operands: a product of two bf16 values is
+       # exact in f32, so summation order only
+       "dacc_products": 1e-3,
        # train step, kernel route on the card against the plain halves on
        # the CPU: the CPU test's bars (tests/test_torch_train.py), set by
        # the bf16 mask head
@@ -184,7 +200,7 @@ def host_ms(torch, fn, iters: int) -> float:
     return statistics.median(times)
 
 
-def profile_ms(torch, fn, top: int = 8, expect=()):
+def profile_ms(torch, fn, top: int = 8, expect=(), by_name_out=None):
     """Device time of one call of `fn` by kernel name, from torch.profiler
     (CUPTI): (busy ms, [(name, launches, ms), ...] largest first, kernel
     launches of the call). The
@@ -192,7 +208,8 @@ def profile_ms(torch, fn, top: int = 8, expect=()):
     runs once unmeasured inside the trace, then again under a marker, and
     only the kernels that start after the marker count. If the trace still
     lacks a kernel for a name in `expect`, the call is profiled again
-    (three times at most)."""
+    (three times at most). `by_name_out`, if given, receives every kernel
+    of the measured call as {name: (launches, ms)}."""
     from torch.profiler import (ProfilerActivity, profile,
                                 record_function)
     marker = "chip_smoke: measured call"
@@ -221,6 +238,8 @@ def profile_ms(torch, fn, top: int = 8, expect=()):
         if by_name and all(any(key in name for name in by_name)
                            for key in expect):
             break
+    if by_name_out is not None:
+        by_name_out.update(by_name)
     rows = sorted(((k, n, ms) for k, (n, ms) in by_name.items()),
                   key=lambda r: -r[2])
     return sum(r[2] for r in rows), rows[:top], sum(r[1] for r in rows)
@@ -287,6 +306,26 @@ def main() -> int:
             spill = info.split("spill stores")[0].split(",")[-1].strip()
             print(f"ptxas {cell} {kind} chain {dtype}: {regs} registers, "
                   f"{spill} spill stores", flush=True)
+    mask_kernels = ("maskhead_fwd_kernel", "maskhead_bwd_kernel",
+                    "maskhead_pack_kernel", "maskhead_sums_kernel")
+    for i, line in enumerate(log):     # K3 and K6 (wgmma), their helpers
+        if "Compiling entry" in line and any(k in line for k in mask_kernels):
+            name = line.split("'")[1]
+            kern = next(k for k in mask_kernels if k in name)
+            # the template argument: K3's output / the pack's input type,
+            # K6's query count
+            after = name.split(kern)[1]
+            arg = ("f32" if after.startswith("IfE") else
+                   "bf16" if after.startswith("I13__nv_bfloat16E") else
+                   f"K={after[3]}" if after.startswith("ILi") else "")
+            info = " ".join(x.strip() for x in log[i + 1:i + 4])
+            regs = info.split("Used ")[1].split(" registers")[0]
+            spill = info.split("spill stores")[0].split(",")[-1].strip()
+            print(f"ptxas {kern} {arg}: {regs} registers, {spill} spill "
+                  f"stores", flush=True)
+    for line in log:
+        if "wgmma" in line or "Performance Loss" in line:
+            print(f"ptxas note: {line.strip()}", flush=True)
 
     cfg = preset("torch_multi")
     L, hop, F = cfg.frame_length, cfg.frame_shift, cfg.freq_bins
@@ -386,9 +425,23 @@ def main() -> int:
     bias = tensor(rng.uniform(-s2, s2, (F * E,)))
     qb = tensor(rng.standard_normal((BATCH, K, E)), torch.bfloat16)
     k3_args = (hb, wb, bias, qb, F, E, torch.float32)
-    errs["maskhead_fwd"] = check("K3 maskhead_fwd", max_err(
-        k3.fused_dot_masks_cuda(*k3_args), k3.fused_dot_masks_plain(*k3_args)),
-        TOL["maskhead_fwd"])
+    if not torch.equal(k3.pack_w(wb, F, E), k3.pack_w_mirror(wb, F, E)):
+        fail("K3's packed W differs from pack_w_mirror")
+    k3_out = k3.fused_dot_masks_cuda(*k3_args)
+    errs["maskhead_fwd"] = check(f"K3 maskhead_fwd B={BATCH} f32 masks",
+                                 max_err(k3_out,
+                                         k3.fused_dot_masks_plain(*k3_args)),
+                                 TOL["maskhead_fwd"])
+    if not torch.equal(k3_out, k3.fused_dot_masks_cuda(*k3_args)):
+        fail("K3: two calls on the same inputs differ")
+    k3_b1 = (hb[:1], wb, bias, qb[:1], F, E)
+    for label, args in ((f"B={BATCH} bf16 masks",
+                         (*k3_args[:6], torch.bfloat16)),
+                        ("B=1 f32 masks", (*k3_b1, torch.float32)),
+                        ("B=1 bf16 masks", (*k3_b1, torch.bfloat16))):
+        check(f"K3 maskhead_fwd {label}", max_err(
+            k3.fused_dot_masks_cuda(*args), k3.fused_dot_masks_plain(*args)),
+            TOL["maskhead_fwd"])
 
     masks = tensor(rng.uniform(0, 1, (BATCH, K, T, F)))
     k4_args = (re, im, masks, L, hop, cfg.window)
@@ -420,19 +473,31 @@ def main() -> int:
             errs["gru_bwd"] = err
 
     # K6 at the training shapes (B=16, T=313, F=129, E=50, K=2), on K3's
-    # own bf16 masks; dW, dh and db follow from dacc by plain products
+    # own bf16 masks; db comes from K6's partials, dW and dh from dacc by
+    # bf16-operand products with f32 output (cuBLAS), against the plain
+    # route (K6's plain version, the f32 products)
     masks6 = k3.fused_dot_masks_cuda(hb, wb, bias, qb, F, E, torch.bfloat16)
     dout6 = tensor(rng.standard_normal((BATCH, K, T, F)), torch.bfloat16)
     k6_args = (hb, wb, bias, qb, masks6, dout6, F, E)
-    dacc, dq = k3.fused_dot_masks_bwd_cuda(*k6_args)
-    dacc_p, dq_p = k3.fused_dot_masks_bwd_plain(*k6_args)
+    k6_out = k3.fused_dot_masks_bwd_cuda(*k6_args)
+    dacc, dq, db = k6_out
+    dacc_p, dq_p, db_p = k3.fused_dot_masks_bwd_plain(*k6_args)
+    if not all(torch.equal(a, b) for a, b in zip(
+            k6_out, k3.fused_dot_masks_bwd_cuda(*k6_args))):
+        fail("K6: two calls on the same inputs differ")
+    dprod = k3.dacc_products(hb, wb, dacc)
     errs["maskhead_bwd"] = max(
-        [check_rel("K6 maskhead_bwd dacc", dacc, dacc_p, TOL["maskhead_bwd"]),
-         check_rel("K6 maskhead_bwd dq", dq, dq_p, TOL["maskhead_bwd"])]
-        + [check_rel(f"K6 maskhead_bwd {name}", g, r, TOL["maskhead_bwd"])
-           for name, g, r in zip(("dh", "dW", "db"),
-                                 k3.dacc_products(hb, wb, dacc),
-                                 k3.dacc_products(hb, wb, dacc_p))])
+        check_rel(f"K6 maskhead_bwd {name}", g, r, TOL["maskhead_bwd"])
+        for name, g, r in zip(
+            ("dacc", "dq", "db", "dh", "dW"), (*k6_out, *dprod),
+            (dacc_p, dq_p, db_p, *k3.dacc_products_plain(hb, wb, dacc_p))))
+    check_rel("K6 db from its partials against the f32 sum of its dacc", db,
+              dacc.float().sum((0, 1)), TOL["maskhead_db"])
+    errs["dacc_products"] = max(
+        check_rel(f"{name}: bf16 operands, f32 output, against the f32 "
+                  f"products", g, r, TOL["dacc_products"])
+        for name, g, r in zip(("dh", "dW"), dprod,
+                              k3.dacc_products_plain(hb, wb, dacc)))
 
     # K7 and K8 at the classifier's shapes (T=313, D=2, H=300): B=16 in
     # f32 and bf16, a B=1 request, B=32 (two resident launches) and, for
@@ -567,6 +632,9 @@ def main() -> int:
     if missing:
         fail(f"kernels never launched on the serving path: {missing}")
     check_resident("given-speaker serving", "gru_fwd", launches["gru_fwd"])
+    if launches["maskhead_fwd"] != 1 + REQUESTS:
+        fail(f"given-speaker serving launched K3 {launches['maskhead_fwd']} "
+             f"times, expected one per call ({1 + REQUESTS})")
     ref16 = separate_waveforms(model, wav, plain_cfg, spk, length=N_SAMPLES)
     refs1 = [separate_waveforms(model, w, plain_cfg, s, length=N_SAMPLES)
              for w, s in reqs]
@@ -850,6 +918,14 @@ def main() -> int:
     fused(state, bank)
     torch.cuda.synchronize()
     print(f"launches per train step: {dict(cuda_lib.LAUNCHES)}", flush=True)
+    # the step's K3 and K6 share the one pack of the W the last step made
+    got = {n: cuda_lib.LAUNCHES[n]
+           for n in ("maskhead_pack", "maskhead_fwd", "maskhead_bwd")}
+    if got != {"maskhead_pack": 1, "maskhead_fwd": 1, "maskhead_bwd": 1}:
+        fail(f"a joint step launched {got}: expected one W pack, one K3 "
+             f"and one K6")
+    if train_launches["maskhead_bwd"] != TRAIN_STEPS:
+        fail(f"trainer launched K6 {train_launches['maskhead_bwd']} times")
 
     # the classifier trainer: run.classify at full width, then its report
     import contextlib
@@ -1033,6 +1109,20 @@ def main() -> int:
                 print(f"time {name} {label} ms: " + ", ".join(parts)
                       + f", torch.stft(center=False) {lib:.4f}", flush=True)
 
+    def mask_names(label, names, want):
+        """The K3 / K6 kernels by the profiler's names in one profiled
+        call: only the wgmma kernels (and the W pack and K6's partial sums
+        beside them), each as often as `want` says."""
+        got = {}
+        for name, (n, ms) in names.items():
+            if "maskhead" in name:
+                print(f"profile {label}: {n}x {ms:.4f} ms {name[:100]}",
+                      flush=True)
+                key = next((k for k in want if k in name), name)
+                got[key] = got.get(key, 0) + n
+        if got != want:
+            fail(f"profile {label}: mask-head kernels {got}, expected {want}")
+
     with torch.inference_mode():
         for name, r in rows.items():
             slow = name == "gru_fwd"
@@ -1067,15 +1157,24 @@ def main() -> int:
         print("time at B=1: " + ", ".join(
             f"{n} {device_ms(torch, f, 5):.4f} ms" for n, f in one.items()),
             flush=True)
+        k3_b1_ms = device_ms(torch, one["maskhead_fwd"], 20)
+        k3_b1_bound, k3_b1_by = bound(
+            2 * (T * d2 + wb.numel() + K * E) + 4 * (bias.numel() + K * T * F),
+            2 * T * d2 * F * E / BF16_TC_FLOPS
+            + (2 * T * F * E + 2 * K * T * F * E + 4 * K * T * F) / F32_FLOPS)
+        print(f"time maskhead_fwd B=1: kernel {k3_b1_ms:.4f} ms, bound "
+              f"{k3_b1_bound:.4f} ms ({k3_b1_by})", flush=True)
         for label, fn, wall in (
                 (f"B={BATCH} batch", lambda: separate_waveforms(
                     model, wav, cfg, spk, length=N_SAMPLES), batch_ms),
                 ("B=1 request", lambda: separate_waveforms(
                     model, w1, cfg, s1, length=N_SAMPLES), req_ms)):
-            busy, rows, n_launch = profile_ms(torch, fn)
+            names = {}
+            busy, rows, n_launch = profile_ms(torch, fn, by_name_out=names)
             print(f"profile {label}: device busy {busy:.3f} ms of "
                   f"{wall:.3f} ms wall (idle {1 - busy / wall:.1%}), "
                   f"{n_launch} kernel launches", flush=True)
+            mask_names(label, names, {"maskhead_fwd_kernel": 1})
             for name, n, ms in rows:
                 print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
 
@@ -1106,19 +1205,43 @@ def main() -> int:
             kernel=lambda: k3.fused_dot_masks_bwd_cuda(*k6_args),
             plain=lambda: k3.fused_dot_masks_bwd_plain(*k6_args),
             library=None,
-            # h, W, q, masks, dout (bf16) and the bias in; dacc (bf16) and
-            # dq out. The recomputed projection on the tensor cores; per
-            # (b, t, f, e) the tanh and bias, dg (2K), dacc (3) and the dq
-            # column sums (2K); per (b, k, t, f) de (3)
+            # h, W, q, masks, dout (bf16) and the bias in; dacc (bf16), dq
+            # and db out. The recomputed projection on the tensor cores; per
+            # (b, t, f, e) the tanh and bias, dg (2K), dacc (3), the dq
+            # column sums (2K) and db's (1); per (b, k, t, f) de (3)
             bytes=2 * (hb.numel() + wb.numel() + qb.numel() + masks6.numel()
                        + dout6.numel() + dacc.numel())
-            + 4 * (bias.numel() + dq.numel()),
+            + 4 * (bias.numel() + dq.numel() + db.numel()),
             t_ops=2 * B * T * d2 * F * E / BF16_TC_FLOPS
-            + ((4 * K + 5) * B * T * F * E + 3 * B * K * T * F) / F32_FLOPS),
+            + ((4 * K + 6) * B * T * F * E + 3 * B * K * T * F) / F32_FLOPS),
     }
     for name, r in train_rows.items():
         slow = name == "gru_bwd"
         time_row(name, r, 5 if slow else 20, 2 if slow else 5)
+    # K6's dW and dh (a yardstick row, not a kernel: cuBLAS products that
+    # JAX also leaves to XLA) both ways: bf16 operands with f32 output, as
+    # the port runs them, and the f32 products of the upcast operands, as
+    # the parent did. Bound: h, dacc and W in bf16, dW and dh out in f32;
+    # two products of 2*B*T*D*F*E on the bf16 tensor cores
+    dp_ms = device_ms(torch, lambda: k3.dacc_products(hb, wb, dacc), 20)
+    dp_f32_ms = device_ms(torch, lambda: k3.dacc_products_plain(hb, wb, dacc),
+                          5)
+    dp_bound, dp_by = bound(
+        2 * (hb.numel() + dacc.numel() + wb.numel())
+        + 4 * (wb.numel() + hb.numel()),
+        2 * 2 * B * T * d2 * F * E / BF16_TC_FLOPS)
+    kernels.append(dict(
+        name="dacc_products", yardstick=True, route="cuda",
+        source="dl4ss_tpu_torch/ops/maskhead_kernels.py",
+        replaces="dl4ss_tpu/ops/pallas_maskhead.py:280",
+        # one call per K6 launch of the trainer run
+        launches=launches["maskhead_bwd"],
+        max_abs_err=errs["dacc_products"], ms=dp_ms, plain_ms=dp_f32_ms,
+        bound_ms=dp_bound, bound_by=dp_by, library_ms=None))
+    print(f"time dW + dh (yardstick, not a kernel): bf16 operands with f32 "
+          f"output {dp_ms:.4f} ms, f32 products of the upcast operands "
+          f"{dp_f32_ms:.4f} ms, bound {dp_bound:.4f} ms ({dp_by})",
+          flush=True)
 
     def bwd_extras(name, cuda, args_by_label):
         """K5 or K8 beside its row (which times the rule's body): both
@@ -1152,8 +1275,12 @@ def main() -> int:
     bwd_extras("gru_bwd", k2.gru_scan_bwd_cuda, k5_args)
     # the training step, sample -> featurize -> forward -> backward -> Adam
     step_ms = host_ms(torch, lambda: fused(state, bank), 10)
+    names = {}
     busy, prow, n_launch = profile_ms(torch, lambda: fused(state, bank),
-                                      top=12)
+                                      top=12, by_name_out=names)
+    mask_names(f"B={BATCH} train step", names, {
+        "maskhead_pack_kernel": 1, "maskhead_fwd_kernel": 1,
+        "maskhead_bwd_kernel": 1, "maskhead_sums_kernel": 1})
     print(f"profile B={BATCH} train step: device busy {busy:.3f} ms of "
           f"{step_ms:.3f} ms wall (idle {1 - busy / step_ms:.1%}), "
           f"{n_launch} kernel launches", flush=True)

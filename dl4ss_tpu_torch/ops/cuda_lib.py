@@ -50,7 +50,7 @@ SIGNATURES = {
     "maskhead_pack": "ppiiii",       # K3's weight layout, once per W version
     "masked_istft": "pppppppiiiiiiii",
     "gru_bwd": "ppppppppppppppiiiiiiiii",
-    "maskhead_bwd": "pppppppppiiiiii",
+    "maskhead_bwd": "ppppppppppiiiiii",
     "lstm_fwd": "ppppppiiiiiiii",
     "lstm_bwd": "pppppppppppppiiiiiiiii",
     "stft_ri": "ppppppiiiiiii",

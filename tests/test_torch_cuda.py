@@ -130,10 +130,27 @@ def test_k2_gru_fwd(dev, t, b, h, dtype, tol):
                                atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("b,t,d,f,e,k", [(1, 70, 24, 13, 5, 3),
-                                         (2, 129, 600, 129, 50, 2),
-                                         (3, 5, 40, 7, 16, 1),
-                                         (2, 33, 37, 10, 20, 2)])
+# K3 / K6 shapes: ragged T (313 leaves a 57-row last unit; 5 and 33 leave
+# one unit), odd B (the last item's second unit lies past the batch), D of
+# 24, 37 (padded to 40 by the wrapper), 40 and 600, E of 5 (13 groups a
+# tile), 16, 20, 50 and 256 (one group a tile), K of 1, 2 and 3; full width
+# at B=1 and B=16
+MASKHEAD_SHAPES = [(1, 70, 24, 13, 5, 3), (2, 129, 600, 129, 50, 2),
+                   (3, 5, 40, 7, 16, 1), (2, 33, 37, 10, 20, 2),
+                   (1, 313, 600, 129, 50, 2), (16, 313, 600, 129, 50, 2),
+                   (3, 313, 64, 3, 256, 2), (3, 100, 600, 129, 50, 3)]
+
+
+def _maskhead_args(dev, b, t, d, f, e, k, w_dtype=torch.bfloat16, seed=2):
+    rng = np.random.default_rng(seed)
+    s = 1 / np.sqrt(d)
+    return (_t(rng.uniform(-1, 1, (b, t, d)), dev, torch.bfloat16),
+            _t(rng.uniform(-s, s, (d, f * e)), dev, w_dtype),
+            _t(rng.uniform(-s, s, f * e), dev),
+            _t(rng.standard_normal((b, k, e)), dev, torch.bfloat16))
+
+
+@pytest.mark.parametrize("b,t,d,f,e,k", MASKHEAD_SHAPES)
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_k3_maskhead_fwd(dev, b, t, d, f, e, k, out_dtype):
     from dl4ss_tpu_torch.ops import maskhead_kernels as m
@@ -377,10 +394,7 @@ def test_k5_refuses_scratch_of_another_size(dev, monkeypatch, constant,
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("b,t,d,f,e,k", [(1, 70, 24, 13, 5, 3),
-                                         (2, 129, 600, 129, 50, 2),
-                                         (3, 5, 40, 7, 16, 1),
-                                         (2, 33, 37, 10, 20, 2)])
+@pytest.mark.parametrize("b,t,d,f,e,k", MASKHEAD_SHAPES)
 @pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
 def test_k6_maskhead_bwd(dev, b, t, d, f, e, k, w_dtype):
     """K6 against its plain version. dacc: the recomputed g differs from
@@ -397,14 +411,106 @@ def test_k6_maskhead_bwd(dev, b, t, d, f, e, k, w_dtype):
     masks = m.fused_dot_masks_cuda(h, w, bias, q, f, e, torch.bfloat16)
     dout = _t(rng.standard_normal((b, k, t, f)), dev, torch.bfloat16)
     args = (h, w, bias, q, masks, dout, f, e)
-    (dacc, dq), (dacc_p, dq_p) = m.fused_dot_masks_bwd_cuda(*args), \
+    (dacc, dq, db), (dacc_p, dq_p, db_p) = m.fused_dot_masks_bwd_cuda(*args), \
         m.fused_dot_masks_bwd_plain(*args)
     assert dacc.shape == dacc_p.shape == (b, t, f * e)
     assert dacc.dtype == dacc_p.dtype == torch.bfloat16
     assert dq.shape == dq_p.shape == (b, k, e) and dq.dtype == torch.float32
+    assert db.shape == (f * e,) and db.dtype == torch.float32
     torch.testing.assert_close(dacc.float(), dacc_p.float(), atol=1e-2,
                                rtol=1e-2)
     assert _rel(dq, dq_p) < 1e-2
+    assert _rel(db, db_p) < 1e-2
+
+
+@pytest.mark.parametrize("d,f,e", [(24, 13, 5), (600, 129, 50), (37, 10, 20),
+                                   (64, 3, 256), (130, 7, 16)])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_k3_pack_matches_its_mirror(dev, d, f, e, w_dtype):
+    """The pack kernel writes W's swizzled tiles exactly as
+    `pack_w_mirror` lays them out (bit-equal: both round the same values
+    to bf16), zero past D and past each tile's columns."""
+    from dl4ss_tpu_torch.ops import maskhead_kernels as m
+    w = _maskhead_args(dev, 1, 1, d, f, e, 1, w_dtype)[1]
+    got = m.pack_w(w, f, e)
+    assert torch.equal(got, m.pack_w_mirror(w, f, e))
+
+
+@pytest.mark.parametrize("b,t,d,f,e,k", MASKHEAD_SHAPES)
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_k3_k6_match_the_tile_mirrors(dev, b, t, d, f, e, k, w_dtype):
+    """K3 and K6 against the plain-torch mirrors of their order of work on
+    the same packed W. Masks: the E-sum of bf16 terms in f32 in another
+    order, and where the recomputed g differs by summation order one
+    flipped bf16 rounding of a g*q term (2^-8 of a term below 4, times the
+    sigmoid's slope 0.25 at most: 7.5e-3 max abs); dacc, dq and db: one
+    flipped bf16 rounding where the recomputed g differs by summation
+    order (1e-2 relative L2, K6's bar)."""
+    from dl4ss_tpu_torch.ops import maskhead_kernels as m
+    h, w, bias, q = _maskhead_args(dev, b, t, d, f, e, k, w_dtype, seed=11)
+    wt = m.pack_w(w, f, e)
+    masks = m.fused_dot_masks_cuda(h, w, bias, q, f, e, torch.float32)
+    torch.testing.assert_close(
+        masks, m.fused_dot_masks_tile_mirror(h, wt, bias, q, f, e,
+                                             torch.float32),
+        atol=7.5e-3, rtol=0)
+    m16 = masks.to(torch.bfloat16)
+    dout = _t(np.random.default_rng(12).standard_normal((b, k, t, f)), dev,
+              torch.bfloat16)
+    got = m.fused_dot_masks_bwd_cuda(h, w, bias, q, m16, dout, f, e)
+    ref = m.fused_dot_masks_bwd_tile_mirror(h, wt, bias, q, m16, dout, f, e)
+    for name, a, r in zip(("dacc", "dq", "db"), got, ref):
+        assert _rel(a, r) < 1e-2, name
+
+
+@pytest.mark.parametrize("b,t,d,f,e,k", [(1, 313, 600, 129, 50, 2),
+                                         (16, 313, 600, 129, 50, 2),
+                                         (2, 33, 37, 10, 20, 2),
+                                         (3, 313, 64, 3, 256, 3)])
+def test_k3_k6_two_calls_are_bit_equal(dev, b, t, d, f, e, k):
+    """No atomics: the partials of dq and db are summed in a fixed order,
+    so two calls give the same bits."""
+    from dl4ss_tpu_torch.ops import maskhead_kernels as m
+    h, w, bias, q = _maskhead_args(dev, b, t, d, f, e, k)
+    masks = [m.fused_dot_masks_cuda(h, w, bias, q, f, e, torch.bfloat16)
+             for _ in range(2)]
+    assert torch.equal(masks[0], masks[1])
+    dout = _t(np.random.default_rng(13).standard_normal((b, k, t, f)), dev,
+              torch.bfloat16)
+    one, two = (m.fused_dot_masks_bwd_cuda(h, w, bias, q, masks[0], dout, f,
+                                           e) for _ in range(2))
+    for a, c in zip(one, two):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("b,t,d,f,e,k", [(16, 313, 600, 129, 50, 2),
+                                         (3, 100, 600, 129, 50, 3),
+                                         (2, 33, 37, 10, 20, 2)])
+def test_k6_db_and_the_bf16_products(dev, b, t, d, f, e, k):
+    """db from K6's partials against the f32 sum of its own dacc (f32
+    summation order only: 1e-5 relative L2); dW and dh as bf16-operand
+    products with f32 output (`dacc_products`, cuBLAS) against the f32
+    products of the upcast operands (`dacc_products_plain`): a product of
+    two bf16 values is exact in f32, so they differ by summation order
+    only, within 1e-3 relative L2."""
+    from dl4ss_tpu_torch.ops import maskhead_kernels as m
+    h, w, bias, q = _maskhead_args(dev, b, t, d, f, e, k, torch.float32)
+    masks = m.fused_dot_masks_cuda(h, w, bias, q, f, e, torch.bfloat16)
+    dout = _t(np.random.default_rng(14).standard_normal((b, k, t, f)), dev,
+              torch.bfloat16)
+    dacc, _, db = m.fused_dot_masks_bwd_cuda(h, w, bias, q, masks, dout, f, e)
+    assert _rel(db, dacc.float().sum((0, 1))) < 1e-5
+    got, ref = m.dacc_products(h, w, dacc), m.dacc_products_plain(h, w, dacc)
+    for name, a, r in zip(("dh", "dW"), got, ref):
+        assert a.dtype == torch.float32 and a.shape == r.shape, name
+        assert _rel(a, r) < 1e-3, name
+
+
+def test_k3_k6_refuse_more_than_four_queries(dev):
+    from dl4ss_tpu_torch.ops import maskhead_kernels as m
+    h, w, bias, q = _maskhead_args(dev, 1, 9, 16, 3, 4, 5)
+    with pytest.raises(ValueError, match="queries"):
+        m.fused_dot_masks_cuda(h, w, bias, q, 3, 4, torch.float32)
 
 
 def test_backward_launches_k5_k6_and_matches_the_plain_route(dev):

@@ -114,8 +114,8 @@ def test_fused_dot_masks_grads_match_jax(t):
 def test_k6_plain_matches_pallas_bwd_kernel():
     """K6's plain version against the Pallas backward kernel's own outputs
     (`_bwd_vjp` before its outer products: dh = dacc W^T, so dacc is
-    compared through dh, and dq directly) on bf16 operands, at two time
-    tiles: same rounding points, 1e-2 relative L2."""
+    compared through dh, and dq and db = sum of dacc directly) on bf16
+    operands, at two time tiles: same rounding points, 1e-2 relative L2."""
     from dl4ss_tpu.ops.pallas_maskhead import _bwd_vjp
     from dl4ss_tpu_torch.ops.maskhead_kernels import fused_dot_masks_bwd_plain
     h, w, b, q, f, e = _inputs(6, t=100)
@@ -126,9 +126,9 @@ def test_k6_plain_matches_pallas_bwd_kernel():
     bf = jnp.bfloat16
     res = (jnp.asarray(h, bf), jnp.asarray(w), jnp.asarray(b),
            jnp.asarray(q, bf), jnp.asarray(masks, bf))
-    dh_ref, _, _, dq_ref = _bwd_vjp(f, e, 64, res, jnp.asarray(dout, bf))
+    dh_ref, _, db_ref, dq_ref = _bwd_vjp(f, e, 64, res, jnp.asarray(dout, bf))
     tb = torch.bfloat16
-    dacc, dq = fused_dot_masks_bwd_plain(
+    dacc, dq, db = fused_dot_masks_bwd_plain(
         torch.as_tensor(h).to(tb), torch.as_tensor(w), torch.as_tensor(b),
         torch.as_tensor(q).to(tb), torch.as_tensor(masks).to(tb),
         torch.as_tensor(dout).to(tb), f, e)
@@ -140,3 +140,4 @@ def test_k6_plain_matches_pallas_bwd_kernel():
         return np.linalg.norm(a.numpy() - r) / np.linalg.norm(r)
     assert rel(dh, dh_ref) < 1e-2
     assert rel(dq, dq_ref) < 1e-2
+    assert rel(db, db_ref) < 1e-2
