@@ -11,7 +11,10 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      backward, K7 and K8 the BiLSTM forward and backward at the classifier
      width 300 and at 600, K9 and K10 the packed STFT and iSTFT); K1 and
      K9 run their FFT body there, which is also held against its plain
-     torch mirror, and their direct body on a frame length of 96; K2, K5,
+     torch mirror, and their direct body on a frame length of 96; K4 (f32
+     and bf16 masks, B=16 and B=1) and K10 run the inverse tile's FFT body,
+     each against its plain version and its plain torch mirror and twice
+     bit-equal, and their direct body forced at the same shape; K2, K5,
      K7 and K8 run both their bodies (the resident one, which the shape
      rule names at width 300 for B=1, 16 and 32, and K5/K8's also at 128,
      in chunked launches past 20 rows; the stepwise one, which it names at
@@ -24,8 +27,8 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      itself (bit-equal), K6's db (from its partials) and the bf16-operand
      dW and dh products (f32 output) against the f32 products;
   3. round trips: STFT features then masked iSTFT with all-ones masks, and
-     the packed STFT then iSTFT through the public `ops` exports,
-     reconstruct the waveform;
+     the packed STFT then iSTFT through the public `ops` exports (both on
+     the FFT bodies), reconstruct the waveform;
   4. end to end: the torch_multi preset at full width (2-layer BiGRU-300,
      F*E = 129*50, 2-layer BiLSTM-300 classifier), random weights from a
      seed — one B=16 batch and 8 B=1 requests through
@@ -34,8 +37,8 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      counters zeroed just before and read just after; outputs finite and
      close to the same model's plain path (kernel flags off), the selected
      speakers equal to the plain path's, and every K2 and K7 launch run by
-     the body the shape rule names (the resident one), one K3 launch per
-     call;
+     the body the shape rule names (the resident one), every K1 and K4
+     launch by the FFT body, one K3 launch per call;
   5. CLI: run.separate on two synthetic wavs writes four wavs with
      --speakers, and 2 x recursive_max_steps wavs with --mode recursive,
      every K2 and K7 launch of the latter by the resident body;
@@ -57,14 +60,15 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      torch.profiler breakdown of one batch, one request and one step of
      each trainer; for K1 and K9 also the direct body at the same shape,
      both bodies at B=1 and at the 32 source signals of a train step, and
-     what an empty launch costs; for K2 and K7 both bodies at B=1, 16, 32,
-     48, 64, 96 and 128 (the numbers the shape rule follows); for K5 and
-     K8 also the stepwise body re-measured at B=16, 32 and 128, the
-     resident body's three phases (coefficients, chain, dU and db_n) by
-     kernel name, bf16, and K8 at width 600; every profile counts the
-     kernel launches of the call; K3 at B=1 beside its bound; the dW + dh
-     products both ways (bf16 operands with f32 output, and the f32
-     products) as a yardstick row; and the profiler's K3 / K6 kernel names
+     what an empty launch costs; for K4 and K10 both bodies at B=16 and
+     B=1 (K4 also with bf16 masks) beside torch.istft; for K2 and K7 both
+     bodies at B=1, 16, 32, 48, 64, 96 and 128 (the numbers the shape rule
+     follows); for K5 and K8 also the stepwise body re-measured at B=16,
+     32 and 128, the resident body's three phases (coefficients, chain, dU
+     and db_n) by kernel name, bf16, and K8 at width 600; every profile
+     counts the kernel launches of the call; K3 at B=1 beside its bound;
+     the dW + dh products both ways (bf16 operands with f32 output, and the
+     f32 products) as a yardstick row; and the profiler's K3 / K6 kernel names
      for one batch and one joint step, which must be the wgmma kernels, as
      many as the wrappers counted.
 It prints a `kernels` JSON line, the nvidia-smi line, and last
@@ -128,6 +132,8 @@ TOL = {"stft_features": 1e-4, "gru_fwd": 1e-4, "gru_fwd_bf16": 2e-2,
        # the FFT body against its mirror, the same steps in plain torch:
        # they differ by the compiler's FMA contraction only
        "stft_mirror": 1e-5,
+       # the inverse FFT body against its mirror: the same
+       "istft_mirror": 1e-5,
        # selected speakers are compared where the plain path's top-k
        # probabilities are further apart than this
        "selection_gap": 1e-3}
@@ -247,8 +253,8 @@ def profile_ms(torch, fn, top: int = 8, expect=(), by_name_out=None):
 
 def rfft_flops(frames: int, length: int) -> float:
     """Operations of `frames` real FFTs of `length` points, ~2.5 L log2 L
-    each: the least work of a (inverse) real DFT, which K1 and K4 compute
-    as direct products."""
+    each: the least work of a (inverse) real DFT, which the FFT bodies of
+    K1, K4, K9 and K10 do (their direct bodies do 4 L F)."""
     return frames * 2.5 * length * np.log2(length)
 
 
@@ -445,9 +451,36 @@ def main() -> int:
 
     masks = tensor(rng.uniform(0, 1, (BATCH, K, T, F)))
     k4_args = (re, im, masks, L, hop, cfg.window)
-    errs["masked_istft"] = check("K4 masked_istft", max_err(
-        k14.masked_ola_cuda(*k4_args), k14.masked_ola_plain(*k4_args)),
-        TOL["masked_istft"])
+    # K4 on the inverse tile's FFT body (the rule's at every preset), with
+    # f32 and bf16 masks at B=16 and B=1, against the plain version and the
+    # plain torch mirror, twice bit-equal; the direct body forced at B=16
+    if k14.istft_body(L, hop) != k14.BODY_FFT:
+        fail(f"L={L}, hop={hop} does not take the inverse FFT body")
+    k4_cases = {}
+    for label, b_n, dt in ((f"B={BATCH}", BATCH, torch.float32),
+                           (f"B={BATCH} bf16 masks", BATCH, torch.bfloat16),
+                           ("B=1", 1, torch.float32),
+                           ("B=1 bf16 masks", 1, torch.bfloat16)):
+        k4_cases[label] = (re[:b_n], im[:b_n], masks[:b_n].to(dt), L, hop,
+                           cfg.window)
+    errs["masked_istft"] = 0.0
+    for label, args in k4_cases.items():
+        before = k14.BODY_LAUNCHES["masked_istft", k14.BODY_FFT]
+        got = k14.masked_ola_cuda(*args)
+        if k14.BODY_LAUNCHES["masked_istft", k14.BODY_FFT] != before + 1:
+            fail(f"K4 {label} did not run the FFT body")
+        errs["masked_istft"] = max(errs["masked_istft"], check(
+            f"K4 masked_istft {label}", max_err(
+                got, k14.masked_ola_plain(*args)), TOL["masked_istft"]))
+        check(f"K4 FFT body {label} against its plain torch mirror",
+              max_err(got, k14.istft_fft_mirror(*args[:2], L, hop,
+                                                cfg.window, args[2])),
+              TOL["istft_mirror"])
+        if not torch.equal(got, k14.masked_ola_cuda(*args)):
+            fail(f"K4 {label}: two calls on the same inputs differ")
+    check(f"K4 direct body forced at B={BATCH}", max_err(
+        k14.masked_ola_cuda(*k4_args, body=k14.BODY_DIRECT),
+        k14.masked_ola_plain(*k4_args)), TOL["masked_istft"])
 
     # K5 at the training shapes (T=313, D=2, B=16, H=300), and at B=32 and
     # 128, which the resident body takes in 2 and 7 chain launches: the
@@ -561,8 +594,22 @@ def main() -> int:
     check("K9 stft_ri direct body, L=96 hop=48", max_err(
         k14.stft_ri_cuda(xpad96, 96, 48, cfg.window),
         k14.stft_ri_plain(xpad96, 96, 48, cfg.window)), TOL["stft_ri"])
+    # K10 on the same tile as K4: the FFT body against plain and the
+    # mirror, twice bit-equal, and the direct body forced
+    before = k14.BODY_LAUNCHES["istft_ri", k14.BODY_FFT]
+    ola_c = k14.istft_ola_cuda(ri_c, L, hop, cfg.window)
+    if k14.BODY_LAUNCHES["istft_ri", k14.BODY_FFT] != before + 1:
+        fail("K10 did not run the FFT body")
     errs["istft_ri"] = check("K10 istft_ri", max_err(
-        k14.istft_ola_cuda(ri_c, L, hop, cfg.window),
+        ola_c, k14.istft_ola_plain(ri_c, L, hop, cfg.window)),
+        TOL["istft_ri"])
+    check("K10 FFT body against its plain torch mirror", max_err(
+        ola_c, k14.istft_fft_mirror(ri_c[..., :F], ri_c[..., F:], L, hop,
+                                    cfg.window)), TOL["istft_mirror"])
+    if not torch.equal(ola_c, k14.istft_ola_cuda(ri_c, L, hop, cfg.window)):
+        fail("K10: two calls on the same inputs differ")
+    check("K10 direct body forced", max_err(
+        k14.istft_ola_cuda(ri_c, L, hop, cfg.window, body=k14.BODY_DIRECT),
         k14.istft_ola_plain(ri_c, L, hop, cfg.window)), TOL["istft_ri"])
 
     # ---- 3. round trip ----------------------------------------------------
@@ -578,13 +625,19 @@ def main() -> int:
     from dl4ss_tpu_torch import ops
     torch.cuda.synchronize()
     cuda_lib.LAUNCHES.clear()
+    k14.BODY_LAUNCHES.clear()
     rec2 = ops.istft_kernel(ops.stft_kernel(wav, L, hop, cfg.window), L, hop,
                             cfg.window, length=N_SAMPLES)
     torch.cuda.synchronize()
     dsp_launches = dict(cuda_lib.LAUNCHES)
-    print(f"public STFT/iSTFT launches: {dsp_launches}", flush=True)
+    print(f"public STFT/iSTFT launches: {dsp_launches}; bodies "
+          f"{dict(k14.BODY_LAUNCHES)}", flush=True)
     if dsp_launches != {"stft_ri": 1, "istft_ri": 1}:
         fail(f"ops.stft_kernel / ops.istft_kernel launched {dsp_launches}")
+    if dict(k14.BODY_LAUNCHES) != {("stft_ri", k14.BODY_FFT): 1,
+                                   ("istft_ri", k14.BODY_FFT): 1}:
+        fail(f"the public STFT/iSTFT round trip did not run the FFT bodies: "
+             f"{dict(k14.BODY_LAUNCHES)}")
     if tuple(rec2.shape) != (BATCH, N_SAMPLES):
         fail(f"round trip K9->K10 shape {tuple(rec2.shape)}")
     n_rec = (T - 1) * hop       # past it the signal was never framed
@@ -612,6 +665,15 @@ def main() -> int:
             fail(f"{path}: {name} launched {bodies}, expected {count} "
                  f"launches of the resident body")
 
+    def check_fft_bodies(path, counts):
+        """Every K1 and K4 launch of a serving path ran the FFT body, the
+        one the shape rules name at torch_multi's frame shape."""
+        want = {(name, k14.BODY_FFT): counts.get(name)
+                for name in ("stft_features", "masked_istft")}
+        if dict(k14.BODY_LAUNCHES) != want:
+            fail(f"{path}: the STFT / iSTFT launches were not all the FFT "
+                 f"body: {dict(k14.BODY_LAUNCHES)}, expected {want}")
+
     torch.cuda.synchronize()
     cuda_lib.LAUNCHES.clear()
     k14.BODY_LAUNCHES.clear()
@@ -621,12 +683,9 @@ def main() -> int:
              for w, s in reqs]
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
-    print(f"main path launches: {launches}; STFT bodies "
+    print(f"main path launches: {launches}; STFT and iSTFT bodies "
           f"{dict(k14.BODY_LAUNCHES)}", flush=True)
-    if dict(k14.BODY_LAUNCHES) != {
-            ("stft_features", k14.BODY_FFT): launches.get("stft_features")}:
-        fail(f"the serving path's STFT launches were not all the FFT body: "
-             f"{dict(k14.BODY_LAUNCHES)}")
+    check_fft_bodies("given-speaker serving", launches)
     launches.update(dsp_launches)
     missing = [n for n in cuda_lib.SERVING_KERNELS if not launches.get(n)]
     if missing:
@@ -656,13 +715,16 @@ def main() -> int:
     # speakers given
     torch.cuda.synchronize()
     cuda_lib.LAUNCHES.clear()
+    k14.BODY_LAUNCHES.clear()
     k2.BODY_LAUNCHES.clear()
     sel16 = separate_waveforms(model, wav, cfg, length=N_SAMPLES)
     sels1 = [separate_waveforms(model, w, cfg, length=N_SAMPLES)
              for w, _ in reqs]
     torch.cuda.synchronize()
     sel_launches = dict(cuda_lib.LAUNCHES)
-    print(f"classifier-selected path launches: {sel_launches}", flush=True)
+    print(f"classifier-selected path launches: {sel_launches}; STFT and "
+          f"iSTFT bodies {dict(k14.BODY_LAUNCHES)}", flush=True)
+    check_fft_bodies("classifier-selected serving", sel_launches)
     calls = 1 + REQUESTS
     want = {"stft_features": calls, "gru_fwd": cfg.encoder_layers * calls,
             "lstm_fwd": cfg.classifier_layers * calls, "maskhead_fwd": calls,
@@ -1109,6 +1171,29 @@ def main() -> int:
                 print(f"time {name} {label} ms: " + ", ".join(parts)
                       + f", torch.stft(center=False) {lib:.4f}", flush=True)
 
+    def istft_extras():
+        """K4 and K10 beside their rows (which time the rule's body, the FFT
+        one): both bodies at B=16 and B=1, K4 also with bf16 masks, beside
+        torch.istft on the same (masked) spectra."""
+        rows_ = [("masked_istft", label, args[2].float() * args[0][:, None],
+                  args[2].float() * args[1][:, None],
+                  lambda kw, a=args: k14.masked_ola_cuda(*a, **kw))
+                 for label, args in k4_cases.items()]
+        for label, x in ((f"B={B}", ri_c), ("B=1", ri_c[:1].contiguous())):
+            rows_.append(("istft_ri", label, x[..., :F], x[..., F:],
+                          lambda kw, x=x: k14.istft_ola_cuda(
+                              x, L, hop, cfg.window, **kw)))
+        for name, label, lre, lim, fn in rows_:
+            parts = [f"{what} {device_ms(torch, lambda: fn(kw), 50):.4f}"
+                     for what, kw in (("FFT body", {}), (
+                         "direct body", {"body": k14.BODY_DIRECT}))]
+            sc = torch.complex(lre, lim).reshape(-1, T, F).transpose(1, 2)
+            sc = sc.contiguous()
+            lib = device_ms(torch, lambda: torch.istft(
+                sc, L, hop, window=hann, center=True, length=N_SAMPLES), 20)
+            print(f"time {name} {label} ms: " + ", ".join(parts)
+                  + f", torch.istft {lib:.4f}", flush=True)
+
     def mask_names(label, names, want):
         """The K3 / K6 kernels by the profiler's names in one profiled
         call: only the wgmma kernels (and the W pack and K6's partial sums
@@ -1128,6 +1213,7 @@ def main() -> int:
             slow = name == "gru_fwd"
             time_row(name, r, 5 if slow else 20, 3 if slow else 10)
         stft_extras()
+        istft_extras()
         pack_ms = device_ms(torch, lambda: k3.pack_w(wb, F, E), 10)
         print(f"time maskhead_pack (K3's W layout, once per weight version, "
               f"bf16 W): {pack_ms:.4f} ms", flush=True)

@@ -25,7 +25,8 @@
 //      complex points z[n] = w[2n] x[2n] + i w[2n+1] x[2n+1] as it reads
 //      them, runs an L/2-point complex FFT as Stockham autosort stages
 //      (radix 4, and one last radix-2 stage when log2(L/2) is odd) between
-//      two padded per-warp shared-memory buffers with __syncwarp(), and
+//      two padded per-warp shared-memory buffers with __syncwarp() (the
+//      stages of fft_stages.cuh, shared with the inverse tile), and
 //      splits the result into the L/2+1 bins of the real transform,
 //      X[k] = (Z[k] + conj Z[L/2-k])/2 - i W_L^k (Z[k] - conj Z[L/2-k])/2.
 //   3. Every twiddle comes from one (L/2+1, 2) table of cos, -sin(2 pi k/L)
@@ -55,6 +56,7 @@
 #include <cstdint>
 
 #include "dl4ss_common.cuh"
+#include "fft_stages.cuh"
 
 namespace dl4ss {
 
@@ -73,73 +75,6 @@ inline bool stft_fft_takes(int L, int hop) {
 // ---------------------------------------------------------------------------
 // The FFT body
 // ---------------------------------------------------------------------------
-
-// Index into a warp's FFT buffer: one float2 of padding after every 16, so
-// the stride-4p stores of the early stages spread over the banks.
-__host__ __device__ __forceinline__ int fft_pad(int i) { return i + (i >> 4); }
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
-  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
-}
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-
-// W_L^q for 0 <= q < L from the half table tw[0 .. L/2].
-__device__ __forceinline__ float2 twiddle(const float2* tw, int q, int half) {
-  if (q <= half) return tw[q];
-  const float2 w = tw[q - half];
-  return make_float2(-w.x, -w.y);
-}
-
-// One Stockham radix-4 stage of an N-point FFT whose sub-transforms have
-// length p so far: butterfly i reads points i + m N/4 and writes points
-// 4 (i - k) + k + m p, k = i mod p, with twiddles W_{4p}^{k m}.
-template <typename Load>
-__device__ __forceinline__ void fft_radix4(const Load& load, float2* dst,
-                                           const float2* tw, int N, int p,
-                                           int L, int lane) {
-  const int quarter = N >> 2;
-  const int step = L / (4 * p);   // W_{4p}^k = W_L^{k step}
-  for (int i = lane; i < quarter; i += 32) {
-    const int k = i & (p - 1);
-    const float2 u0 = load(i);
-    float2 u1 = load(i + quarter);
-    float2 u2 = load(i + 2 * quarter);
-    float2 u3 = load(i + 3 * quarter);
-    if (p > 1) {
-      u1 = cmul(u1, twiddle(tw, k * step, L >> 1));
-      u2 = cmul(u2, twiddle(tw, 2 * k * step, L >> 1));
-      u3 = cmul(u3, twiddle(tw, 3 * k * step, L >> 1));
-    }
-    const float2 v0 = cadd(u0, u2), v1 = csub(u0, u2), v2 = cadd(u1, u3);
-    const float2 d = csub(u1, u3);
-    const float2 v3 = make_float2(d.y, -d.x);   // -i (u1 - u3)
-    const int j = ((i - k) << 2) + k;
-    dst[fft_pad(j)] = cadd(v0, v2);
-    dst[fft_pad(j + p)] = cadd(v1, v3);
-    dst[fft_pad(j + 2 * p)] = csub(v0, v2);
-    dst[fft_pad(j + 3 * p)] = csub(v1, v3);
-  }
-}
-
-// The last stage when log2 N is odd: radix 2 with p = N/2.
-__device__ __forceinline__ void fft_radix2_last(const float2* src,
-                                                float2* dst,
-                                                const float2* tw, int N,
-                                                int L, int lane) {
-  const int p = N >> 1;
-  const int step = L / N;         // W_N^k = W_L^{k step}
-  for (int k = lane; k < p; k += 32) {
-    const float2 u0 = src[fft_pad(k)];
-    const float2 u1 = cmul(src[fft_pad(k + p)], twiddle(tw, k * step, L >> 1));
-    dst[fft_pad(k)] = cadd(u0, u1);
-    dst[fft_pad(k + p)] = csub(u0, u1);
-  }
-}
 
 // Shared-memory layout of the FFT body, in floats: the twiddle table, the
 // window, the staged samples (3 floats of slack for the aligned copy), then
@@ -206,23 +141,7 @@ __device__ __forceinline__ void stft_fft_tile(
       return make_float2(frame[2 * n] * wins[2 * n],
                          frame[2 * n + 1] * wins[2 * n + 1]);
     };
-    float2* cur = buf_a;
-    float2* nxt = buf_b;
-    fft_radix4(packed, cur, tw, N, 1, L, lane);
-    __syncwarp();
-    int p = 4;
-    for (; 4 * p <= N; p <<= 2) {
-      const float2* from = cur;
-      fft_radix4([&](int n) { return from[fft_pad(n)]; }, nxt, tw, N, p, L,
-                 lane);
-      __syncwarp();
-      float2* t = cur; cur = nxt; nxt = t;
-    }
-    if (p < N) {
-      fft_radix2_last(cur, nxt, tw, N, L, lane);
-      __syncwarp();
-      float2* t = cur; cur = nxt; nxt = t;
-    }
+    const float2* cur = fft_forward(packed, buf_a, buf_b, tw, N, L, lane);
     // 3. split the N-point transform of z into the N+1 bins of the real one
     for (int k = lane; k <= N; k += 32) {
       const float2 zk = cur[fft_pad(k & (N - 1))];

@@ -14,10 +14,13 @@ rather than giving a detached result.
 
 K1 and K9 share one CUDA tile (csrc/stft_tile.cuh) with two hand-written
 bodies: a shared-memory real FFT for a power-of-two frame length, the
-direct product for any other (`stft_body` is the rule). The FFT body cannot
-run off the card, so `stft_fft_mirror` repeats its steps one for one in
-plain torch for the CPU tests; nothing on a serving or training path calls
-the mirror.
+direct product for any other (`stft_body` is the rule). K4 and K10 share
+the inverse tile (csrc/istft_tile.cuh) the same way: a shared-memory
+inverse real FFT with the overlap-add in the block, or the direct iDFT
+(`istft_body` is the rule). Both FFTs run the stages of csrc/fft_stages.cuh.
+The FFT bodies cannot run off the card, so `stft_fft_mirror` and
+`istft_fft_mirror` repeat their steps one for one in plain torch for the
+CPU tests; nothing on a serving or training path calls the mirrors.
 """
 
 from __future__ import annotations
@@ -105,13 +108,21 @@ def _dft_halves(frame_length: int, device: torch.device):
     return dft[:, :bins].contiguous(), dft[:, bins:].contiguous()
 
 
-# The two bodies of the STFT tile and the frame lengths the FFT body takes.
+# The two bodies of the STFT and iSTFT tiles and the frame lengths their
+# FFT bodies take; the iSTFT's also takes at most ISTFT_FFT_MAX_RATIO
+# frames over a sample (csrc/istft_tile.cuh).
 BODY_FFT, BODY_DIRECT = "fft", "direct"
 _BODY_CODES = {BODY_FFT: 1, BODY_DIRECT: 2}
 FFT_MIN_LENGTH, FFT_MAX_LENGTH = 32, 2048
-# Launches of K1 and K9 by the body that ran, keyed (kernel name, body);
-# cuda_lib.LAUNCHES counts both bodies under the kernel's name.
+ISTFT_FFT_MAX_RATIO = 8
+# Launches of K1, K4, K9 and K10 by the body that ran, keyed (kernel name,
+# body); cuda_lib.LAUNCHES counts both bodies under the kernel's name.
 BODY_LAUNCHES: collections.Counter = collections.Counter()
+
+
+def _fft_length(frame_length: int) -> bool:
+    pow2 = frame_length > 0 and frame_length & (frame_length - 1) == 0
+    return pow2 and FFT_MIN_LENGTH <= frame_length <= FFT_MAX_LENGTH
 
 
 def stft_body(frame_length: int, frame_shift: int) -> str:
@@ -119,9 +130,21 @@ def stft_body(frame_length: int, frame_shift: int) -> str:
     power-of-two frame length in [32, 2048] with hop <= L, the direct body
     for every other shape. The launch is told the body by name; the library
     only refuses the FFT body on a shape it cannot take."""
-    pow2 = frame_length > 0 and frame_length & (frame_length - 1) == 0
-    if (pow2 and FFT_MIN_LENGTH <= frame_length <= FFT_MAX_LENGTH
-            and frame_shift <= frame_length):
+    if _fft_length(frame_length) and frame_shift <= frame_length:
+        return BODY_FFT
+    return BODY_DIRECT
+
+
+def istft_body(frame_length: int, frame_shift: int) -> str:
+    """The shape rule of K4 and K10 on the card: the FFT body for a
+    power-of-two frame length in [32, 2048] whose hop divides it at most
+    ISTFT_FFT_MAX_RATIO times (every preset: 256 / 128), the direct body
+    for every other shape. As for `stft_body`, the launch is told the body
+    by name and the library only refuses the FFT body where it cannot
+    run."""
+    if (_fft_length(frame_length) and frame_shift > 0
+            and frame_length % frame_shift == 0
+            and frame_length // frame_shift <= ISTFT_FFT_MAX_RATIO):
         return BODY_FFT
     return BODY_DIRECT
 
@@ -181,27 +204,18 @@ def stft_features_cuda(xpad: torch.Tensor, frame_length: int,
     return mag, re, im
 
 
-def stft_fft_mirror(xpad: torch.Tensor, frame_length: int, frame_shift: int,
-                    window: str) -> torch.Tensor:
-    """The FFT body of csrc/stft_tile.cuh step for step in plain torch, on
-    the (padded) signal (B, Np): packed (B, T, 2F) like `stft_ri_plain`.
+def _cmul(ar, ai, wr, wi):
+    return ar * wr - ai * wi, ar * wi + ai * wr
 
-    Same even/odd packing z[n] = w[2n] x[2n] + i w[2n+1] x[2n+1], same
-    twiddle table (the upper half by W^q = -W^(q-L/2)), same Stockham
-    stages (radix 4, then one radix-2 stage when log2(L/2) is odd) and the
-    same split into the L/2+1 bins. It uses no `torch.fft`. For the CPU
-    tests and the card check of the kernel; no serving or training path
-    calls it.
-    """
-    if stft_body(frame_length, frame_shift) != BODY_FFT:
-        raise ValueError(f"the FFT body takes a power-of-two frame length in "
-                         f"[{FFT_MIN_LENGTH}, {FFT_MAX_LENGTH}] and hop <= L, "
-                         f"got {frame_length} and {frame_shift}")
-    dev = xpad.device
-    half = frame_length // 2
-    n = half                                    # points of the complex FFT
-    win = dsp_tables(frame_length, window, dev).win
-    table = _twiddles(frame_length, dev)
+
+def _fft_stages_mirror(zr: torch.Tensor, zi: torch.Tensor, frame_length: int,
+                       table: torch.Tensor):
+    """csrc/fft_stages.cuh's `fft_forward` in plain torch: the N = L/2
+    point forward FFT of z (last axis) as Stockham stages, radix 4 and then
+    one radix-2 stage when log2 N is odd, with the twiddles of the (L/2+1,
+    2) table (the upper half by W^q = -W^(q-L/2))."""
+    dev = zr.device
+    half = n = frame_length // 2
 
     def twiddle(q):
         """W_L^q for 0 <= q < L as (re, im) from the half table."""
@@ -210,11 +224,6 @@ def stft_fft_mirror(xpad: torch.Tensor, frame_length: int, frame_shift: int,
         sign = torch.where(upper, -1.0, 1.0).to(w.dtype)
         return w[:, 0] * sign, w[:, 1] * sign
 
-    def cmul(ar, ai, wr, wi):
-        return ar * wr - ai * wi, ar * wi + ai * wr
-
-    frames = xpad.unfold(-1, frame_length, frame_shift) * win
-    zr, zi = frames[..., 0::2].contiguous(), frames[..., 1::2].contiguous()
     p = 1
     while 4 * p <= n:                           # radix-4 stages
         quarter, step = n // 4, frame_length // (4 * p)
@@ -223,7 +232,7 @@ def stft_fft_mirror(xpad: torch.Tensor, frame_length: int, frame_shift: int,
         u = [(zr[..., i + m * quarter], zi[..., i + m * quarter])
              for m in range(4)]
         if p > 1:
-            u[1:] = [cmul(*u[m], *twiddle(m * k * step)) for m in (1, 2, 3)]
+            u[1:] = [_cmul(*u[m], *twiddle(m * k * step)) for m in (1, 2, 3)]
         (u0r, u0i), (u1r, u1i), (u2r, u2i), (u3r, u3i) = u
         v0r, v0i, v1r, v1i = u0r + u2r, u0i + u2i, u0r - u2r, u0i - u2i
         v2r, v2i = u1r + u3r, u1i + u3i
@@ -238,18 +247,91 @@ def stft_fft_mirror(xpad: torch.Tensor, frame_length: int, frame_shift: int,
         zr, zi, p = yr, yi, 4 * p
     if p < n:                                   # the last radix-2 stage
         k = torch.arange(n // 2, device=dev)
-        u1r, u1i = cmul(zr[..., n // 2:], zi[..., n // 2:],
-                        *twiddle(k * (frame_length // n)))
+        u1r, u1i = _cmul(zr[..., n // 2:], zi[..., n // 2:],
+                         *twiddle(k * (frame_length // n)))
         u0r, u0i = zr[..., :n // 2], zi[..., :n // 2]
         zr = torch.cat([u0r + u1r, u0r - u1r], dim=-1)
         zi = torch.cat([u0i + u1i, u0i - u1i], dim=-1)
+    return zr, zi
+
+
+def stft_fft_mirror(xpad: torch.Tensor, frame_length: int, frame_shift: int,
+                    window: str) -> torch.Tensor:
+    """The FFT body of csrc/stft_tile.cuh step for step in plain torch, on
+    the (padded) signal (B, Np): packed (B, T, 2F) like `stft_ri_plain`.
+
+    Same even/odd packing z[n] = w[2n] x[2n] + i w[2n+1] x[2n+1], same
+    twiddle table, same Stockham stages (`_fft_stages_mirror`) and the
+    same split into the L/2+1 bins. It uses no `torch.fft`. For the CPU
+    tests and the card check of the kernel; no serving or training path
+    calls it.
+    """
+    if stft_body(frame_length, frame_shift) != BODY_FFT:
+        raise ValueError(f"the FFT body takes a power-of-two frame length in "
+                         f"[{FFT_MIN_LENGTH}, {FFT_MAX_LENGTH}] and hop <= L, "
+                         f"got {frame_length} and {frame_shift}")
+    dev = xpad.device
+    n = frame_length // 2                       # points of the complex FFT
+    win = dsp_tables(frame_length, window, dev).win
+    table = _twiddles(frame_length, dev)
+    frames = xpad.unfold(-1, frame_length, frame_shift) * win
+    zr, zi = _fft_stages_mirror(frames[..., 0::2].contiguous(),
+                                frames[..., 1::2].contiguous(), frame_length,
+                                table)
     k = torch.arange(n + 1, device=dev)         # the split step
     zkr, zki = zr[..., k & (n - 1)], zi[..., k & (n - 1)]
     znr, zni = zr[..., (n - k) & (n - 1)], zi[..., (n - k) & (n - 1)]
     even_r, even_i = 0.5 * (zkr + znr), 0.5 * (zki - zni)
-    cr, ci = cmul(0.5 * (zkr - znr), 0.5 * (zki + zni), table[:, 0],
-                  table[:, 1])
+    cr, ci = _cmul(0.5 * (zkr - znr), 0.5 * (zki + zni), table[:, 0],
+                   table[:, 1])
     return torch.cat([even_r + ci, even_i - cr], dim=-1)
+
+
+def istft_fft_mirror(re: torch.Tensor, im: torch.Tensor, frame_length: int,
+                     frame_shift: int, window: str,
+                     masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The FFT body of csrc/istft_tile.cuh step for step in plain torch:
+    the raw overlap-add of the spectrum halves re, im (B, T, F), (B,
+    (T-1)*hop + L) like `istft_ola_plain`; with masks (B, K, T, F), each
+    channel's spectrum is mask * (re, im) and the result (B, K, ...) like
+    `masked_ola_plain`.
+
+    Same mask multiply, same Im of bins 0 and L/2 set to 0, the same
+    inverse split step into conj Z (Z[n] = (X[n] + conj X[N-n]) + i W^-n
+    (X[n] - conj X[N-n])), the forward stages of `_fft_stages_mirror`, the
+    window times 1/L, and the overlap-add summed in ascending t. It uses no
+    `torch.fft`. For the CPU tests and the card check of the kernels; no
+    serving or training path calls it.
+    """
+    if istft_body(frame_length, frame_shift) != BODY_FFT:
+        raise ValueError(f"the inverse FFT body takes a power-of-two frame "
+                         f"length in [{FFT_MIN_LENGTH}, {FFT_MAX_LENGTH}] "
+                         f"whose hop divides it at most "
+                         f"{ISTFT_FFT_MAX_RATIO} times, got {frame_length} "
+                         f"and {frame_shift}")
+    dev = re.device
+    n = frame_length // 2
+    table = _twiddles(frame_length, dev)
+    win = dsp_tables(frame_length, window, dev).win * (1.0 / frame_length)
+    if masks is not None:
+        m = masks.float()
+        re, im = m * re[:, None], m * im[:, None]
+    edge = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    edge[0] = edge[n] = True
+    im = im.masked_fill(edge, 0.0)
+    k = torch.arange(n, device=dev)             # the inverse split step
+    ar, ai, br, bi = re[..., k], im[..., k], re[..., n - k], im[..., n - k]
+    dr, di = _cmul(ar - br, ai + bi, table[:n, 0], -table[:n, 1])
+    yr, yi = _fft_stages_mirror((ar + br) - di, -((ai - bi) + dr),
+                                frame_length, table)
+    frames = torch.stack([yr * win[0::2], -yi * win[1::2]], dim=-1)
+    frames = frames.flatten(-2)                 # (..., T, L)
+    t, ratio = frames.shape[-2], frame_length // frame_shift
+    acc = frames.new_zeros((*frames.shape[:-2], t + ratio - 1, frame_shift))
+    for s in range(ratio - 1, -1, -1):          # ascending t in every row
+        acc[..., s:s + t, :] += frames[..., s * frame_shift:
+                                       (s + 1) * frame_shift]
+    return acc.flatten(-2)
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +359,8 @@ def masked_istft(re: torch.Tensor, im: torch.Tensor, masks: torch.Tensor,
 
     re/im (B, T, F) mixture spectrum halves, masks (B, K, T, F) real masks
     -> (B, K, length): istft(mask * spec) per channel, the mask multiply,
-    iDFT, window and overlap-add fused in one kernel on the card.
+    iDFT, window and overlap-add fused in one kernel on the card. Needs
+    frame_length % frame_shift == 0, as the TPU kernel does.
     """
     b, k, t, f = masks.shape
     want = (b, t, f)
@@ -289,6 +372,7 @@ def masked_istft(re: torch.Tensor, im: torch.Tensor, masks: torch.Tensor,
     if f != _bins(frame_length):
         raise ValueError(f"masked_istft: {f} bins, expected "
                          f"{_bins(frame_length)} for L={frame_length}")
+    _check_hop("masked_istft", frame_length, frame_shift)
     re, im, masks = re.contiguous(), im.contiguous(), masks.contiguous()
     if masks.is_cuda:
         ola = masked_ola_cuda(re, im, masks, frame_length, frame_shift,
@@ -312,20 +396,40 @@ def masked_ola_plain(re, im, masks, frame_length: int, frame_shift: int,
 
 
 def masked_ola_cuda(re, im, masks, frame_length: int, frame_shift: int,
-                    window: str) -> torch.Tensor:
-    """K4 on the card: csrc/masked_istft.cu, the raw overlap-add."""
+                    window: str, body: Optional[str] = None) -> torch.Tensor:
+    """K4 on the card: csrc/masked_istft.cu, the raw overlap-add. `body`
+    forces one of the inverse tile's two bodies; by default the shape
+    decides (`istft_body`)."""
     b, k, t, f = masks.shape
     cuda_lib.check(re, "re", (torch.float32,), (b, t, f))
     cuda_lib.check(im, "im", (torch.float32,), (b, t, f))
     cuda_lib.check(masks, "masks", _FEAT_DTYPES)
-    tab = dsp_tables(frame_length, window, re.device)
-    mre, mim = _idft_halves(frame_length, re.device)
     out_len = (t - 1) * frame_shift + frame_length
     out = torch.empty((b, k, out_len), dtype=torch.float32, device=re.device)
-    cuda_lib.launch("masked_istft", re.device, re, im, masks, mre, mim,
-                    tab.win, out, b, k, t, f, frame_length, frame_shift,
-                    out_len, int(masks.dtype == torch.bfloat16))
+    _launch_istft("masked_istft", (re, im, masks), out, (b, k, t, f),
+                  frame_length, frame_shift, window,
+                  (int(masks.dtype == torch.bfloat16),), body)
     return out
+
+
+def _launch_istft(name: str, spectrum, out: torch.Tensor, dims,
+                  frame_length: int, frame_shift: int, window: str, tail,
+                  body: Optional[str]) -> None:
+    """Launch K4 or K10 into `out` (..., (T-1)*hop + L) with the tables of
+    the body that runs: `istft_body`'s for the shape, unless `body` names
+    one, for a check or a timing of one against the other."""
+    dev = out.device
+    chosen = body or istft_body(frame_length, frame_shift)
+    win = dsp_tables(frame_length, window, dev).win
+    tw, mre, mim = 0, 0, 0
+    if chosen == BODY_FFT:
+        tw = _twiddles(frame_length, dev)
+    else:
+        mre, mim = _idft_halves(frame_length, dev)
+    cuda_lib.launch(name, dev, *spectrum, win, tw, mre, mim, out, *dims,
+                    frame_length, frame_shift, out.shape[-1], *tail,
+                    _BODY_CODES[chosen])
+    BODY_LAUNCHES[name, chosen] += 1
 
 
 @table_cache
@@ -429,18 +533,17 @@ def istft_ola_plain(spec_ri: torch.Tensor, frame_length: int,
 
 
 def istft_ola_cuda(spec_ri: torch.Tensor, frame_length: int,
-                   frame_shift: int, window: str) -> torch.Tensor:
-    """K10 on the card: csrc/istft_ri.cu, the raw overlap-add."""
+                   frame_shift: int, window: str,
+                   body: Optional[str] = None) -> torch.Tensor:
+    """K10 on the card: csrc/istft_ri.cu, the raw overlap-add, on the same
+    tile and the same two bodies as K4 (`masked_ola_cuda`)."""
     f = _bins(frame_length)
     b, t = spec_ri.shape[:2]
     cuda_lib.check(spec_ri, "spec_ri", (torch.float32,), (b, t, 2 * f))
-    tab = dsp_tables(frame_length, window, spec_ri.device)
-    mre, mim = _idft_halves(frame_length, spec_ri.device)
-    out_len = (t - 1) * frame_shift + frame_length
-    out = torch.empty((b, out_len), dtype=torch.float32,
-                      device=spec_ri.device)
-    cuda_lib.launch("istft_ri", spec_ri.device, spec_ri, mre, mim, tab.win,
-                    out, b, t, f, frame_length, frame_shift, out_len)
+    out = torch.empty((b, (t - 1) * frame_shift + frame_length),
+                      dtype=torch.float32, device=spec_ri.device)
+    _launch_istft("istft_ri", (spec_ri,), out, (b, t, f), frame_length,
+                  frame_shift, window, (), body)
     return out
 
 

@@ -191,20 +191,111 @@ def test_k3_packs_w_once_per_version(dev):
                                atol=2e-2, rtol=0)
 
 
-@pytest.mark.parametrize("b,k,t,length,hop", [(1, 2, 9, 256, 128),
-                                              (2, 3, 13, 64, 16),
-                                              (2, 1, 6, 256, 96)])
+# K4 and K10 share one tile with two bodies (csrc/istft_tile.cuh); every
+# shape here is one that both bodies take. T of 1, 8 (the FFT body's hops
+# per block), 9 and 17 put the edges of its tiles, and of the halo it
+# computes again, at every place; B=1 leaves most of a batch's blocks out.
+K4_SHAPES = [(1, 2, 9, 256, 128), (2, 3, 13, 64, 16), (2, 1, 6, 256, 64),
+             (1, 2, 1, 256, 128), (1, 2, 8, 256, 128), (2, 2, 17, 32, 32),
+             (3, 2, 313, 256, 128), (1, 1, 9, 512, 128)]
+
+
+@pytest.mark.parametrize("b,k,t,length,hop", K4_SHAPES)
 @pytest.mark.parametrize("mask_dtype", [torch.float32, torch.bfloat16])
-def test_k4_masked_istft(dev, b, k, t, length, hop, mask_dtype):
+@pytest.mark.parametrize("body", ["fft", "direct"])
+def test_k4_masked_istft(dev, b, k, t, length, hop, mask_dtype, body):
+    """K4 on the body named against its plain version (1e-4); the FFT body
+    also against its CPU mirror run on the card (1e-5: the same steps, FMA
+    contraction apart) and against a second call of itself (bit-equal:
+    every sample is summed in the same order)."""
     from dl4ss_tpu_torch.ops import stft_kernels as s
     rng = np.random.default_rng(3)
     f = length // 2 + 1
     re, im = (_t(rng.standard_normal((b, t, f)), dev) for _ in range(2))
     masks = _t(rng.uniform(0, 1, (b, k, t, f)), dev, mask_dtype)
     args = (re, im, masks, length, hop, "hann")
-    torch.testing.assert_close(s.masked_ola_cuda(*args),
-                               s.masked_ola_plain(*args), atol=1e-4,
+    before = _ran(s, "masked_istft", body)
+    got = s.masked_ola_cuda(*args, body=body)
+    assert _ran(s, "masked_istft", body) == before + 1
+    torch.testing.assert_close(got, s.masked_ola_plain(*args), atol=1e-4,
                                rtol=0)
+    if body == "fft":
+        torch.testing.assert_close(
+            got, s.istft_fft_mirror(re, im, length, hop, "hann", masks),
+            atol=1e-5, rtol=0)
+        assert torch.equal(got, s.masked_ola_cuda(*args, body=body))
+    # the public wrapper, on the rule's body (the FFT one for every shape
+    # here), normalised, trimmed and padded past (T-1)*hop; not at hop = L,
+    # where win^2 alone is the normaliser and, near 0 inside the output,
+    # amplifies either side's round-off past the bar
+    assert s.istft_body(length, hop) == "fft"
+    n_out = (t - 1) * hop + 10
+    if hop < length:
+        torch.testing.assert_close(
+            s.masked_istft(re, im, masks, length, hop, length=n_out).cpu(),
+            s.masked_istft(re.cpu(), im.cpu(), masks.cpu(), length, hop,
+                           length=n_out), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b,k,t,length,hop", [(2, 2, 20, 1024, 512),
+                                              (1, 2, 11, 2048, 256),
+                                              (1, 1, 5, 2048, 2048)])
+def test_k4_k10_fft_body_at_long_frames(dev, b, k, t, length, hop):
+    """The FFT body where L/2 no longer fits 8 warps' buffers (fewer warps,
+    several frames each) and up to R=8 frames cover a sample: K4 and K10
+    against their plain versions (1e-4) and the mirror (1e-5)."""
+    from dl4ss_tpu_torch.ops import stft_kernels as s
+    rng = np.random.default_rng(18)
+    f = length // 2 + 1
+    re, im = (_t(rng.standard_normal((b, t, f)), dev) for _ in range(2))
+    masks = _t(rng.uniform(0, 1, (b, k, t, f)), dev)
+    got = s.masked_ola_cuda(re, im, masks, length, hop, "hann")
+    torch.testing.assert_close(
+        got, s.masked_ola_plain(re, im, masks, length, hop, "hann"),
+        atol=1e-4, rtol=0)
+    torch.testing.assert_close(
+        got, s.istft_fft_mirror(re, im, length, hop, "hann", masks),
+        atol=1e-5, rtol=0)
+    ri = torch.cat([re, im], dim=-1).contiguous()
+    got = s.istft_ola_cuda(ri, length, hop, "hann")
+    torch.testing.assert_close(
+        got, s.istft_ola_plain(ri, length, hop, "hann"), atol=1e-4, rtol=0)
+    torch.testing.assert_close(
+        got, s.istft_fft_mirror(re, im, length, hop, "hann"), atol=1e-5,
+        rtol=0)
+
+
+@pytest.mark.parametrize("length,hop", [(96, 48), (1000, 250), (256, 16),
+                                        (256, 96)])
+def test_k4_k10_fft_body_refuses_what_the_rule_sends_elsewhere(dev, length,
+                                                                hop):
+    """Every shape that the rule sends to the direct body (no power of two,
+    more than 8 frames over a sample, a hop that does not divide L) the FFT
+    body refuses, rather than run wrongly or run another body, and counts
+    no launch; the direct body takes it."""
+    from dl4ss_tpu_torch.ops import cuda_lib
+    from dl4ss_tpu_torch.ops import stft_kernels as s
+    assert s.istft_body(length, hop) == "direct"
+    rng = np.random.default_rng(19)
+    f = length // 2 + 1
+    re, im = (_t(rng.standard_normal((1, 7, f)), dev) for _ in range(2))
+    masks = _t(rng.uniform(0, 1, (1, 2, 7, f)), dev)
+    ri = torch.cat([re, im], dim=-1).contiguous()
+    before = dict(s.BODY_LAUNCHES), dict(cuda_lib.LAUNCHES)
+    with pytest.raises(RuntimeError, match="masked_istft failed"):
+        s.masked_ola_cuda(re, im, masks, length, hop, "hann", body="fft")
+    with pytest.raises(RuntimeError, match="istft_ri failed"):
+        s.istft_ola_cuda(ri, length, hop, "hann", body="fft")
+    assert (dict(s.BODY_LAUNCHES), dict(cuda_lib.LAUNCHES)) == before
+    torch.testing.assert_close(
+        s.masked_ola_cuda(re, im, masks, length, hop, "hann"),
+        s.masked_ola_plain(re, im, masks, length, hop, "hann"), atol=1e-4,
+        rtol=0)
+    torch.testing.assert_close(s.istft_ola_cuda(ri, length, hop, "hann"),
+                               s.istft_ola_plain(ri, length, hop, "hann"),
+                               atol=1e-4, rtol=0)
+    assert _ran(s, "masked_istft", "direct") == before[0].get(
+        ("masked_istft", "direct"), 0) + 1
 
 
 def test_wrappers_route_cuda_tensors_to_the_kernels(dev):
@@ -627,22 +718,39 @@ def test_k9_stft_ri(dev, b, n, length, hop, body, center):
 
 @pytest.mark.parametrize("b,t,length,hop", [(1, 9, 256, 128),
                                             (5, 13, 64, 16),
-                                            (9, 6, 256, 64)])
-def test_k10_istft_ri(dev, b, t, length, hop):
-    """K10 against its plain version, the raw overlap-add and the whole
-    `istft_ri` with its three length cases."""
+                                            (9, 6, 256, 64),
+                                            (1, 1, 256, 128),
+                                            (2, 8, 32, 32),
+                                            (3, 17, 512, 128),
+                                            (16, 313, 256, 128)])
+@pytest.mark.parametrize("body", ["fft", "direct"])
+def test_k10_istft_ri(dev, b, t, length, hop, body):
+    """K10 on the body named against its plain version, the raw
+    overlap-add (the FFT body also against its mirror, 1e-5, and a second
+    call, bit-equal), and the whole `istft_ri` with its three length cases
+    on the rule's body."""
     from dl4ss_tpu_torch.ops import stft_kernels as k
     f = length // 2 + 1
     ri = _t(np.random.default_rng(12).standard_normal((b, t, 2 * f)), dev)
-    torch.testing.assert_close(k.istft_ola_cuda(ri, length, hop, "hann"),
-                               k.istft_ola_plain(ri, length, hop, "hann"),
+    before = _ran(k, "istft_ri", body)
+    got = k.istft_ola_cuda(ri, length, hop, "hann", body=body)
+    assert _ran(k, "istft_ri", body) == before + 1
+    torch.testing.assert_close(got, k.istft_ola_plain(ri, length, hop,
+                                                      "hann"),
                                atol=1e-4, rtol=0)
+    if body == "fft":
+        torch.testing.assert_close(
+            got, k.istft_fft_mirror(ri[..., :f], ri[..., f:], length, hop,
+                                    "hann"), atol=1e-5, rtol=0)
+        assert torch.equal(got, k.istft_ola_cuda(ri, length, hop, "hann",
+                                                 body=body))
     default = (t - 1) * hop
     for want in (None, default + 50, default // 2):
         got = k.istft_ri(ri, length, hop, length=want)
         ref = k.istft_ri(ri.cpu(), length, hop, length=want)
         assert got.shape == ref.shape == (b, want or default)
-        torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=0)
+        if hop < length:        # at hop = L see test_k4_masked_istft
+            torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=0)
 
 
 def test_k9_k10_round_trip_and_refusals(dev):

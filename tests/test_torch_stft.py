@@ -287,10 +287,26 @@ def test_k9_k10_round_trip_and_complex_wrapper():
 @pytest.mark.parametrize("call", [
     lambda: tk.stft_ri(torch.zeros((1, 1000)), 256, 96),
     lambda: tk.istft_ri(torch.zeros((1, 5, 258)), 256, 96),
-], ids=["stft_ri", "istft_ri"])
+    lambda: tk.masked_istft(torch.zeros((1, 5, 129)), torch.zeros((1, 5, 129)),
+                            torch.zeros((1, 2, 5, 129)), 256, 96),
+], ids=["stft_ri", "istft_ri", "masked_istft"])
 def test_k9_k10_need_hop_dividing_frame_length(call):
     with pytest.raises(ValueError, match="frame_length % frame_shift"):
         call()
+
+
+def test_k4_refuses_the_hop_that_the_jax_kernel_refuses():
+    """`pallas_masked_istft` asserts frame_length % frame_shift == 0; the
+    port's `masked_istft` refuses the same shape (above) on every route,
+    rather than return a waveform where JAX fails."""
+    z = jnp.zeros((1, 5, 129), jnp.float32)
+    with pytest.raises(AssertionError):
+        pallas_masked_istft(z, z, jnp.zeros((1, 2, 5, 129)), 256, 96)
+    cfg = preset("synth_tiny").replace(use_pallas_stft=True, frame_shift=96)
+    with pytest.raises(ValueError, match="frame_length % frame_shift"):
+        tstft.masked_resynthesis(torch.zeros((1, 5, 129)),
+                                 torch.zeros((1, 5, 129)),
+                                 torch.zeros((1, 2, 5, 129)), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -410,3 +426,150 @@ def test_ops_exports_the_kernel_wrappers():
                  "istft_ri", "istft_kernel", "gru_scan", "lstm_scan"):
         assert callable(getattr(ops, name)), name
     assert ops.stft is tstft
+
+
+# ---------------------------------------------------------------------------
+# The FFT body of K4 and K10 (csrc/istft_tile.cuh) through its CPU mirror
+# ---------------------------------------------------------------------------
+
+# frames per block of the FFT body (csrc/istft_tile.cuh ISTFT_FFT_HOPS): T
+# of 1, FR and FR + 1 take the edges of its tiles
+FR = 8
+
+
+def _spectrum(seed, shape):
+    """Random Re and Im halves, nonzero in Im of bins 0 and L/2 too: every
+    route must ignore those two values."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+def _wsq(t, length, hop, window):
+    """The overlap-added window squares, float64, as the Pallas wrappers
+    build them."""
+    win = np.asarray(jwin.get_window(window, length), np.float64)
+    wsq = np.zeros((t - 1) * hop + length)
+    for ti in range(t):
+        wsq[ti * hop:ti * hop + length] += win ** 2
+    return wsq
+
+
+def _pallas_ola(out, t, length, hop, window):
+    """A Pallas iSTFT's output (center=False, default length) with its
+    window-square normalisation undone: the kernel's raw overlap-add, up to
+    one f32 rounding of the normalisation (where win^2 sums to less than
+    1e-10 both sides are ~0)."""
+    return _np(out).astype(np.float64) * _wsq(t, length, hop, window)
+
+
+ISTFT_SHAPES = [(32, 32, "sqrt_hann"), (32, 16, "hann"), (64, 16, "hann"),
+                (256, 128, "hann"), (256, 64, "sqrt_hann"),
+                (512, 128, "hann")]
+
+
+@pytest.mark.parametrize("t", [1, FR, FR + 1, 313])
+@pytest.mark.parametrize("length,hop,window", ISTFT_SHAPES)
+def test_istft_fft_mirror_matches_plain_and_pallas_istft_ri(length, hop,
+                                                            window, t):
+    """`istft_fft_mirror` (the CUDA inverse FFT body's steps in plain torch:
+    inverse split, table twiddles, Stockham stages on conj Z, window / L,
+    overlap-add in ascending t) against K10's plain version and against the
+    Pallas kernel in interpret mode, R = L/hop of 1, 2 and 4: 1e-4 max abs,
+    the DSP bar."""
+    re, im = _spectrum(40, (2, t, length // 2 + 1))
+    got = tk.istft_fft_mirror(_t(re), _t(im), length, hop, window)
+    ri = np.concatenate([re, im], axis=-1)
+    plain = tk.istft_ola_plain(_t(ri), length, hop, window)
+    assert got.shape == plain.shape == (2, (t - 1) * hop + length)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL)
+    ref = _pallas_ola(pallas_istft_ri(jnp.asarray(ri), length, hop, window,
+                                      center=False), t, length, hop, window)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("mask_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length,hop,t", [(32, 32, 1), (64, 16, FR),
+                                          (256, 128, FR + 1),
+                                          (256, 128, 313), (256, 64, 313),
+                                          (512, 128, FR + 1)])
+def test_istft_fft_mirror_matches_plain_and_pallas_masked_istft(
+        length, hop, t, mask_dtype):
+    """The mirror with masks (K4's order of work: the mask multiplied in as
+    the bins are read) against K4's plain version and against
+    `pallas_masked_istft` in interpret mode, f32 and bf16 masks (both sides
+    read the same bf16 values): 1e-4."""
+    f = length // 2 + 1
+    re, im = _spectrum(41, (2, t, f))
+    masks = torch.as_tensor(np.random.default_rng(42).uniform(
+        0, 1, (2, 3, t, f)).astype(np.float32)).to(mask_dtype)
+    got = tk.istft_fft_mirror(_t(re), _t(im), length, hop, "hann", masks)
+    plain = tk.masked_ola_plain(_t(re), _t(im), masks, length, hop, "hann")
+    assert got.shape == plain.shape == (2, 3, (t - 1) * hop + length)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL)
+    jmasks = jnp.asarray(masks.float().numpy())
+    if mask_dtype == torch.bfloat16:
+        jmasks = jmasks.astype(jnp.bfloat16)
+    ref = _pallas_ola(pallas_masked_istft(jnp.asarray(re), jnp.asarray(im),
+                                          jmasks, length, hop, "hann",
+                                          center=False), t, length, hop,
+                      "hann")
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("length", [32, 64, 256, 2048])
+def test_istft_fft_mirror_scale_is_numpys_irfft(length):
+    """One frame under a rectangular window with hop = L is the inverse real
+    DFT itself: the mirror's 1/L scale, its handling of the DC and Nyquist
+    bins (whose imaginary parts numpy's irfft, like idft_matrix, ignores)
+    and its sign conventions against float64 `numpy.fft.irfft`."""
+    re, im = _spectrum(43, (3, 1, length // 2 + 1))
+    got = tk.istft_fft_mirror(_t(re), _t(im), length, length, "rect")
+    ref = np.fft.irfft(re.astype(np.float64) + 1j * im, n=length)
+    np.testing.assert_allclose(got.numpy(), ref[:, 0], atol=1e-6, rtol=0)
+
+
+def test_istft_fft_mirror_is_closer_to_float64_than_the_matmul():
+    """An FFT sums log2 L terms per output where the matmul sums L: at the
+    serving shape (L=256, hop=128, T=313) the mirror lands within 2e-6 of a
+    float64 irfft overlap-add, closer than the plain version does."""
+    t, length, hop = 313, 256, 128
+    re, im = _spectrum(44, (2, t, length // 2 + 1))
+    win = np.asarray(twin.get_window("hann", length), np.float64)
+    frames = np.fft.irfft(re.astype(np.float64) + 1j * im, n=length) * win
+    ref = np.zeros((2, (t - 1) * hop + length))
+    for ti in range(t):
+        ref[:, ti * hop:ti * hop + length] += frames[:, ti]
+    got = tk.istft_fft_mirror(_t(re), _t(im), length, hop, "hann").numpy()
+    plain = tk.istft_ola_plain(_t(np.concatenate([re, im], -1)), length, hop,
+                               "hann").numpy()
+    err, err_plain = np.abs(got - ref).max(), np.abs(plain - ref).max()
+    assert err < 2e-6 and err < err_plain, (err, err_plain)
+
+
+@pytest.mark.parametrize("length,hop,body", [
+    (32, 32, "fft"), (32, 16, "fft"), (32, 4, "fft"), (256, 128, "fft"),
+    (256, 64, "fft"), (256, 32, "fft"), (2048, 256, "fft"),
+    (2048, 2048, "fft"), (256, 96, "direct"), (256, 16, "direct"),
+    (32, 2, "direct"), (16, 8, "direct"), (4096, 1024, "direct"),
+    (96, 48, "direct"), (1000, 250, "direct"), (256, 300, "direct")])
+def test_istft_body_shape_rule(length, hop, body):
+    """Which of the inverse tile's two bodies a shape takes on the card:
+    the FFT body for a power-of-two L in [32, 2048] whose hop divides it
+    at most 8 times, else the direct body; the mirror refuses what the
+    rule sends to the direct body."""
+    assert tk.istft_body(length, hop) == body
+    if body == "direct":
+        z = torch.zeros((1, 2, length // 2 + 1))
+        with pytest.raises(ValueError, match="power-of-two"):
+            tk.istft_fft_mirror(z, z, length, hop, "hann")
+
+
+def test_every_preset_takes_the_inverse_fft_body():
+    """Every preset's K4 and K10 shape takes the inverse FFT body, as its
+    K1 and K9 shape takes the forward one."""
+    from dl4ss_tpu_torch.config import preset_names
+    for name in preset_names():
+        cfg = preset(name)
+        assert tk.istft_body(cfg.frame_length, cfg.frame_shift) == "fft", name
