@@ -78,6 +78,10 @@ those lines; so does a machine without CUDA.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import copy
+import io
 import json
 import os
 import statistics
@@ -97,6 +101,9 @@ CLASSIFY_STEPS = 8          # steps of the classifier trainer run
 EVAL_BATCHES = 2            # held-out batches of its metric report
 WIDE = 600                  # the TDAA classifier's BiLSTM width
 BANK_UTTS = 2               # utterances per speaker in its synthetic bank
+RESUME_STEPS = 4            # steps per epoch of the save / resume runs
+LEARN_STEPS = 1000          # steps of the learning check (B=16)
+LEARN_BATCHES = 8           # held-out batches it is scored on
 
 # Published H100 SXM peaks (NVIDIA data sheet), for the bound column.
 HBM_BYTES_PER_S = 3.35e12
@@ -136,7 +143,14 @@ TOL = {"stft_features": 1e-4, "gru_fwd": 1e-4, "gru_fwd_bf16": 2e-2,
        "istft_mirror": 1e-5,
        # selected speakers are compared where the plain path's top-k
        # probabilities are further apart than this
-       "selection_gap": 1e-3}
+       "selection_gap": 1e-3,
+       # a resumed run against the unbroken one on the card: the same
+       # kernels on the same inputs in the same order; relative L2 of each
+       # parameter and moment (0 when the two are bit-equal)
+       "repeat_rel": 1e-6,
+       # the learning check: held-out teacher-forced SI-SDR after
+       # LEARN_STEPS steps must gain at least this over step 0 (dB)
+       "learning_gain_db": 1.0}
 
 
 def fail(msg: str) -> None:
@@ -264,6 +278,541 @@ def bound(nbytes: float, t_ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def quiet(fn, *args, **kwargs):
+    """Call `fn` with its standard output captured: (value, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        value = fn(*args, **kwargs)
+    return value, buf.getvalue()
+
+
+def zero_counts(torch):
+    """Set every launch counter to 0 (after the queued work is done)."""
+    from dl4ss_tpu_torch.ops import cuda_lib
+    from dl4ss_tpu_torch.ops import rnn_kernels as k2
+    from dl4ss_tpu_torch.ops import stft_kernels as k14
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.clear()
+    k2.BODY_LAUNCHES.clear()
+    k14.BODY_LAUNCHES.clear()
+
+
+def read_counts(torch, total=None):
+    """(launches by kernel, recurrent launches by (kernel, body)); the
+    launches are also added to the Counter `total` when one is given."""
+    from dl4ss_tpu_torch.ops import cuda_lib
+    from dl4ss_tpu_torch.ops import rnn_kernels as k2
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in cuda_lib.LAUNCHES.items() if c}
+    if total is not None:
+        total.update(launches)
+    return launches, {k: c for k, c in k2.BODY_LAUNCHES.items() if c}
+
+
+def expect_counts(path, got, want):
+    """Fail unless the launches `got` include exactly `want` (kernel ->
+    count; 0 means never launched)."""
+    seen = {n: got.get(n, 0) for n in want}
+    if seen != want:
+        fail(f"{path}: launched {seen}, expected {want}")
+
+
+def leaf_updates(path, before, after_g, after_c, tol, grads_g=None,
+                 grads_c=None):
+    """Every parameter's update on the card against the CPU's: the same
+    leaves moved, each within `tol` relative L2. Returns the worst.
+
+    Given the gradients each side's optimizer received (`recorded_grads`),
+    each leaf's gradient is held to `tol` too, and the update is compared
+    where the CPU gradient's sign is determined: Adam's first step moves an
+    element by ~lr * sign(g), so an element whose CPU gradient is no larger
+    than the card-vs-CPU difference of that gradient may move either way
+    on either side. Those elements are counted and printed."""
+    worst, undetermined = 0.0, {}
+    for name, ref in after_c.items():
+        want, got = ref - before[name], after_g[name] - before[name]
+        if not np.any(want):
+            if np.any(got):
+                fail(f"{path}: the card moved {name}, which the CPU left")
+            continue
+        keep = np.ones(want.shape, bool)
+        if grads_c is not None:
+            g_c, g_g = grads_c[name], grads_g[name]
+            g_rel = float(np.linalg.norm(g_g - g_c) / np.linalg.norm(g_c))
+            if not g_rel <= tol:
+                fail(f"{path}: gradient of {name} rel L2 {g_rel} exceeds "
+                     f"{tol}")
+            keep = np.abs(g_c) > np.abs(g_g - g_c)
+            if not keep.all():
+                undetermined[name] = int((~keep).sum())
+        rel = (float(np.linalg.norm((got - want)[keep])
+                     / np.linalg.norm(want[keep])) if keep.any() else 0.0)
+        worst = max(worst, rel)
+        if not rel <= tol:
+            fail(f"{path}: update of {name} rel L2 {rel} exceeds {tol}")
+    if undetermined:
+        print(f"{path}: elements whose gradient sign lies within the "
+              f"card-vs-CPU difference, left out of the update comparison: "
+              f"{undetermined}", flush=True)
+    return worst
+
+
+def recorded_grads(step, state, feats):
+    """Run `step(state, feats)`, recording by parameter name the gradients
+    that each optimizer update receives (before its clip)."""
+    from dl4ss_tpu_torch.train import state as state_mod
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    grads = {}
+    update = state_mod.Optimizer.update
+
+    def recording(self, params, g, opt_state):
+        for p, x in zip(params, g):
+            grads[names[id(p)]] = x.detach().float().cpu().numpy().copy()
+        return update(self, params, g, opt_state)
+
+    state_mod.Optimizer.update = recording
+    try:
+        return step(state, feats), grads
+    finally:
+        state_mod.Optimizer.update = update
+
+
+def close_losses(path, met_g, met_c, keys, tol):
+    for key in keys:
+        got, ref = float(met_g[key]), float(met_c[key])
+        rel = abs(got - ref) / max(abs(ref), 1e-12)
+        print(f"{path} {key}: card {got:.6f} cpu {ref:.6f} rel {rel:.3e} "
+              f"tol {tol:.0e}", flush=True)
+        if not (np.isfinite(got) and rel <= tol):
+            fail(f"{path} {key} differs: card {got}, cpu {ref}")
+
+
+def print_profile(label, fn, wall, torch, top=10):
+    """One profiled call of `fn`: device busy, idle share against `wall`,
+    the launches and the top kernels; returns {name: (launches, ms)}."""
+    names = {}
+    busy, rows, n_launch = profile_ms(torch, fn, top=top, by_name_out=names)
+    print(f"profile {label}: device busy {busy:.3f} ms of {wall:.3f} ms "
+          f"wall (idle {1 - busy / wall:.1%}), {n_launch} kernel launches",
+          flush=True)
+    for name, n, ms in rows:
+        print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
+    return names
+
+
+def persistence_phase(torch, dev, rng, tmp):
+    """9. Checkpoints on the card: run.train saves 2 epochs, --resume adds
+    a third, and the result equals an unbroken 3-epoch run; K3's packed W
+    follows a restore (masks bit-equal to those before the weights moved);
+    run.separate and run.evaluate (teacher-forced and top-k) from the
+    checkpoint."""
+    from dl4ss_tpu_torch import preset
+    from dl4ss_tpu_torch.data.synth import make_synthetic_bank
+    from dl4ss_tpu_torch.data.wavio import write_wav
+    from dl4ss_tpu_torch.models import separate
+    from dl4ss_tpu_torch.ops import stft_kernels as k14
+    from dl4ss_tpu_torch.run import evaluate as evaluate_cli
+    from dl4ss_tpu_torch.run import separate as separate_cli
+    from dl4ss_tpu_torch.run import train as train_cli
+    from dl4ss_tpu_torch.train.checkpoint import (latest_step,
+                                                  restore_checkpoint)
+    from dl4ss_tpu_torch.train.steps import make_fused_step
+    cfg = preset("torch_multi")
+    ck = os.path.join(tmp, "ck")
+    base = ["--preset", "torch_multi", "--epoch-size", str(RESUME_STEPS),
+            "--utts", str(BANK_UTTS), "--seed", str(SEED), "--device", "cuda"]
+    t0 = time.perf_counter()
+    quiet(train_cli.main, [*base, "--epochs", "2", "--checkpoint-dir", ck])
+    if latest_step(ck) != 2 * RESUME_STEPS:
+        fail(f"run.train saved step {latest_step(ck)}, expected "
+             f"{2 * RESUME_STEPS}")
+    resumed, text = quiet(train_cli.main, [*base, "--epochs", "3",
+                                           "--checkpoint-dir", ck,
+                                           "--resume"])
+    if "resuming under the checkpoint's config" not in text:
+        fail("run.train --resume did not take the checkpoint's config")
+    unbroken, _ = quiet(train_cli.main, [*base, "--epochs", "3"])
+    runs_s = time.perf_counter() - t0
+    pairs = list(zip(resumed.model.state_dict().values(),
+                     unbroken.model.state_dict().values()))
+    pairs += list(zip(resumed.opt_state.mu + resumed.opt_state.nu,
+                      unbroken.opt_state.mu + unbroken.opt_state.nu))
+    worst = max(rel_l2(a, b) for a, b in pairs)
+    bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    print(f"resume: 2 epochs + --resume 1 against 3 unbroken epochs of "
+          f"{RESUME_STEPS} steps: step {resumed.step} and {unbroken.step}, "
+          f"{len(pairs)} tensors, worst rel L2 {worst:.3e} tol "
+          f"{TOL['repeat_rel']:.0e}, bit-equal {bit_equal} ({runs_s:.1f} s "
+          f"for the three runs)", flush=True)
+    if resumed.step != unbroken.step or not worst <= TOL["repeat_rel"]:
+        fail(f"the resumed run differs from the unbroken one: {worst}")
+    if not torch.equal(resumed.generator.get_state(),
+                       unbroken.generator.get_state()):
+        fail("the resumed run's batch generator is not the unbroken one's")
+
+    # K3 packs W once per weight version: a train step moves W, and the
+    # restore writes the saved W back in place; both must repack
+    wav = torch.as_tensor(rng.uniform(-1, 1, (BATCH, N_SAMPLES)).astype(
+        np.float32), device=dev)
+    spk = torch.as_tensor(rng.integers(0, cfg.num_speakers, (BATCH, 2)),
+                          device=dev)
+    feat = k14.stft_features(wav, cfg.frame_length, cfg.frame_shift)[0]
+
+    def masks():
+        with torch.no_grad():
+            return separate(resumed.model, feat, cfg, spk_idx=spk).masks
+    bank = torch.as_tensor(make_synthetic_bank(
+        SEED, cfg.num_speakers, BANK_UTTS, N_SAMPLES), device=dev)
+    m_saved = masks()
+    make_fused_step(cfg)(resumed, bank)
+    m_moved = masks()
+    zero_counts(torch)
+    restore_checkpoint(ck, resumed)
+    m_restored = masks()
+    launches, _ = read_counts(torch)
+    print(f"K3 after a restore: masks bit-equal to those before the train "
+          f"step {torch.equal(m_saved, m_restored)}, changed by the step "
+          f"{not torch.equal(m_saved, m_moved)}; launches of the restored "
+          f"call {launches}", flush=True)
+    if torch.equal(m_saved, m_moved) or not torch.equal(m_saved, m_restored):
+        fail("K3's masks after the restore are not those before the step")
+    # the restore wrote W in place: one repack, then K3
+    expect_counts("K3 after a restore", launches,
+                  {"maskhead_fwd": 1, "maskhead_pack": 1})
+
+    # the separation and evaluation CLIs from the checkpoint
+    paths = []
+    for i in range(2):
+        paths.append(os.path.join(tmp, f"ck_mix{i}.wav"))
+        write_wav(paths[-1], rng.uniform(-0.5, 0.5, N_SAMPLES),
+                  cfg.frame_rate)
+    out_dir = os.path.join(tmp, "ck_out")
+    zero_counts(torch)
+    _, text = quiet(separate_cli.main, [*paths, "--checkpoint-dir", ck,
+                                        "--out", out_dir, "--device",
+                                        "cuda"])
+    launches, _ = read_counts(torch)
+    wrote = sorted(os.listdir(out_dir))
+    print(f"run.separate --checkpoint-dir: {text.splitlines()[0]}; wrote "
+          f"{len(wrote)} wavs; launches {launches}", flush=True)
+    if len(wrote) != 4 or "restored step" not in text:
+        fail(f"run.separate from the checkpoint wrote {wrote}")
+    expect_counts("run.separate --checkpoint-dir", launches, {
+        "stft_features": 1, "gru_fwd": cfg.encoder_layers,
+        "lstm_fwd": cfg.classifier_layers, "maskhead_fwd": 1,
+        "masked_istft": 1})
+    scores = {}
+    for label, extra in (("teacher-forced", ["--teacher-forced"]),
+                         ("top-k", [])):
+        scores[label], text = quiet(evaluate_cli.main, [
+            "--checkpoint-dir", ck, "--batches", "2", "--utts",
+            str(BANK_UTTS), "--seed", str(SEED), "--device", "cuda", *extra])
+        print(f"run.evaluate --checkpoint-dir {label}: "
+              f"{text.strip().splitlines()[-1]}", flush=True)
+        if not np.isfinite(scores[label]):
+            fail(f"run.evaluate {label}: SI-SDR {scores[label]}")
+    return {"resume_bit_equal": bit_equal, "resume_worst_rel": worst}
+
+
+def tdaa_phase(torch, dev, rng, wav, reqs):
+    """10. TDAA at full width: the tdaa preset (4-layer BiLSTM-300 encoder,
+    ADDJUST, discriminator, classifier BiLSTM at 2H = 600) serving a B=16
+    batch and a B=1 request with given and with classifier-selected
+    speakers against the plain path; one dense and one adversarial step on
+    the card against the same steps on the CPU; remat's gradients against
+    remat=False's; tdaa_crm serving one request and taking one dense step;
+    tdaa_recursive peeling a request in two steps; and the timings.
+    Returns the launches by kernel of those paths (remat's comparison and
+    the timing runs not counted)."""
+    from dl4ss_tpu_torch import preset
+    from dl4ss_tpu_torch.data.synth import (featurize, make_synthetic_bank,
+                                            sample_mixtures)
+    from dl4ss_tpu_torch.models import init_separator
+    from dl4ss_tpu_torch.ops import rnn_kernels as k2
+    from dl4ss_tpu_torch.serve import (recursive_waveforms,
+                                       select_and_separate,
+                                       separate_waveforms)
+    from dl4ss_tpu_torch.train.state import create_train_state
+    from dl4ss_tpu_torch.train.steps import (_separation_loss,
+                                             make_adversarial_step,
+                                             make_classifier_step,
+                                             make_dense_train_step)
+    from dl4ss_tpu_torch.weights import export_jax_params, flatten_tree
+    cfg = preset("tdaa")
+    flags_off = dict(use_pallas_stft=False, use_pallas_rnn=False,
+                     use_pallas_maskhead=False)
+    plain = cfg.replace(**flags_off)
+    K, layers, clayers = cfg.top_k, cfg.encoder_layers, cfg.classifier_layers
+    res, step_ = k2.BODY_RESIDENT, k2.BODY_STEPWISE
+    model = init_separator(cfg, torch.Generator().manual_seed(SEED), dev)
+    total = collections.Counter()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"tdaa: {n_params} parameters ({layers}-layer BiLSTM-"
+          f"{cfg.hidden_units} encoder, ADDJUST, discriminator, "
+          f"{clayers}-layer BiLSTM-"
+          f"{cfg.hidden_units * cfg.classifier_hidden_mult} classifier)",
+          flush=True)
+    w1, s1 = reqs[0]
+    spk = torch.as_tensor(rng.integers(0, cfg.num_speakers, (BATCH, K)),
+                          device=dev)
+
+    def compare(path, got, ref):
+        rel = rel_l2(got, ref)
+        print(f"{path}: rel_l2_vs_plain={rel:.3e} tol_rel="
+              f"{TOL['end_to_end_rel']:.0e}", flush=True)
+        if not bool(torch.isfinite(got).all()) or not rel <= TOL[
+                "end_to_end_rel"]:
+            fail(f"{path} differs from the plain path: {rel}")
+
+    # serving, given speakers: K1, K7 on the encoder (resident), K3 on
+    # the ADDJUST queries, K4
+    zero_counts(torch)
+    out16 = separate_waveforms(model, wav, cfg, spk, length=N_SAMPLES)
+    out1 = separate_waveforms(model, w1, cfg, s1, length=N_SAMPLES)
+    launches, bodies = read_counts(torch, total)
+    print(f"tdaa given-speaker serving (B={BATCH} + B=1): launches "
+          f"{launches}, bodies {bodies}", flush=True)
+    expect_counts("tdaa given-speaker serving", launches, {
+        "stft_features": 2, "lstm_fwd": 2 * layers, "maskhead_fwd": 2,
+        "masked_istft": 2, "lstm_bwd": 0})
+    if bodies != {("lstm_fwd", res): 2 * layers}:
+        fail(f"tdaa given-speaker serving ran the bodies {bodies}")
+    compare(f"tdaa given B={BATCH}", out16, separate_waveforms(
+        model, wav, plain, spk, length=N_SAMPLES))
+    compare("tdaa given B=1", out1, separate_waveforms(
+        model, w1, plain, s1, length=N_SAMPLES))
+
+    # classifier-selected: the classifier's BiLSTM-600 on K7's stepwise
+    # body. Rows whose plain top-k is clear must pick the same speakers;
+    # the waveforms are compared with the plain path's speakers forced
+    zero_counts(torch)
+    sel16, spk16 = select_and_separate(model, wav, cfg, length=N_SAMPLES)
+    sel1, spk1 = select_and_separate(model, w1, cfg, length=N_SAMPLES)
+    launches, bodies = read_counts(torch, total)
+    print(f"tdaa classifier-selected serving: launches {launches}, bodies "
+          f"{bodies}", flush=True)
+    expect_counts("tdaa classifier-selected serving", launches, {
+        "stft_features": 2, "lstm_fwd": 2 * (layers + clayers),
+        "maskhead_fwd": 2, "masked_istft": 2})
+    if bodies != {("lstm_fwd", res): 2 * layers,
+                  ("lstm_fwd", step_): 2 * clayers}:
+        fail(f"tdaa classifier-selected serving ran the bodies {bodies}")
+    for label, mix, got_wav, got_spk in ((f"B={BATCH}", wav, sel16, spk16),
+                                         ("B=1", w1, sel1, spk1)):
+        ref_wav, ref_spk = select_and_separate(model, mix, plain,
+                                               length=N_SAMPLES)
+        if not torch.equal(got_spk, ref_spk):
+            print(f"tdaa selected {label}: speakers {got_spk.tolist()} "
+                  f"(plain {ref_spk.tolist()})", flush=True)
+        forced = separate_waveforms(model, mix, cfg, ref_spk,
+                                    length=N_SAMPLES)
+        compare(f"tdaa selected {label} (the plain path's speakers)",
+                forced, ref_wav)
+        same = got_spk == ref_spk
+        if bool(same.all(dim=-1).any()):
+            rows = same.all(dim=-1)
+            if max_err(got_wav[rows], forced[rows]) > 1e-6:
+                fail(f"tdaa selected {label}: the selected run and the run "
+                     f"forced to the same speakers differ")
+
+    # one dense and one adversarial step on the card against the CPU
+    bank = torch.as_tensor(make_synthetic_bank(
+        SEED, cfg.num_speakers, BANK_UTTS, N_SAMPLES), device=dev)
+    feats = featurize(sample_mixtures(torch.Generator().manual_seed(SEED),
+                                      bank, cfg), cfg)
+    cpu_feats = {k: v.cpu() for k, v in feats.items()}
+
+    def leaves(m):
+        return dict(flatten_tree(export_jax_params(m)))
+
+    for name, make, keys, want in (
+            ("dense", make_dense_train_step, ("loss", "mask_loss"),
+             {"lstm_fwd": layers, "lstm_bwd": layers, "maskhead_fwd": 0,
+              "maskhead_bwd": 0}),
+            ("adversarial", make_adversarial_step,
+             ("d_loss", "g_loss", "mask_loss", "sum_loss"),
+             {"lstm_fwd": 2 * layers, "lstm_bwd": layers,
+              "maskhead_fwd": 2, "maskhead_bwd": 1})):
+        twin = copy.deepcopy(model).to("cpu")
+        before = leaves(model)
+        step = make(cfg)
+        zero_counts(torch)
+        t0 = time.perf_counter()
+        (_, met_g), grads_g = recorded_grads(
+            step, create_train_state(cfg, model=model), feats)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        launches, bodies = read_counts(torch, total)
+        t0 = time.perf_counter()
+        (_, met_c), grads_c = recorded_grads(
+            step, create_train_state(cfg, model=twin, device="cpu"),
+            cpu_feats)
+        t_cpu = time.perf_counter() - t0
+        print(f"tdaa {name} step: launches {launches}, bodies {bodies} "
+              f"(card {t_card:.2f} s incl. warm-up, CPU {t_cpu:.2f} s)",
+              flush=True)
+        expect_counts(f"tdaa {name} step", launches, want)
+        if set(bodies) != {("lstm_fwd", res), ("lstm_bwd", res)}:
+            fail(f"tdaa {name} step ran the bodies {bodies}")
+        close_losses(f"tdaa {name} step", met_g, met_c, keys,
+                     TOL["train_loss_rel"])
+        worst = leaf_updates(f"tdaa {name} step", before, leaves(model),
+                             leaves(twin), TOL["train_update_rel"],
+                             grads_g, grads_c)
+        print(f"tdaa {name} step: {len(grads_c)} gradients and updates, "
+              f"worst update rel L2 {worst:.3e} tol "
+              f"{TOL['train_update_rel']:.0e}", flush=True)
+
+    # the classifier trainer on tdaa: K7 and K8 at H=600, stepwise
+    zero_counts(torch)
+    make_classifier_step(cfg)(create_train_state(cfg, model=model), feats)
+    launches, bodies = read_counts(torch, total)
+    print(f"tdaa classifier step: launches {launches}, bodies {bodies}",
+          flush=True)
+    if bodies != {("lstm_fwd", step_): clayers, ("lstm_bwd", step_): clayers}:
+        fail(f"tdaa classifier step ran the bodies {bodies}")
+
+    # remat: the same gradients, bit for bit, from a recompute of each
+    # encoder layer (K7 again) in the backward; the peak memory of each
+    grads, peaks, counts = {}, {}, {}
+    for remat in (False, True):
+        c = cfg.replace(remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(torch)
+        loss, _ = _separation_loss(model, feats, c)
+        params = [p for n, p in model.named_parameters()
+                  if not n.startswith("discriminator.")]
+        grads[remat] = torch.autograd.grad(loss, params, allow_unused=True)
+        counts[remat], _ = read_counts(torch)
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 20
+    same = all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(grads[False], grads[True]))
+    print(f"tdaa remat: gradients bit-equal {same}; peak memory "
+          f"{peaks[False]:.1f} MiB without, {peaks[True]:.1f} MiB with; "
+          f"launches without {counts[False]}, with {counts[True]}",
+          flush=True)
+    if not same:
+        fail("remat's gradients differ from remat=False's")
+    if counts[True].get("lstm_fwd") != 2 * layers:
+        fail(f"remat did not recompute the encoder layers: {counts[True]}")
+
+    # tdaa_crm: one request (K1, K7; the plain cRM head and the plain
+    # iSTFT, as in JAX) and one dense step
+    ccfg = preset("tdaa_crm")
+    cmodel = init_separator(ccfg, torch.Generator().manual_seed(SEED), dev)
+    zero_counts(torch)
+    crm1 = separate_waveforms(cmodel, w1, ccfg, s1, length=N_SAMPLES)
+    launches, _ = read_counts(torch, total)
+    print(f"tdaa_crm request: launches {launches}", flush=True)
+    expect_counts("tdaa_crm request", launches, {
+        "stft_features": 1, "lstm_fwd": layers, "maskhead_fwd": 0,
+        "masked_istft": 0})
+    compare("tdaa_crm B=1", crm1, separate_waveforms(
+        cmodel, w1, ccfg.replace(**flags_off), s1, length=N_SAMPLES))
+    cfeats = featurize(sample_mixtures(torch.Generator().manual_seed(SEED),
+                                       bank, ccfg), ccfg)
+    zero_counts(torch)
+    _, cmet = make_dense_train_step(ccfg)(
+        create_train_state(ccfg, model=cmodel), cfeats)
+    launches, _ = read_counts(torch, total)
+    print(f"tdaa_crm dense step: loss {float(cmet['loss']):.6f}, launches "
+          f"{launches}", flush=True)
+    if not np.isfinite(float(cmet["loss"])):
+        fail(f"tdaa_crm dense step loss {cmet['loss']}")
+    expect_counts("tdaa_crm dense step", launches,
+                  {"lstm_fwd": layers, "lstm_bwd": layers})
+
+    # tdaa_recursive: one two-step peel of a request
+    rcfg = preset("tdaa_recursive")
+    rmodel = init_separator(rcfg, torch.Generator().manual_seed(SEED), dev)
+    zero_counts(torch)
+    rec, rspk = recursive_waveforms(rmodel, w1, rcfg, length=N_SAMPLES)
+    launches, bodies = read_counts(torch, total)
+    steps = rcfg.recursive_max_steps
+    print(f"tdaa_recursive: speakers {rspk.tolist()}, launches {launches}, "
+          f"bodies {bodies}", flush=True)
+    expect_counts("tdaa_recursive peel", launches,
+                  {"stft_features": 1, "lstm_fwd": steps * (layers + clayers)})
+    ref, ref_spk = recursive_waveforms(rmodel, w1, rcfg.replace(**flags_off),
+                                       length=N_SAMPLES)
+    if not torch.equal(rspk, ref_spk):
+        fail(f"tdaa_recursive peeled {rspk.tolist()}, the plain path "
+             f"{ref_spk.tolist()}")
+    compare("tdaa_recursive two-step peel", rec, ref)
+
+    # timing: the B=16 batch, the B=1 request (given and selected
+    # speakers), the dense and the adversarial step (each on a batch drawn
+    # and featurized in the step)
+    timing = {}
+    with torch.inference_mode():
+        for label, fn in (
+                (f"tdaa B={BATCH} batch", lambda: separate_waveforms(
+                    model, wav, cfg, spk, length=N_SAMPLES)),
+                ("tdaa B=1 request", lambda: separate_waveforms(
+                    model, w1, cfg, s1, length=N_SAMPLES)),
+                (f"tdaa selected B={BATCH} batch", lambda: separate_waveforms(
+                    model, wav, cfg, length=N_SAMPLES)),
+                ("tdaa selected B=1 request", lambda: separate_waveforms(
+                    model, w1, cfg, length=N_SAMPLES))):
+            wall = host_ms(torch, fn, 10)
+            timing[label] = wall
+            print_profile(label, fn, wall, torch)
+    state = create_train_state(cfg, model=model)
+    for label, make in (("tdaa dense step", make_dense_train_step),
+                        ("tdaa adversarial step", make_adversarial_step)):
+        step = make(cfg)
+
+        def run(step=step):
+            return step(state, featurize(sample_mixtures(
+                state.generator, bank, cfg), cfg))
+        wall = host_ms(torch, run, 10)
+        timing[label] = wall
+        names = print_profile(label, run, wall, torch, top=12)
+        chains = {key: sum(n for k, (n, _) in names.items()
+                           if key in k and "Lstm" in k)
+                  for key in ("fwd_chain", "bwd_chain")}
+        print(f"profile {label}: K7 chain launches {chains['fwd_chain']}, "
+              f"K8 chain launches {chains['bwd_chain']}", flush=True)
+        want_fwd = layers * (2 if "adversarial" in label else 1)
+        if chains != {"fwd_chain": want_fwd, "bwd_chain": layers}:
+            fail(f"profile {label}: LSTM chain kernels {chains}")
+    print("tdaa: " + ", ".join(f"{k} {v:.3f} ms" for k, v in timing.items())
+          + f" (B={BATCH}: {BATCH / timing[f'tdaa B={BATCH} batch'] * 1e3:.1f}"
+          f" mixtures/s served)", flush=True)
+    return total
+
+
+def learning_phase(torch, tmp):
+    """11. The learning check: run.train --preset torch_multi for
+    LEARN_STEPS steps from scratch, then run.evaluate's teacher-forced
+    held-out SI-SDR of the checkpoint against step 0 (the same seed's
+    initial weights) on the same held-out batches."""
+    from dl4ss_tpu_torch.run import evaluate as evaluate_cli
+    from dl4ss_tpu_torch.run import train as train_cli
+    ck = os.path.join(tmp, "learn")
+    common = ["--preset", "torch_multi", "--seed", str(SEED), "--device",
+              "cuda"]
+    score = ["--teacher-forced", "--batches", str(LEARN_BATCHES)]
+    before, _ = quiet(evaluate_cli.main, [*common, *score])
+    t0 = time.perf_counter()
+    quiet(train_cli.main, [*common, "--epochs", "1", "--epoch-size",
+                           str(LEARN_STEPS), "--eval-every", "0",
+                           "--checkpoint-dir", ck])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    after, _ = quiet(evaluate_cli.main, [*common, *score,
+                                         "--checkpoint-dir", ck])
+    gain = after - before
+    print(f"learning: held-out teacher-forced SI-SDR {before:.3f} dB at "
+          f"step 0, {after:.3f} dB after {LEARN_STEPS} B={BATCH} steps "
+          f"({train_s:.1f} s), gain {gain:.3f} dB (at least "
+          f"{TOL['learning_gain_db']} required; {LEARN_BATCHES} batches)",
+          flush=True)
+    if not gain >= TOL["learning_gain_db"]:
+        fail(f"the port did not learn: {before} -> {after} dB")
 
 
 def main() -> int:
@@ -823,8 +1372,6 @@ def main() -> int:
             check_resident("recursive CLI", name, count)
 
     # ---- 6. train step: kernel route on the card against the CPU --------
-    import copy
-
     from dl4ss_tpu_torch.data.synth import (featurize, make_synthetic_bank,
                                             sample_mixtures)
     from dl4ss_tpu_torch.train.state import create_train_state
@@ -990,9 +1537,6 @@ def main() -> int:
         fail(f"trainer launched K6 {train_launches['maskhead_bwd']} times")
 
     # the classifier trainer: run.classify at full width, then its report
-    import contextlib
-    import io
-
     from dl4ss_tpu_torch.run import classify as classify_cli
 
     closses = []
@@ -1507,6 +2051,20 @@ def main() -> int:
           f"B=1 request; plain path {plain_batch_ms:.3f} ms per B={BATCH} "
           f"batch", flush=True)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 9. persistence ----------------------------------------------
+        persistence_phase(torch, dev, rng, tmp)
+        # ---- 10. TDAA at full width ----------------------------------------
+        tdaa_launches = tdaa_phase(torch, dev, rng, wav, reqs)
+        # ---- 11. the learning check ----------------------------------------
+        learning_phase(torch, tmp)
+
+    for row in kernels:
+        # the kernel's launches on the tdaa paths (phase 10), beside those
+        # of the torch_multi paths in `launches` (the dW + dh products run
+        # once per K6 launch)
+        name = "maskhead_bwd" if row.get("yardstick") else row["name"]
+        row["tdaa_launches"] = tdaa_launches.get(name, 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

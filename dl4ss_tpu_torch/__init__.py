@@ -7,10 +7,12 @@ against). It imports torch, numpy and scipy, never jax and nothing of
 Layout mirrors the JAX package so each counterpart is found by name:
   ops/     DSP (STFT / iSTFT), recurrences, and the hand-written CUDA kernel
            wrappers (`*_kernels.py`; sources in csrc/)
-  models/  encoder, embedding, mask heads, classifier, separator
+  models/  encoder, embedding, mask heads (sigmoid and cRM), classifier,
+           ADDJUST, discriminator, separator
   objectives/, eval/, train/  losses and selection, metrics, the trainers
+           and their checkpoints
   data/    wav I/O, resampling, the synthetic bank (numpy / scipy)
-  run/     CLI entry points (separate, train, classify)
+  run/     CLI entry points (separate, train, classify, evaluate)
   serve.py the serving programs: wav -> STFT features -> separate -> iSTFT,
            with given or classifier-selected speakers, and the recursive peel
   weights.py  load a JAX parameter pytree into the port's modules

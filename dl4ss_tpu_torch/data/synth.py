@@ -173,3 +173,28 @@ def featurize(batch: MixtureBatch, cfg: Config) -> dict:
         out["src_ri"] = torch.stack([src_re, src_im], dim=-1)  # (B,K,T,F,2)
     out["src_feas"] = src_feat                      # (B, K, T, F)
     return out
+
+
+def same_speaker_real_specs(generator: torch.Generator, batch: MixtureBatch,
+                            bank: torch.Tensor, cfg: Config,
+                            offsets: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """dis-sp "real" pool: for each mixed speaker, the clean magnitude
+    spectrogram of a DIFFERENT utterance of the same speaker
+    (predata_fromList_dis.py:37-66, consumed by main_run_sstune_dis_sp).
+    The utterance is the mixed one's row plus an offset in [1, U-1], so the
+    mixed utterance itself is never the "real" sample; `offsets` (B, K)
+    gives them, else they are drawn from `generator`. With one utterance
+    per speaker (or no utterance rows) a row is drawn at random. The plain
+    STFT, as in JAX. Returns (B, K, T, F) for feats["real_specs"]."""
+    b, k = batch.spk_idx.shape
+    u = bank.shape[1]
+    dev = bank.device
+    if batch.utt_idx is not None and u > 1:
+        if offsets is None:
+            offsets = torch.randint(1, u, (b, k), generator=generator)
+        utt = (batch.utt_idx + offsets.to(dev)) % u
+    else:
+        utt = torch.randint(0, u, (b, k), generator=generator).to(dev)
+    wavs = normalize_utterance(bank[batch.spk_idx, utt])
+    return stft_cfg(wavs, cfg).abs()

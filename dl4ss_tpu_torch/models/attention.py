@@ -3,7 +3,9 @@
 The port of `dl4ss_tpu/models/attention.py`:
   * `dot`:   sigmoid(<emb_map[b,t,f,:], query[b,k,:]>) over the (T, F) grid
   * `align`: sigmoid(v . tanh(W1 g + W2 q)) additive attention
-The complex-ratio-mask (cRM) variants come with TDAA (ROADMAP P9).
+  * cRM variants: the query is split in two halves; each half produces one
+    channel of a K*tanh-bounded complex mask (B, K, T, F, 2)
+    (TDAA_beta/main_run_sstune_cRM_EvalVer.py:229-303).
 """
 
 from __future__ import annotations
@@ -60,13 +62,17 @@ def _align_energy(params: MaskHead, emb_map: torch.Tensor,
 
 def apply_mask_head(params: MaskHead, emb_map: torch.Tensor,
                     queries: torch.Tensor, cfg: Config) -> torch.Tensor:
-    """emb_map (B,T,F,E), queries (B,K,E) -> (B,K,T,F) sigmoid masks."""
-    if cfg.is_complex_mask:
-        raise NotImplementedError(
-            "the complex-ratio-mask head is not ported yet (TDAA, ROADMAP "
-            "P9)")
-    if cfg.mask_head == "dot":
-        energy = _dot_energy(emb_map, queries)
-    else:
-        energy = _align_energy(params, emb_map, queries)
-    return torch.sigmoid(energy)
+    """emb_map (B,T,F,E), queries (B,K,Q) -> (B,K,T,F) sigmoid masks, or
+    (B,K,T,F,2) K*tanh-bounded compressed cRM masks when
+    cfg.is_complex_mask (one channel per half of the doubled query,
+    main_run_sstune_cRM_EvalVer.py:259-270)."""
+    def energy(q):
+        if cfg.mask_head == "dot":
+            return _dot_energy(emb_map, q)
+        return _align_energy(params, emb_map, q)
+
+    if not cfg.is_complex_mask:
+        return torch.sigmoid(energy(queries))
+    e = cfg.embedding_size
+    return cfg.crm_k * torch.tanh(torch.stack(
+        [energy(queries[..., :e]), energy(queries[..., e:])], dim=-1))

@@ -16,7 +16,7 @@ from torch import nn
 
 from dl4ss_tpu_torch.config import Config
 from dl4ss_tpu_torch.device import resolve_device
-from dl4ss_tpu_torch.models.common import linear, linear_init, refuse_remat
+from dl4ss_tpu_torch.models.common import linear, linear_init
 from dl4ss_tpu_torch.ops.rnn import bidirectional_rnn, rnn_init
 
 
@@ -24,7 +24,6 @@ class Classifier(nn.Module):
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
-        refuse_remat(cfg)
         device = resolve_device(device)
         width = cfg.hidden_units * cfg.classifier_hidden_mult
         self.rnn = rnn_init(cfg.classifier_rnn, cfg.freq_bins, width,
@@ -49,8 +48,7 @@ def apply_classifier(params: Classifier, feat: torch.Tensor, cfg: Config,
                      logits: bool = False) -> torch.Tensor:
     """feat (B, T, F) -> per-speaker presence probabilities (B, S), or the
     logits before the sigmoid."""
-    refuse_remat(cfg)
     hidden = bidirectional_rnn(params.rnn, feat, cfg.classifier_rnn,
-                               use_pallas=cfg.use_pallas_rnn)
+                               use_pallas=cfg.use_pallas_rnn, remat=cfg.remat)
     out = linear(params.out, hidden.mean(dim=1))
     return out if logits else torch.sigmoid(out)

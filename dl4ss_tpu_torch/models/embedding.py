@@ -1,8 +1,9 @@
 """Speaker embedding table (the port of `dl4ss_tpu/models/embedding.py`).
 
 An (num_speakers, Q) table — Q = 2E for the cRM dual-query path — read by
-direct gather (`apply_embedding`). The all-speaker gated read comes with
-the dense channel layout (training, ROADMAP P6).
+direct gather (`apply_embedding`, the dB/TDAA signature) or, for the dense
+all-speaker channel layout, by the gated read (`apply_embedding_gated`,
+main_run.py:307-327).
 """
 
 from __future__ import annotations
@@ -37,3 +38,15 @@ def apply_embedding(params: Embedding, spk_idx: torch.Tensor) -> torch.Tensor:
     """(B, K) int -> (B, K, Q)."""
     return params.table[spk_idx]
 
+
+
+def apply_embedding_gated(params: Embedding, channel_gate: torch.Tensor
+                          ) -> torch.Tensor:
+    """channel_gate (B, S) in {0,1} -> (B, S, Q), zeroed where the gate is
+    0: every speaker owns a channel, absent ones read row 0 and are
+    zeroed (main_run.py:307-327)."""
+    s = params.table.shape[0]
+    idx = (torch.arange(s, device=channel_gate.device)[None, :]
+           * channel_gate.to(torch.int64))
+    emb = params.table[idx]
+    return emb * channel_gate[..., None].to(emb.dtype)

@@ -14,7 +14,7 @@ from torch import nn
 
 from dl4ss_tpu_torch.config import Config
 from dl4ss_tpu_torch.device import resolve_device
-from dl4ss_tpu_torch.models.common import linear, linear_init, refuse_remat
+from dl4ss_tpu_torch.models.common import linear, linear_init
 from dl4ss_tpu_torch.ops.rnn import bidirectional_rnn, rnn_init
 
 
@@ -22,7 +22,6 @@ class Encoder(nn.Module):
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
-        refuse_remat(cfg)
         device = resolve_device(device)
         self.rnn = rnn_init(cfg.encoder_rnn, cfg.freq_bins, cfg.hidden_units,
                             cfg.encoder_layers, generator, device=device)
@@ -41,9 +40,8 @@ def encoder_hidden(params: Encoder, feat: torch.Tensor, cfg: Config
                    ) -> torch.Tensor:
     """feat (B, T, F) -> recurrent hidden (B, T, 2H): the RNN half alone,
     which the fused mask head consumes without the embedding grid."""
-    refuse_remat(cfg)
     return bidirectional_rnn(params.rnn, feat, cfg.encoder_rnn,
-                             use_pallas=cfg.use_pallas_rnn)
+                             use_pallas=cfg.use_pallas_rnn, remat=cfg.remat)
 
 
 def embedding_map(params: Encoder, hidden: torch.Tensor, cfg: Config

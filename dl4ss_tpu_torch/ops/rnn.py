@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dl4ss_tpu_torch.device import resolve_device
 from dl4ss_tpu_torch.ops.rnn_kernels import (gru_scan, gru_scan_plain,
@@ -175,10 +176,18 @@ def _run_layer_bidir(fwd: Cell, bwd: Cell, x: torch.Tensor, cell: str
 
 
 def bidirectional_rnn(layers: nn.ModuleList, x: torch.Tensor, cell: str,
-                      use_pallas: bool = False) -> torch.Tensor:
+                      use_pallas: bool = False, remat: bool = False
+                      ) -> torch.Tensor:
     """Multi-layer BiRNN: (B, T, D) -> (B, T, 2H). `use_pallas` takes the
-    kernel route (the config's use_pallas_rnn flag)."""
+    kernel route (the config's use_pallas_rnn flag). `remat` (cfg.remat,
+    JAX's `jax.checkpoint` per layer) keeps only each layer's input for the
+    backward and runs the layer again there: on the kernel route the
+    recompute relaunches K2 / K7 before K5 / K8."""
     run = _run_layer_bidir_kernel if use_pallas else _run_layer_bidir
     for layer in layers:
-        x = run(layer.fwd, layer.bwd, x, cell)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(run, layer.fwd, layer.bwd, x, cell,
+                           use_reentrant=False)
+        else:
+            x = run(layer.fwd, layer.bwd, x, cell)
     return x

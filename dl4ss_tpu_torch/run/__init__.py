@@ -1,6 +1,11 @@
 """CLI entry points of the port.
 
   python -m dl4ss_tpu_torch.run.separate  — separate mixture wav(s) into
-                                            given speakers (top-k)
-  python -m dl4ss_tpu_torch.run.train     — train the separator (joint mode)
+                                            given or classifier-picked
+                                            speakers (top-k or recursive)
+  python -m dl4ss_tpu_torch.run.train     — train the separator (joint,
+                                            dense, adversarial) or the
+                                            classifier
+  python -m dl4ss_tpu_torch.run.classify  — train / evaluate the classifier
+  python -m dl4ss_tpu_torch.run.evaluate  — score a checkpoint by SI-SDR
 """

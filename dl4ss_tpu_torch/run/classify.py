@@ -6,13 +6,16 @@ the reference's metric suite on held-out batches: element/sample accuracy,
 top-k recall (the '80% top-3 recall' number), hamming loss, micro/macro
 P/R/F1.
 
-    python -m dl4ss_tpu_torch.run.classify --preset torch_multi --epochs 5
+    python -m dl4ss_tpu_torch.run.classify --preset torch_multi --epochs 5 \
+        --checkpoint-dir ck_cls
+    python -m dl4ss_tpu_torch.run.classify --eval-only --checkpoint-dir ck_cls
     python -m dl4ss_tpu_torch.run.classify --preset synth_tiny --device cpu \
         --epochs 1 --epoch-size 2 --eval-batches 1
 
-Not ported yet, each exiting with a one-line message: `--list-dir` (the
-wsj0-mix lists, ROADMAP P10) and `--eval-only` / `--checkpoint-dir` (the
-port's checkpoints, ROADMAP P7).
+`--checkpoint-dir` saves the trained state there; with `--eval-only` the
+CLI restores its latest step (under its cfg.json) instead of training and
+reports the metric suite. Not ported yet, exiting with a one-line message:
+`--list-dir` (the wsj0-mix lists, ROADMAP P10).
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from dl4ss_tpu_torch.eval.classifier_metrics import (multilabel_accuracy,
                                                      multilabel_prf,
                                                      topk_recall)
 from dl4ss_tpu_torch.models.separator import classify_speakers
-from dl4ss_tpu_torch.run.common import add_common_args, build_cfg, load_bank
+from dl4ss_tpu_torch.run.common import (add_common_args, build_cfg,
+                                        checkpoint_cfg, load_bank,
+                                        restore_for_eval)
 from dl4ss_tpu_torch.train.loop import train_loop
 
 
@@ -43,22 +48,29 @@ def main(argv=None):
                         "ROADMAP P10)")
     p.add_argument("--eval-only", action="store_true",
                    help="restore --checkpoint-dir and report the metric "
-                        "suite (not ported yet, ROADMAP P7)")
+                        "suite without training")
     args = p.parse_args(argv)
     if args.list_dir:
         raise SystemExit("--list-dir (the wsj0-mix lists) is not ported yet "
                          "(ROADMAP P10); omit it for the synthetic bank")
-    if args.eval_only or args.checkpoint_dir:
-        raise SystemExit("--eval-only / --checkpoint-dir wait for the port's "
-                         "checkpoints (ROADMAP P7)")
+    if args.eval_only and not args.checkpoint_dir:
+        raise SystemExit("--eval-only restores --checkpoint-dir; pass one")
 
     cfg = build_cfg(args)
+    if args.eval_only:
+        # the state shapes come from the training config; the CLI's
+        # overrides win on top
+        cfg = checkpoint_cfg(cfg, args)
     device = resolve_device(args.device)
     bank = load_bank(cfg, args, device)
-    state, _ = train_loop(cfg, bank=bank, max_epochs=args.epochs,
-                          epoch_size=args.epoch_size, seed=args.seed,
-                          mode="classifier", metrics_path=args.metrics,
-                          eval_every=0, device=device)
+    if args.eval_only:
+        state = restore_for_eval(cfg, args, device)
+    else:
+        state, _ = train_loop(cfg, bank=bank, max_epochs=args.epochs,
+                              epoch_size=args.epoch_size, seed=args.seed,
+                              mode="classifier", metrics_path=args.metrics,
+                              checkpoint_dir=args.checkpoint_dir,
+                              eval_every=0, device=device)
 
     # held-out metrics (the test_multi_labels_speech_metrics.py report)
     probs_all, targets_all = [], []

@@ -1,11 +1,12 @@
-"""Shared CLI plumbing: preset selection + overrides + data source (the
-port of `dl4ss_tpu/run/common.py`), plus the `--device` flag. The bank is
-the synthetic one; real speaker trees (`--data-root`) wait for the data
-sources (ROADMAP P10)."""
+"""Shared CLI plumbing: preset selection + overrides + data source + the
+checkpoint-zoo graft (the port of `dl4ss_tpu/run/common.py`), plus the
+`--device` flag. The bank is the synthetic one; real speaker trees
+(`--data-root`) wait for the data sources (ROADMAP P10)."""
 
 from __future__ import annotations
 
 import argparse
+from typing import Optional
 
 import torch
 
@@ -23,7 +24,7 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=1,
                    help="reference convention: seed 1 (main_run.py:21-23)")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="not ported yet (ROADMAP P7)")
+                   help="directory of the run's checkpoints and cfg.json")
     p.add_argument("--metrics", default=None, help="jsonl metrics path")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="override any Config field, e.g. --set max_mix=3")
@@ -67,3 +68,52 @@ def load_bank(cfg: Config, args, device: torch.device) -> torch.Tensor:
     bank = make_synthetic_bank(args.seed, cfg.num_speakers, args.utts or 8,
                                cfg.max_len)
     return torch.as_tensor(bank, device=device)
+
+
+def restore_for_eval(cfg: Config, args, device: torch.device):
+    """The train state the evaluating CLIs run: `cfg`'s model from --seed,
+    restored from --checkpoint-dir's latest step when one is given, with
+    the --graft components over it."""
+    from dl4ss_tpu_torch.train.checkpoint import (latest_step,
+                                                  restore_checkpoint)
+    from dl4ss_tpu_torch.train.state import create_train_state
+    state = create_train_state(cfg, args.seed, device=device)
+    if args.checkpoint_dir:
+        if latest_step(args.checkpoint_dir) is None:
+            raise SystemExit(f"--checkpoint-dir {args.checkpoint_dir} holds "
+                             f"no checkpoint")
+        state = restore_checkpoint(args.checkpoint_dir, state)
+        print(f"restored step {state.step} from {args.checkpoint_dir}")
+    if getattr(args, "graft", None):
+        state = apply_graft(state, args.graft, cfg)
+    return state
+
+
+def checkpoint_cfg(cfg: Config, args) -> Config:
+    """The config an evaluating CLI runs under: --checkpoint-dir's
+    cfg.json sidecar when there is one (it fixes the state shapes and the
+    audio geometry), with the CLI's runtime overrides on top."""
+    from dl4ss_tpu_torch.train.checkpoint import load_cfg
+    if args.checkpoint_dir:
+        ck_cfg = load_cfg(args.checkpoint_dir)
+        if ck_cfg is not None:
+            return apply_overrides(ck_cfg, args).validate()
+    return cfg
+
+
+def apply_graft(state, graft_arg: str, cfg: Optional[Config] = None):
+    """Parse a --graft value ('component=ckpt_dir[,...]', the reference's
+    hand-assembled checkpoint zoo, TestVer:557-579) and load the named
+    components over `state`. Exits with one line on a malformed value or a
+    component that does not fit."""
+    from dl4ss_tpu_torch.train.checkpoint import load_components
+    pairs = [kv.split("=", 1) for kv in graft_arg.split(",")]
+    if not all(len(kv) == 2 and kv[0] and kv[1] for kv in pairs):
+        raise SystemExit("--graft wants component=ckpt_dir pairs, "
+                         f"got {graft_arg!r}")
+    try:
+        state = load_components(state, dict(pairs), cfg=cfg)
+    except (KeyError, ValueError) as err:
+        raise SystemExit(f"--graft: {err.args[0]}") from None
+    print(f"grafted components: {', '.join(kv[0] for kv in pairs)}")
+    return state

@@ -6,12 +6,14 @@ the reference:
   * recursive: one classifier-chosen speaker per peel step.
 
     python -m dl4ss_tpu_torch.run.separate mix1.wav mix2.wav \
-        --out separated/ [--speakers 3,7] [--long] [--device cpu]
-    python -m dl4ss_tpu_torch.run.separate mix1.wav --mode recursive
+        --checkpoint-dir ck --out separated/ [--speakers 3,7] [--long]
+    python -m dl4ss_tpu_torch.run.separate mix1.wav --mode recursive \
+        --checkpoint-dir ck [--graft classifier=ck_cls]
 
-Not ported yet, exiting with a one-line message: `--checkpoint-dir` /
-`--graft` (the port's checkpoints, ROADMAP P7). Weights are
-random-initialised from `--seed` until checkpoints land.
+The model is `--checkpoint-dir`'s latest step, under the config recorded
+beside it, with the `--graft component=dir,...` components over it; with
+neither, random weights from `--seed`. cRM models resynthesise their
+complex spectra with the plain iSTFT, as in JAX.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ from dl4ss_tpu_torch.config import Config
 from dl4ss_tpu_torch.data.resample import resample_poly_kaiser
 from dl4ss_tpu_torch.data.wavio import read_wav, write_wav
 from dl4ss_tpu_torch.device import resolve_device
-from dl4ss_tpu_torch.models.separator import Separator, init_separator
-from dl4ss_tpu_torch.run.common import add_common_args, build_cfg
+from dl4ss_tpu_torch.models.separator import Separator
+from dl4ss_tpu_torch.run.common import (add_common_args, build_cfg,
+                                        checkpoint_cfg, restore_for_eval)
 from dl4ss_tpu_torch.serve import (recursive_waveforms, select_and_separate,
                                    separate_waveforms)
 
@@ -115,13 +118,12 @@ def main(argv=None):
                         "with cross-chunk channel alignment (the reference "
                         "hard-crops at MAX_LEN)")
     p.add_argument("--graft", default=None,
-                   help="checkpoint-zoo composition (not ported yet)")
+                   help="checkpoint-zoo composition: comma-separated "
+                        "component=ckpt_dir pairs grafted over "
+                        "--checkpoint-dir (e.g. classifier=ck_cls)")
     args = p.parse_args(argv)
 
-    if args.checkpoint_dir or args.graft:
-        raise SystemExit("--checkpoint-dir / --graft wait for the port's "
-                         "checkpoints (ROADMAP P7)")
-    cfg = build_cfg(args)
+    cfg = checkpoint_cfg(build_cfg(args), args)
     idx = None
     if args.speakers:
         if args.mode == "recursive":
@@ -139,8 +141,7 @@ def main(argv=None):
                 f"--speakers indices must be in [0, {cfg.num_speakers}); "
                 f"got {idx}")
     device = resolve_device(args.device)
-    model = init_separator(cfg, torch.Generator().manual_seed(args.seed),
-                           device)
+    model = restore_for_eval(cfg, args, device).model
     os.makedirs(args.out, exist_ok=True)
 
     if args.long:

@@ -3,10 +3,12 @@
 The port of the repo's serving pipeline (bench.py:107-119, and its B=1 form
 at :159-166): wav -> STFT features (K1) -> `separate` (encoder with K2 per
 layer, mask head K3) -> masked iSTFT (K4). The speakers are given, or the
-classifier picks its top-k (its BiLSTM on K7 per layer). The recursive
-program peels one classifier-chosen speaker per step and resynthesises each
-peeled spectrum with the mixture phase. With the config's kernel flags off,
-the same programs run the plain PyTorch path.
+classifier picks its top-k (its BiLSTM on K7 per layer). A cRM model
+(cfg.is_complex_mask) predicts complex spectra, which the plain iSTFT
+resynthesises, as in JAX. The recursive program peels one
+classifier-chosen speaker per step and resynthesises each peeled spectrum
+with the mixture phase. With the config's kernel flags off, the same
+programs run the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from dl4ss_tpu_torch.config import Config
 from dl4ss_tpu_torch.models.separator import (Separator, recursive_separate,
                                               separate)
 from dl4ss_tpu_torch.objectives.select import top_k_indices
+from dl4ss_tpu_torch.ops.crm import unpack_ri
 from dl4ss_tpu_torch.ops.stft import (istft_cfg, masked_resynthesis,
                                       spectral_feature_cfg)
 
@@ -37,8 +40,11 @@ def _features(model: Separator, wav: torch.Tensor, cfg: Config):
 
 def _separate(model, wav, cfg, spk_idx, length):
     feat, re, im = _features(model, wav, cfg)
-    mix_ri = torch.stack([re, im], dim=-1) if cfg.log_spectral else None
+    mix_ri = (torch.stack([re, im], dim=-1)
+              if cfg.log_spectral or cfg.is_complex_mask else None)
     out = separate(model, feat, cfg, spk_idx=spk_idx, mix_ri=mix_ri)
+    if cfg.is_complex_mask:
+        return istft_cfg(unpack_ri(out.pred.float()), cfg, length=length), out
     return masked_resynthesis(re, im, out.masks, cfg, length=length), out
 
 

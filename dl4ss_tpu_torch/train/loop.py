@@ -1,13 +1,14 @@
 """The epoch/batch training loop (the port of `dl4ss_tpu/train/loop.py`),
-joint and classifier modes from an utterance bank.
+the joint, dense, adversarial and classifier modes from an utterance bank.
 
-Mirrors the reference main loop (MAX_EPOCH x EPOCH_SIZE with a per-epoch
-SDR, Torch_multi/main_run.py:453-527): each step samples and featurizes a
+Mirrors the reference main loops (MAX_EPOCH x EPOCH_SIZE with periodic
+checkpointing and a per-epoch SDR, Torch_multi/main_run.py:453-527,
+main_run_multi_selfSS.py:458-463): each step samples and featurizes a
 batch from the device-resident bank and trains on it; each `eval_every`
-epochs a held-out batch (no augmentation) is scored by SI-SDR.
-Checkpoints, resume and warm starts wait for the port's checkpoints
-(ROADMAP P7); the dense and adversarial modes for TDAA (P9); the
-list-driven sampler and the street-noise bank for the data sources (P10).
+epochs a held-out batch (no augmentation) is scored by SI-SDR; every
+cfg.checkpoint_every_epochs epochs, and after the last, the state is saved
+under `checkpoint_dir`. The list-driven sampler and the street-noise bank's
+file source wait for the data sources (ROADMAP P10).
 """
 
 from __future__ import annotations
@@ -18,11 +19,17 @@ import torch
 
 from dl4ss_tpu_torch.config import Config
 from dl4ss_tpu_torch.data.synth import (featurize, make_synthetic_bank,
+                                        same_speaker_real_specs,
                                         sample_mixtures)
 from dl4ss_tpu_torch.device import resolve_device
+from dl4ss_tpu_torch.train.checkpoint import (init_params_from, latest_step,
+                                              restore_checkpoint,
+                                              save_checkpoint)
 from dl4ss_tpu_torch.train.metrics import MetricsWriter
 from dl4ss_tpu_torch.train.state import create_train_state
-from dl4ss_tpu_torch.train.steps import (make_classifier_step,
+from dl4ss_tpu_torch.train.steps import (make_adversarial_step,
+                                         make_classifier_step,
+                                         make_dense_train_step,
                                          make_eval_step, make_fused_step)
 
 
@@ -36,20 +43,27 @@ def train_loop(cfg: Config, bank: Optional[torch.Tensor] = None,
                resume: bool = False,
                eval_every: int = 1,
                init_from: Optional[str] = None,
+               dis_sp: bool = False,
                device=None):
     """Train on `device` (default `cuda`; raises without a GPU unless
-    device='cpu'). mode: joint (the separator) | classifier (the speaker
-    classifier alone). `bank` (S, U, N) defaults to the synthetic bank of 4
-    utterances per speaker from `seed`. One seed drives the bank, the init
-    and the sampling (main_run.py:21-23).
+    device='cpu'). mode: joint | dense | adversarial | classifier.
+    `bank` (S, U, N) defaults to the synthetic bank of 4 utterances per
+    speaker from `seed`. One seed drives the bank, the init and the
+    sampling (main_run.py:21-23).
+
+    `checkpoint_dir` saves the state there; with `resume` the run goes on
+    from its latest step, if it holds one. `init_from` warm-starts from
+    another run's parameters with a fresh optimizer (fine-tuning). `dis_sp`
+    feeds the adversarial discriminator same-speaker different-utterance
+    spectra (B10) instead of the clean targets (B9).
 
     Returns (final state, list of per-epoch mean SI-SDR)."""
-    if checkpoint_dir or resume or init_from:
-        raise NotImplementedError("checkpoints, --resume and --init-from "
-                                  "are not ported yet (ROADMAP P7)")
-    if mode not in ("joint", "classifier"):
-        raise NotImplementedError(f"mode {mode!r} is not ported yet: joint "
-                                  f"and classifier only (ROADMAP P9)")
+    if mode not in ("joint", "dense", "adversarial", "classifier"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "adversarial" and not cfg.use_discriminator:
+        raise ValueError("adversarial mode needs cfg.use_discriminator")
+    if dis_sp and mode != "adversarial":
+        raise ValueError("--dis-sp only applies to adversarial mode")
     if cfg.out_sep_result:
         raise NotImplementedError("the per-epoch wav export "
                                   "(out_sep_result) is not ported yet "
@@ -63,19 +77,33 @@ def train_loop(cfg: Config, bank: Optional[torch.Tensor] = None,
         bank = torch.as_tensor(make_synthetic_bank(
             seed, cfg.num_speakers, 4, cfg.max_len), device=device)
     state = create_train_state(cfg, seed, epoch_size, device)
+    if init_from:
+        # warm start: donor weights, fresh optimizer and schedule (the
+        # objective may have changed, so --resume's exact restore does not
+        # apply)
+        state = init_params_from(state, init_from, cfg=cfg)
+    if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
+        state = restore_checkpoint(checkpoint_dir, state)
     if mode == "joint":
         run_one = make_fused_step(cfg, epoch_size)
     else:
-        step_fn = make_classifier_step(cfg, epoch_size)
+        step_fn = {"dense": make_dense_train_step,
+                   "adversarial": make_adversarial_step,
+                   "classifier": make_classifier_step}[mode](cfg, epoch_size)
 
         def run_one(state, bank):
             batch = sample_mixtures(state.generator, bank, cfg)
-            return step_fn(state, featurize(batch, cfg))
+            feats = featurize(batch, cfg)
+            if dis_sp:
+                feats["real_specs"] = same_speaker_real_specs(
+                    state.generator, batch, bank, cfg)
+            return step_fn(state, feats)
     eval_step = make_eval_step(cfg)
     writer = MetricsWriter(metrics_path)
     sdr_history = []
+    start_epoch = state.step // max(epoch_size, 1)
     try:
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             last = {}
             for _ in range(epoch_size):
                 state, last = run_one(state, bank)
@@ -88,6 +116,9 @@ def train_loop(cfg: Config, bank: Optional[torch.Tensor] = None,
                 sdr_history.append(sdr)
                 record["si_sdr"] = sdr
             writer.write("epoch", state.step, **record)
+            if checkpoint_dir and ((epoch + 1) % cfg.checkpoint_every_epochs
+                                   == 0 or epoch + 1 == epochs):
+                save_checkpoint(checkpoint_dir, state, cfg=cfg)
     finally:
         writer.close()
     return state, sdr_history

@@ -31,12 +31,26 @@ class AdamState:
 @dataclasses.dataclass
 class TrainState:
     """Everything a training step carries: the step counter, the model
-    (its parameters are the f32 masters), the optimizer state, and the
-    generator that draws the batches (the JAX state's PRNG key)."""
+    (its parameters are the f32 masters), the optimizer state of the
+    generator's parameters (every subtree but the discriminator), the
+    generator that draws the batches (the JAX state's PRNG key) and, when
+    the model has a discriminator, its own optimizer state."""
     step: int
     model: Separator
     opt_state: AdamState
     generator: torch.Generator
+    d_opt_state: Optional[AdamState] = None
+
+
+def generator_params(model: Separator) -> List[torch.Tensor]:
+    """The parameters the separation trainers update: all but the
+    discriminator's (JAX `_gen_params`), in `named_parameters` order."""
+    return [p for n, p in model.named_parameters()
+            if not n.startswith("discriminator.")]
+
+
+def discriminator_params(model: Separator) -> List[torch.Tensor]:
+    return list(model.discriminator.parameters())
 
 
 def make_schedule(cfg: Config, steps_per_epoch: int
@@ -137,14 +151,19 @@ def make_optimizer(cfg: Config, steps_per_epoch: int = 1) -> Optimizer:
 
 
 def create_train_state(cfg: Config, seed: int = 1, steps_per_epoch: int = 1,
-                       device=None, model: Optional[Separator] = None
-                       ) -> TrainState:
+                       device=None, model: Optional[Separator] = None,
+                       num_frames: Optional[int] = None) -> TrainState:
     """A fresh state: the separator from `seed` (or the given model), zero
-    moments, step 0, and the batch generator seeded from seed + 1."""
+    moments for the generator's parameters (and for the discriminator's,
+    under cfg.use_discriminator), step 0, and the batch generator seeded
+    from seed + 1."""
     if model is None:
         model = init_separator(cfg, torch.Generator().manual_seed(seed),
-                               device)
+                               device, num_frames)
     opt = make_optimizer(cfg, steps_per_epoch)
+    d_opt_state = (opt.init(discriminator_params(model))
+                   if cfg.use_discriminator else None)
     return TrainState(step=0, model=model,
-                      opt_state=opt.init(list(model.parameters())),
-                      generator=torch.Generator().manual_seed(seed + 1))
+                      opt_state=opt.init(generator_params(model)),
+                      generator=torch.Generator().manual_seed(seed + 1),
+                      d_opt_state=d_opt_state)

@@ -8,13 +8,16 @@ backward runs K5 and K6 (the separator) or K8 (the classifier)
 model and optimizer state in place and returns the same state with its
 step advanced.
 
-Ported: the joint trainer (`make_train_step`, with the pit, identity and
-si_sdr losses, teacher-forced or classifier-selected speakers), the fused
-sample -> featurize -> step (`make_fused_step`), the classifier trainer
+The joint trainer (`make_train_step`, with the pit, identity and si_sdr
+losses on magnitudes or cRM spectra, teacher-forced or classifier-selected
+speakers), the fused sample -> featurize -> step (`make_fused_step`), the
+dense all-speaker trainer (`make_dense_train_step`), TDAA's two-phase
+adversarial trainer (`make_adversarial_step`), the classifier trainer
 (`make_classifier_step`), the eval step (teacher-forced or
-classifier-selected, with the complement mask) and the recursive eval
-step. Not yet: the dense and adversarial steps and the cRM loss (ROADMAP
-P9).
+classifier-selected, with the complement mask; magnitude or cRM) and the
+recursive eval step. The separation trainers update every parameter but
+the discriminator's, which only the adversarial step's first phase moves,
+with its own optimizer state.
 """
 
 from __future__ import annotations
@@ -28,21 +31,18 @@ from torch.func import functional_call
 from dl4ss_tpu_torch.config import Config
 from dl4ss_tpu_torch.data.synth import featurize, sample_mixtures
 from dl4ss_tpu_torch.eval.sisdr import si_sdr_pit
+from dl4ss_tpu_torch.models.discriminator import apply_discriminator
 from dl4ss_tpu_torch.models.separator import (Separator, SeparatorOutput,
                                               recursive_separate)
-from dl4ss_tpu_torch.objectives.losses import (mask_mse_loss,
+from dl4ss_tpu_torch.objectives.losses import (complex_mse_loss, gan_d_loss,
+                                               gan_g_loss, mask_mse_loss,
                                                multilabel_softmargin_loss,
                                                sum_to_one_loss)
 from dl4ss_tpu_torch.objectives.pit import pit_loss
+from dl4ss_tpu_torch.ops.crm import unpack_ri
 from dl4ss_tpu_torch.ops.stft import istft_cfg
-from dl4ss_tpu_torch.train.state import TrainState, make_optimizer
-
-
-def _check_ported(cfg: Config) -> None:
-    if cfg.is_complex_mask:
-        raise NotImplementedError(
-            "the complex-ratio-mask (cRM) loss is not ported yet (TDAA, "
-            "ROADMAP P9)")
+from dl4ss_tpu_torch.train.state import (TrainState, discriminator_params,
+                                         generator_params, make_optimizer)
 
 
 def _compute_cast(model: Separator, feats: dict, cfg: Config):
@@ -60,15 +60,17 @@ def _compute_cast(model: Separator, feats: dict, cfg: Config):
 
 
 def _separate(model: Separator, feats: dict, cfg: Config,
-              spk_idx: Optional[torch.Tensor],
-              need_probs: bool = False) -> SeparatorOutput:
-    """`separate` in the compute dtype: on the model itself, or through
-    `functional_call` on the bf16 casts of its parameters. With no
-    `spk_idx` the classifier selects the speakers."""
+              spk_idx: Optional[torch.Tensor], need_probs: bool = False,
+              channel_gate: Optional[torch.Tensor] = None
+              ) -> SeparatorOutput:
+    """`separate` (or, given `channel_gate`, `separate_dense`) in the
+    compute dtype: on the model itself, or through `functional_call` on
+    the bf16 casts of its parameters. With no `spk_idx` the classifier
+    selects the speakers."""
     params, cfeats = _compute_cast(model, feats, cfg)
     args = (cfeats["mix_feas"], cfg)
     kwargs = dict(spk_idx=spk_idx, mix_ri=cfeats.get("mix_ri"),
-                  need_probs=need_probs)
+                  need_probs=need_probs, channel_gate=channel_gate)
     if params is None:
         return model(*args, **kwargs)
     return functional_call(model, params, args, kwargs)
@@ -81,20 +83,33 @@ def _mixture_phasor(mix_ri: torch.Tensor) -> torch.Tensor:
 
 def _separation_loss(model: Separator, feats: dict, cfg: Config):
     """Mask loss of the top-k path: pit or identity assignment of the
-    masked magnitudes against the clean ones, or (loss_mode='si_sdr') the
+    masked magnitudes (or, under cfg.is_complex_mask, the cRM-masked
+    complex spectra) against the clean ones, or (loss_mode='si_sdr') the
     negative live-weighted uPIT SI-SDR of the resynthesised waveforms.
     cfg.ground_truth teacher-forces the extraction channels with the true
     speakers; otherwise the classifier selects them. Selection indices
     carry no gradient, so the classifier itself trains only through
-    `make_classifier_step`."""
+    `make_classifier_step`. The sum-to-one term is a magnitude term: cRM
+    configs never add it."""
     live = feats["channel_live"].float()
     spk_idx = feats["spk_idx"] if cfg.ground_truth else None
     out = _separate(model, feats, cfg, spk_idx)
     if cfg.loss_mode == "si_sdr":
-        pred_spec = out.pred.float() * _mixture_phasor(feats["mix_ri"])[:, None]
+        pred = out.pred.float()
+        if cfg.is_complex_mask:
+            pred_spec = unpack_ri(pred)
+        else:
+            pred_spec = pred * _mixture_phasor(feats["mix_ri"])[:, None]
         wavs = istft_cfg(pred_spec, cfg, length=cfg.max_len)
         scores, perm = si_sdr_pit(wavs, feats["source_wavs"], live=live)
         loss = -scores.mean()
+    elif cfg.is_complex_mask:
+        pred = out.pred * live[..., None, None, None]
+        target = feats["src_ri"]
+        if cfg.loss_mode == "pit":
+            loss, perm = pit_loss(pred, target)
+        else:
+            loss, perm = complex_mse_loss(pred, target, live), None
     else:
         pred = out.pred * live[..., None, None]
         target = feats["src_feas"]
@@ -103,29 +118,23 @@ def _separation_loss(model: Separator, feats: dict, cfg: Config):
         else:
             loss, perm = mask_mse_loss(pred, target, live), None
     aux = {"mask_loss": loss, "out": out, "perm": perm}
-    if cfg.sum_loss_weight > 0:
+    if cfg.sum_loss_weight > 0 and not cfg.is_complex_mask:
         sl = sum_to_one_loss(out.masks * live[..., None, None])
         loss = loss + cfg.sum_loss_weight * sl
         aux["sum_loss"] = sl
     return loss, aux
 
 
-def _backward_and_update(state: TrainState, opt, loss: torch.Tensor
+def _backward_and_update(params, opt_state, opt, loss: torch.Tensor
                          ) -> torch.Tensor:
-    """Differentiate `loss`, apply one optimizer update to every parameter
-    of the ported separator (the JAX steps exclude only the discriminator,
-    which is not ported) and return the global grad norm. Parameters the
-    loss does not reach get zeros, as jax.grad gives them."""
-    params = list(state.model.parameters())
-    for p in params:
-        p.grad = None
-    loss.backward()
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-             for p in params]
-    grad_norm = opt.update(params, grads, state.opt_state)
-    for p in params:
-        p.grad = None
-    return grad_norm
+    """Differentiate `loss` with respect to `params` alone, apply one
+    optimizer update to them and `opt_state` in place and return the
+    global grad norm. Parameters the loss does not reach get zeros, as
+    jax.grad gives them; nothing outside `params` gets a gradient."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    return opt.update(params, grads, opt_state)
 
 
 def make_train_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
@@ -137,12 +146,12 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
             "ground_truth=False selects channels from the classifier, so "
             "channel k no longer aligns with source k — identity assignment "
             "is ill-posed in the top-k layout; use loss_mode='pit'/'si_sdr'.")
-    _check_ported(cfg)
     opt = make_optimizer(cfg, steps_per_epoch)
 
     def step(state: TrainState, feats: dict):
         loss, aux = _separation_loss(state.model, feats, cfg)
-        grad_norm = _backward_and_update(state, opt, loss)
+        grad_norm = _backward_and_update(generator_params(state.model),
+                                         state.opt_state, opt, loss)
         metrics = {"loss": loss.detach(),
                    "mask_loss": aux["mask_loss"].detach(),
                    "grad_norm": grad_norm}
@@ -173,7 +182,7 @@ def make_classifier_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
     MultiLabelSoftMarginLoss on 'who is in the mixture'. step(state, feats)
     -> (state, {loss, element_acc}), updating the state in place. Only the
     classifier gets a gradient; the optimizer still steps every parameter
-    (with zeros), as in JAX."""
+    (with zeros) but the discriminator's, as in JAX."""
     opt = make_optimizer(cfg, steps_per_epoch)
 
     def step(state: TrainState, feats: dict):
@@ -195,12 +204,114 @@ def make_classifier_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
                       if n.startswith(prefix)}, args, kwargs)
         logits = logits.float()                   # f32 loss math
         loss = multilabel_softmargin_loss(logits, target)
-        _backward_and_update(state, opt, loss)
+        _backward_and_update(generator_params(state.model), state.opt_state,
+                             opt, loss)
         with torch.no_grad():
             pred = (torch.sigmoid(logits) > cfg.alpha).float()
             acc = (pred == target).float().mean()
         state.step += 1
         return state, {"loss": loss.detach(), "element_acc": acc}
+
+    return step
+
+
+def make_dense_train_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
+    """Exact-reference channel layout: every speaker owns a loss channel
+    (main_run.py:473-506); targets scattered by speaker id, all-channel
+    MSE (complex MSE on the cRM layout, main_run_sstune_cRM_EvalVer.py:
+    552-568), plus the sum-to-one term when cfg.sum_loss_weight > 0.
+    step(state, feats) -> (state, {loss, mask_loss[, sum_loss]})."""
+    opt = make_optimizer(cfg, steps_per_epoch)
+
+    def step(state: TrainState, feats: dict):
+        b, t, f = feats["mix_feas"].shape
+        dev = feats["mix_feas"].device
+        live = feats["channel_live"].float()
+        spk_idx = feats["spk_idx"]
+        rows = torch.arange(b, device=dev)[:, None].expand_as(spk_idx)
+        gate = torch.zeros((b, cfg.num_speakers), device=dev)
+        gate = gate.scatter_reduce(1, spk_idx, live, reduce="amax")
+        if cfg.is_complex_mask:
+            target = torch.zeros((b, cfg.num_speakers, t, f, 2), device=dev)
+            src = feats["src_ri"] * live[..., None, None, None]
+        else:
+            target = torch.zeros((b, cfg.num_speakers, t, f), device=dev)
+            src = feats["src_feas"] * live[..., None, None]
+        target = target.index_put((rows, spk_idx), src.float(),
+                                  accumulate=True)
+        out = _separate(state.model, feats, cfg, None, channel_gate=gate)
+        if cfg.is_complex_mask:
+            mask_l = complex_mse_loss(out.pred, target)
+        else:
+            mask_l = mask_mse_loss(out.pred, target)
+        metrics = {"mask_loss": mask_l.detach()}
+        loss = mask_l
+        if cfg.sum_loss_weight > 0 and not cfg.is_complex_mask:
+            # the masks are already zero-gated, so the channel sum is the
+            # reference's gated sum (:508-513)
+            sl = sum_to_one_loss(out.masks)
+            loss = loss + cfg.sum_loss_weight * sl
+            metrics["sum_loss"] = sl.detach()
+        _backward_and_update(generator_params(state.model), state.opt_state,
+                             opt, loss)
+        state.step += 1
+        return state, {"loss": loss.detach(), **metrics}
+
+    return step
+
+
+def make_adversarial_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
+    """TDAA's two-phase adversarial trainer (B9 dis-ss / B10 dis-sp):
+    phase 1 trains the discriminator on real-vs-predicted spectrograms
+    (MSE-GAN) with its own optimizer state, phase 2 the separator with mask
+    loss + sum-to-one + the fooling term (main_run_sstune_dis.py:615-700).
+    Phase 1 differentiates the discriminator alone (the separator's output
+    is a detached sample); phase 2 the generator's parameters alone, so
+    the discriminator moves once a step. `real` is the clean target
+    spectra (dis-ss) unless feats carries "real_specs", different-utterance
+    same-speaker spectra (dis-sp, predata_fromList_dis.py:37-66)."""
+    if not cfg.ground_truth and cfg.loss_mode == "identity":
+        raise ValueError(
+            "ground_truth=False selects channels from the classifier — "
+            "identity assignment is ill-posed in the top-k layout; use "
+            "loss_mode='pit'/'si_sdr' (same constraint as make_train_step)")
+    g_opt = make_optimizer(cfg, steps_per_epoch)
+    d_opt = make_optimizer(cfg, steps_per_epoch)
+    # the generator loss carries its own sum-to-one term (weight 0.5 per
+    # the reference, main_run_sstune_dis.py:683-700): strip it from
+    # _separation_loss so a nonzero cfg.sum_loss_weight is not counted twice
+    sum_w = cfg.sum_loss_weight if cfg.sum_loss_weight > 0 else 0.5
+    sep_cfg = cfg.replace(sum_loss_weight=0.0)
+
+    def step(state: TrainState, feats: dict):
+        model = state.model
+        live = feats["channel_live"].float()
+        real = feats.get("real_specs", feats["src_feas"])
+
+        # ---- phase 1: discriminator ----
+        with torch.no_grad():
+            out = _separate(model, feats, cfg, feats["spk_idx"])
+            fake = (out.pred * live[..., None, None]).float()
+        score_real = apply_discriminator(model.discriminator, real, cfg)
+        score_fake = apply_discriminator(model.discriminator, fake, cfg)
+        d_loss = gan_d_loss(score_real, score_fake)
+        _backward_and_update(discriminator_params(model), state.d_opt_state,
+                             d_opt, d_loss)
+
+        # ---- phase 2: generator ----
+        mask_l, aux = _separation_loss(model, feats, sep_cfg)
+        pred = aux["out"].pred * live[..., None, None]
+        score = apply_discriminator(model.discriminator, pred, cfg)
+        sum_l = sum_to_one_loss(aux["out"].masks * live[..., None, None])
+        g_loss = mask_l + sum_w * sum_l + gan_g_loss(score)
+        _backward_and_update(generator_params(model), state.opt_state, g_opt,
+                             g_loss)
+        state.step += 1
+        return state, {
+            "d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+            "mask_loss": mask_l.detach(), "sum_loss": sum_l.detach(),
+            "d_acc_real": (score_real > 0.5).float().mean(),
+            "d_acc_fake": (score_fake < 0.5).float().mean()}
 
     return step
 
@@ -259,25 +370,30 @@ def make_eval_step(cfg: Config) -> Callable:
     `teacher_forced=False` lets the classifier select the speakers.
     `complement_mask`: when the classifier finds only one speaker above
     alpha in a 2-mix eval, the second channel's mask becomes 1 - mask_1,
-    the reference's complement trick (main_run_sstune_TestVer.py:473-476).
+    the reference's complement trick (main_run_sstune_TestVer.py:473-476);
+    magnitude masks only. cRM configs resynthesise the predicted complex
+    spectra themselves.
     """
 
     def step(model: Separator, feats: dict, teacher_forced: bool = True,
              complement_mask: bool = False):
-        _check_ported(cfg)
         with torch.no_grad():
             out = _separate(model, feats, cfg,
                             feats["spk_idx"] if teacher_forced else None,
                             need_probs=complement_mask)
             pred, probs = out.pred.float(), out.probs.float()
-            if complement_mask and cfg.top_k == 2:
+            if (complement_mask and not cfg.is_complex_mask
+                    and cfg.top_k == 2):
                 one_spk = (probs > cfg.alpha).sum(dim=-1) <= 1     # (B,)
                 comp = ((1.0 - out.masks[:, 0].float())
                         * _mixture_magnitude(feats, cfg))
                 pred = pred.clone()
                 pred[:, 1] = torch.where(one_spk[:, None, None], comp,
                                          pred[:, 1])
-            pred_spec = pred * _mixture_phasor(feats["mix_ri"])[:, None]
+            if cfg.is_complex_mask:
+                pred_spec = unpack_ri(pred)
+            else:
+                pred_spec = pred * _mixture_phasor(feats["mix_ri"])[:, None]
             wavs = istft_cfg(pred_spec, cfg, length=cfg.max_len)
             scores, perm = si_sdr_pit(wavs, feats["source_wavs"],
                                       live=feats.get("channel_live"))

@@ -69,8 +69,8 @@ def test_separate_long_short_input_equals_one_chunk():
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--checkpoint-dir", "ck"], "P7"),
-    (["--graft", "encoder=ck"], "P7"),
+    (["--checkpoint-dir", "ck"], "holds no checkpoint"),
+    (["--graft", "encoder"], "component=ckpt_dir pairs"),
     (["--mode", "recursive", "--speakers", "0,1"], "teacher-forced"),
     (["--speakers", "0"], "top_k=2"),
     (["--speakers", "0,99"], "indices must be in"),
@@ -180,11 +180,42 @@ def test_train_cli_classifier_mode(tmp_path):
 
 @pytest.mark.parametrize("argv,message", [
     (["--list-dir", "lists"], "P10"),
-    (["--eval-only", "--checkpoint-dir", "ck"], "P7"),
-    (["--checkpoint-dir", "ck"], "P7"),
+    (["--eval-only", "--checkpoint-dir", "ck"], "holds no checkpoint"),
+    (["--eval-only"], "restores --checkpoint-dir"),
     (["--data-root", "somewhere"], "P10"),
 ])
 def test_classify_cli_exits_with_a_one_line_message(argv, message):
     from dl4ss_tpu_torch.run import classify
     with pytest.raises(SystemExit, match=message):
         classify.main(["--preset", "synth_tiny", "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--bss-eval"], "P11"),
+    (["--oracle", "iam"], "P11"),
+    (["--export-wavs", "out"], "P11"),
+    (["--list-dir", "lists"], "P10"),
+    (["--noise-wavs", "noise"], "P10"),
+    (["--mode", "memory"], "P12"),
+    (["--query-source", "video"], "P12"),
+    (["--mix-k", "1"], "largest count must be 2"),
+    (["--mode", "recursive", "--teacher-forced"], "selects one speaker"),
+    (["--candidates", "1"], "--candidates must be >= top_k"),
+])
+def test_evaluate_cli_exits_with_a_one_line_message(argv, message):
+    """run.evaluate refuses the options of later ROADMAP items by name, and
+    the combinations it cannot score."""
+    from dl4ss_tpu_torch.run import evaluate
+    with pytest.raises(SystemExit, match=message):
+        evaluate.main(["--preset", "synth_tiny", "--device", "cpu", *argv])
+
+
+def test_evaluate_cli_mixed_speaker_counts(capsys):
+    """--mix-k 1,2: mixtures of one or two live speakers from the synthetic
+    sampler, scored with the complement mask (random weights from --seed)."""
+    from dl4ss_tpu_torch.run import evaluate
+    score = evaluate.main(["--preset", "synth_tiny", "--device", "cpu",
+                           "--utts", "2", "--batches", "1", "--mix-k", "1,2",
+                           "--complement-mask", "--dedup"])
+    assert np.isfinite(score)
+    assert "SI-SDR over 1 batches" in capsys.readouterr().out

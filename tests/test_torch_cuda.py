@@ -822,3 +822,137 @@ def test_selected_and_recursive_serving_launch_k7(dev):
     assert cuda_lib.LAUNCHES["gru_fwd"] \
         == cfg.encoder_layers * cfg.recursive_max_steps
     assert bool(torch.isfinite(rec).all())
+
+
+def test_k7_k8_stepwise_at_the_tdaa_classifier_width(dev):
+    """The tdaa classifier's BiLSTM at 2H = 600, past the resident body's
+    width: K7 and K8 run the stepwise body and match their plain versions
+    (forward max abs, backward relative L2, f32)."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    t, b, h = 40, 16, 600
+    rng = np.random.default_rng(60)
+    sc = 1.0 / np.sqrt(h)
+    xp = _t(0.5 * rng.standard_normal((t, 2, b, 4 * h)), dev)
+    wh = _t(rng.uniform(-sc, sc, (2, h, 4 * h)), dev)
+    dhs = _t(rng.standard_normal((t, 2, b, h)), dev)
+    assert k.rnn_body(h, b) == k.rnn_body(h, b, backward=True) == "stepwise"
+    before = dict(k.BODY_LAUNCHES)
+    hs, cs = k.lstm_scan_cuda(xp, wh)
+    ref_hs, ref_cs = k.lstm_scan_plain(xp, wh)
+    assert float((hs - ref_hs).abs().max()) < 1e-4
+    assert float((cs - ref_cs).abs().max()) < 1e-4
+    zeros = torch.zeros_like(hs[:1])
+    args = (xp, wh, torch.cat([zeros, hs[:-1]]), torch.cat([zeros, cs[:-1]]),
+            cs, dhs)
+    got = k.lstm_scan_bwd_cuda(*args)
+    ref = k.lstm_scan_bwd_plain(*args)
+    for g, r in zip(got, ref):
+        assert float((g - r).norm() / r.norm()) < 1e-4
+    for name in ("lstm_fwd", "lstm_bwd"):
+        assert (k.BODY_LAUNCHES[name, "stepwise"]
+                == before.get((name, "stepwise"), 0) + 1)
+
+
+def _tdaa_small(**over):
+    from dl4ss_tpu_torch import preset
+    return preset("tdaa").replace(hidden_units=48, embedding_size=10,
+                                  num_speakers=12, max_len_seconds=0.5,
+                                  batch_size=3, **over)
+
+
+def test_k3_masks_bit_equal_across_save_and_restore(dev, tmp_path):
+    """K3 packs W once per version of the tensor: a restore writes the
+    saved W back in place, so the next call repacks and gives the masks of
+    before, bit for bit."""
+    from dl4ss_tpu_torch.models import separate
+    from dl4ss_tpu_torch.ops import cuda_lib
+    from dl4ss_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                  save_checkpoint)
+    from dl4ss_tpu_torch.train.state import create_train_state
+    cfg = _tdaa_small()
+    state = create_train_state(cfg, seed=2, device=dev)
+    feat = _t(np.abs(np.random.default_rng(1).standard_normal(
+        (3, 21, cfg.freq_bins))), dev)
+    spk = torch.tensor([[0, 1], [2, 3], [4, 5]], device=dev)
+
+    def masks():
+        with torch.no_grad():
+            return separate(state.model, feat, cfg, spk_idx=spk).masks
+    saved = masks()
+    save_checkpoint(str(tmp_path), state)
+    with torch.no_grad():
+        state.model.encoder.proj.w.mul_(1.5)
+    moved = masks()
+    packs = cuda_lib.LAUNCHES["maskhead_pack"]
+    restore_checkpoint(str(tmp_path), state)
+    restored = masks()
+    assert cuda_lib.LAUNCHES["maskhead_pack"] == packs + 1
+    assert not torch.equal(saved, moved)
+    assert torch.equal(saved, restored)
+
+
+def _leaves(model):
+    return {n: p.detach().float().cpu().clone()
+            for n, p in model.named_parameters()}
+
+
+def test_tdaa_dense_step_kernel_route_matches_plain(dev):
+    """One dense step of a small tdaa model on the card (K1, K7, K8)
+    against the same step on a CPU copy (their plain versions): 2e-2 on
+    the loss, 5e-2 relative L2 on each update."""
+    import copy
+
+    from dl4ss_tpu_torch.data.synth import (featurize, make_synthetic_bank,
+                                            sample_mixtures)
+    from dl4ss_tpu_torch.ops import cuda_lib
+    from dl4ss_tpu_torch.train.state import create_train_state
+    from dl4ss_tpu_torch.train.steps import make_dense_train_step
+    cfg = _tdaa_small()
+    state = create_train_state(cfg, seed=3, device=dev)
+    twin = copy.deepcopy(state.model).to("cpu")
+    bank = torch.as_tensor(make_synthetic_bank(0, cfg.num_speakers, 2,
+                                               cfg.max_len), device=dev)
+    feats = featurize(sample_mixtures(torch.Generator().manual_seed(0),
+                                      bank, cfg), cfg)
+    before = _leaves(state.model)
+    step = make_dense_train_step(cfg)
+    launches = dict(cuda_lib.LAUNCHES)
+    _, met_g = step(state, feats)
+    assert (cuda_lib.LAUNCHES["lstm_bwd"] - launches.get("lstm_bwd", 0)
+            == cfg.encoder_layers)
+    _, met_c = step(create_train_state(cfg, model=twin, device="cpu"),
+                    {k: v.cpu() for k, v in feats.items()})
+    got, ref = float(met_g["loss"]), float(met_c["loss"])
+    assert abs(got - ref) <= 2e-2 * abs(ref)
+    after_g, after_c = _leaves(state.model), _leaves(twin)
+    for name, b in before.items():
+        want, upd = after_c[name] - b, after_g[name] - b
+        if not bool(want.any()):
+            assert not bool(upd.any()), name
+            continue
+        assert float((upd - want).norm() / want.norm()) < 5e-2, name
+
+
+def test_remat_gradients_are_bit_equal_on_the_kernel_route(dev):
+    """remat recomputes each recurrent layer (K7 again) in the backward:
+    the gradients equal remat=False's bit for bit."""
+    from dl4ss_tpu_torch.models import init_separator, separate
+    from dl4ss_tpu_torch.ops import cuda_lib
+    cfg = _tdaa_small(use_discriminator=False)
+    model = init_separator(cfg, torch.Generator().manual_seed(4), dev)
+    feat = _t(np.abs(np.random.default_rng(2).standard_normal(
+        (3, 21, cfg.freq_bins))), dev)
+    spk = torch.tensor([[0, 1], [2, 3], [4, 5]], device=dev)
+    grads, fwd = [], []
+    for remat in (False, True):
+        c = cfg.replace(remat=remat)
+        before = cuda_lib.LAUNCHES["lstm_fwd"]
+        out = separate(model, feat, c, spk_idx=spk, need_probs=True)
+        loss = out.pred.float().square().mean() + out.probs.square().mean()
+        grads.append(torch.autograd.grad(loss, list(model.parameters()),
+                                         allow_unused=True))
+        fwd.append(cuda_lib.LAUNCHES["lstm_fwd"] - before)
+    layers = cfg.encoder_layers + cfg.classifier_layers
+    assert fwd == [layers, 2 * layers]
+    for a, b in zip(*grads):
+        assert (a is None and b is None) or torch.equal(a, b)

@@ -79,10 +79,23 @@ def test_mask_heads_match_jax(head):
 
 
 def test_crm_head_raises_until_ported():
-    cfg = preset("tdaa_crm")
-    with pytest.raises(NotImplementedError, match="P9"):
-        apply_mask_head(init_mask_head(cfg, device="cpu"), torch.zeros((1, 2, 3, 100)),
-                        torch.zeros((1, 1, 100)), cfg)
+    """The tdaa_crm preset's cRM head runs: two K*tanh-bounded channels per
+    mask from the two halves of the doubled query, the real half equal to
+    the magnitude dot head's energy on the first half."""
+    cfg = preset("tdaa_crm").replace(embedding_size=6)
+    head = init_mask_head(cfg, device="cpu")
+    rng = np.random.default_rng(4)
+    emb = torch.as_tensor(np.tanh(rng.standard_normal((1, 3, 5, 6)))
+                          .astype(np.float32))
+    q = torch.as_tensor(rng.standard_normal((1, 2, 12)).astype(np.float32))
+    out = apply_mask_head(head, emb, q, cfg)
+    assert tuple(out.shape) == (1, 2, 3, 5, 2)
+    assert float(out.abs().max()) < cfg.crm_k
+    mag = apply_mask_head(head, emb, q[..., :6],
+                          cfg.replace(is_complex_mask=False))
+    torch.testing.assert_close(
+        out[..., 0], cfg.crm_k * torch.tanh(torch.logit(mag)), atol=1e-4,
+        rtol=1e-4)
 
 
 @pytest.mark.parametrize("t", [37, 170])

@@ -152,47 +152,74 @@ def test_serving_kernel_route_matches_plain_route():
     assert float((fused - plain).norm() / plain.norm()) < 2e-2
 
 
-def test_unported_paths_raise():
+def test_recursive_separate_refuses_the_log_domain():
+    """The peel loop subtracts in the LINEAR magnitude domain: log-spectral
+    features (and cRM models) are refused, as in JAX."""
     cfg = preset("synth_tiny")
     model = init_separator(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="P9"):
-        init_separator(preset("tdaa"), device="cpu")
-    for call in (separate, recursive_separate):
-        with pytest.raises(NotImplementedError, match="P9"):
-            call(model, torch.zeros((1, 4, 129)),
-                 cfg.replace(is_self_tune=True))
-    with pytest.raises(NotImplementedError, match="P9"):
-        separate(model, torch.zeros((1, 4, 129)),
-                 cfg.replace(is_complex_mask=True),
-                 spk_idx=torch.tensor([[0, 1]]))
     with pytest.raises(ValueError, match="LINEAR"):
         recursive_separate(model, torch.zeros((1, 4, 129)),
                            cfg.replace(log_spectral=True))
+    with pytest.raises(ValueError, match="magnitude residuals"):
+        recursive_separate(model, torch.zeros((1, 4, 129)),
+                           cfg.replace(is_complex_mask=True))
+
+
+def test_tdaa_presets_build_and_separate():
+    """The tdaa, tdaa_crm and tdaa_recursive trees (at synth_tiny widths):
+    ADDJUST and the discriminator where the preset has them, and a
+    separation of the right shape from each."""
+    for name in ("tdaa", "tdaa_crm", "tdaa_recursive"):
+        cfg = preset(name).replace(hidden_units=8, embedding_size=4,
+                                   num_speakers=5, max_len_seconds=0.25)
+        model = init_separator(cfg, torch.Generator().manual_seed(0), "cpu")
+        tops = {n.split(".")[0] for n, _ in model.named_parameters()}
+        assert ("adjust" in tops) == cfg.is_self_tune
+        assert ("discriminator" in tops) == cfg.use_discriminator
+        feat = torch.rand((1, cfg.num_frames, cfg.freq_bins))
+        ri = torch.rand((1, cfg.num_frames, cfg.freq_bins, 2))
+        with torch.no_grad():
+            out = separate(model, feat, cfg, spk_idx=torch.tensor([[0, 1]]),
+                           mix_ri=ri)
+        want = (1, 2, cfg.num_frames, cfg.freq_bins)
+        assert tuple(out.pred.shape) == want + ((2,) if cfg.is_complex_mask
+                                                else ())
 
 
 @pytest.mark.parametrize("build", ["encoder", "classifier", "separator"])
 def test_remat_is_refused_not_ignored(build):
-    """The reference recomputes each recurrent layer in the backward under
-    cfg.remat (jax.checkpoint); the port has no such recompute yet, so its
-    builders and the functions that run the recurrences refuse the option
-    with a one-line error naming ROADMAP P9, and take remat=False."""
+    """cfg.remat recomputes each recurrent layer in the backward (JAX's
+    jax.checkpoint, here torch.utils.checkpoint): the builders and the
+    functions that run the recurrences take it, and the values and
+    gradients equal remat=False's. Under no_grad nothing is kept to
+    recompute, and the values are the same."""
     from dl4ss_tpu_torch.models import (apply_classifier, init_classifier,
                                         init_encoder)
     from dl4ss_tpu_torch.models.encoder import encoder_hidden
     builders = {"encoder": init_encoder, "classifier": init_classifier,
                 "separator": init_separator}
     cfg = preset("synth_tiny")
-    with pytest.raises(NotImplementedError, match="remat.*ROADMAP P9"):
-        builders[build](cfg.replace(remat=True), device="cpu")
-    model = builders[build](cfg, device="cpu")
-    feat = torch.zeros((1, 4, cfg.freq_bins))
-    run = {"encoder": lambda c: encoder_hidden(model, feat, c),
-           "classifier": lambda c: apply_classifier(model, feat, c),
-           "separator": lambda c: separate(model, feat, c,
-                                           spk_idx=torch.tensor([[0, 1]]))}
-    run[build](cfg)
-    with pytest.raises(NotImplementedError, match="remat.*ROADMAP P9"):
-        run[build](cfg.replace(remat=True))
+    feat = torch.rand((2, 5, cfg.freq_bins),
+                      generator=torch.Generator().manual_seed(2))
+    run = {"encoder": lambda m, c: encoder_hidden(m, feat, c),
+           "classifier": lambda m, c: apply_classifier(m, feat, c),
+           "separator": lambda m, c: separate(m, feat, c,
+                                              spk_idx=torch.tensor(
+                                                  [[0, 1], [2, 3]])).pred}
+    results = []
+    for remat in (False, True):
+        c = cfg.replace(remat=remat)
+        model = builders[build](c, torch.Generator().manual_seed(1), "cpu")
+        out = run[build](model, c)
+        out.square().sum().backward()
+        with torch.no_grad():
+            again = run[build](model, c)
+        results.append((out.detach(), again,
+                        [p.grad for p in model.parameters()]))
+    (o0, a0, g0), (o1, a1, g1) = results
+    assert torch.equal(o0, o1) and torch.equal(a0, a1)
+    for x, y in zip(g0, g1):
+        assert (x is None and y is None) or torch.equal(x, y)
 
 
 def _feat(seed, shape=(3, 12, 129)):

@@ -166,9 +166,10 @@ def test_train_cli_writes_its_metrics_line(tmp_path):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--mode", "adversarial"], "not ported"),
-    (["--checkpoint-dir", "ck"], "P7"),
-    (["--resume"], "P7"),
+    (["--mode", "memory"], "P12"),
+    (["--dis-sp"], "only applies to --mode adversarial"),
+    (["--resume", "--checkpoint-dir", "ck", "--init-from", "ck"],
+     "conflict"),
     (["--data-root", "somewhere"], "P10"),
 ])
 def test_train_cli_exits_with_a_one_line_message(argv, message):
