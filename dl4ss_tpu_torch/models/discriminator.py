@@ -29,10 +29,9 @@ def _out_hw(t: int, f: int) -> Tuple[int, int]:
 
 class Discriminator(nn.Module):
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None,
-                 device=None, num_frames: Optional[int] = None):
+                 device=None):
         super().__init__()
-        t = num_frames if num_frames is not None else cfg.num_frames
-        th, fw = _out_hw(t, cfg.freq_bins)
+        th, fw = _out_hw(cfg.num_frames, cfg.freq_bins)
         self.conv0 = conv_init(1, 64, 3, 3, generator, device=device)
         self.conv1 = conv_init(64, 64, 3, 3, generator, device=device)
         self.conv2 = conv_init(64, 64, 3, 3, generator, device=device)
@@ -42,10 +41,9 @@ class Discriminator(nn.Module):
 
 def init_discriminator(cfg: Config,
                        generator: Optional[torch.Generator] = None,
-                       device=None, num_frames: Optional[int] = None
-                       ) -> Discriminator:
+                       device=None) -> Discriminator:
     """On `device`: `cuda` unless the caller passes device='cpu'."""
-    return Discriminator(cfg, generator, device, num_frames)
+    return Discriminator(cfg, generator, device)
 
 
 def apply_discriminator(params: Discriminator, specs: torch.Tensor,

@@ -46,7 +46,7 @@ class Separator(nn.Module):
     `device` (default `cuda`; raises without a GPU unless device='cpu')."""
 
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None,
-                 device=None, num_frames: Optional[int] = None):
+                 device=None):
         super().__init__()
         device = resolve_device(device)
         self.encoder = init_encoder(cfg, generator, device)
@@ -56,8 +56,7 @@ class Separator(nn.Module):
         if cfg.is_self_tune:
             self.adjust = init_adjust(cfg, generator, device)
         if cfg.use_discriminator:
-            self.discriminator = init_discriminator(cfg, generator, device,
-                                                    num_frames)
+            self.discriminator = init_discriminator(cfg, generator, device)
 
     def forward(self, feat, cfg: Config, spk_idx=None, queries=None,
                 mix_ri=None, need_probs=False, channel_gate=None
@@ -73,15 +72,13 @@ class Separator(nn.Module):
 
 
 def init_separator(cfg: Config, generator: Optional[torch.Generator] = None,
-                   device=None, num_frames: Optional[int] = None
-                   ) -> Separator:
+                   device=None) -> Separator:
     """Random-initialised separator on `device` (default `cuda`; raises
     without a GPU unless device='cpu'). Weights are drawn on the CPU from
     `generator`, so a seed gives the same model on every device. With
     cfg.is_self_tune it has an `adjust` subtree, with cfg.use_discriminator
-    a `discriminator` for spectrograms of `num_frames` frames (default
-    cfg.num_frames)."""
-    return Separator(cfg, generator, device, num_frames)
+    a `discriminator` for spectrograms of cfg.num_frames frames."""
+    return Separator(cfg, generator, device)
 
 
 def classify_speakers(params: Separator, feat: torch.Tensor, cfg: Config,

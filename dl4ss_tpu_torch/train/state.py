@@ -151,15 +151,15 @@ def make_optimizer(cfg: Config, steps_per_epoch: int = 1) -> Optimizer:
 
 
 def create_train_state(cfg: Config, seed: int = 1, steps_per_epoch: int = 1,
-                       device=None, model: Optional[Separator] = None,
-                       num_frames: Optional[int] = None) -> TrainState:
+                       device=None, model: Optional[Separator] = None
+                       ) -> TrainState:
     """A fresh state: the separator from `seed` (or the given model), zero
     moments for the generator's parameters (and for the discriminator's,
     under cfg.use_discriminator), step 0, and the batch generator seeded
     from seed + 1."""
     if model is None:
         model = init_separator(cfg, torch.Generator().manual_seed(seed),
-                               device, num_frames)
+                               device)
     opt = make_optimizer(cfg, steps_per_epoch)
     d_opt_state = (opt.init(discriminator_params(model))
                    if cfg.use_discriminator else None)

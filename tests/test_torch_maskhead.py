@@ -78,7 +78,7 @@ def test_mask_heads_match_jax(head):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
 
 
-def test_crm_head_raises_until_ported():
+def test_crm_head_runs_and_bounds():
     """The tdaa_crm preset's cRM head runs: two K*tanh-bounded channels per
     mask from the two halves of the doubled query, the real half equal to
     the magnitude dot head's energy on the first half."""

@@ -187,7 +187,7 @@ def test_tdaa_presets_build_and_separate():
 
 
 @pytest.mark.parametrize("build", ["encoder", "classifier", "separator"])
-def test_remat_is_refused_not_ignored(build):
+def test_remat_matches_no_remat(build):
     """cfg.remat recomputes each recurrent layer in the backward (JAX's
     jax.checkpoint, here torch.utils.checkpoint): the builders and the
     functions that run the recurrences take it, and the values and

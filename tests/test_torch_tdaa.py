@@ -109,16 +109,19 @@ def test_apply_adjust_matches_jax():
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
 
 
-@pytest.mark.parametrize("t", [32, 23])
-def test_apply_discriminator_matches_jax(t):
-    """A T != F shape with 64 channels into the flatten: the port must
-    flatten in NHWC order to use `out.w` as JAX lays it out (an NCHW
-    flatten runs but scores differently)."""
-    cfg_j = jax_preset("synth_tiny").replace(use_discriminator=True)
-    cfg_t = preset("synth_tiny").replace(use_discriminator=True)
-    jp = jax_init_discriminator(jax.random.PRNGKey(2), cfg_j, num_frames=t)
-    tp = load_jax_params(init_discriminator(cfg_t, device="cpu",
-                                            num_frames=t), _np(jp))
+@pytest.mark.parametrize("seconds", [0.5, 0.36])
+def test_apply_discriminator_matches_jax(seconds):
+    """A T != F shape (T = 32 and 23 frames against F = 129 bins) with 64
+    channels into the flatten: the port must flatten in NHWC order to use
+    `out.w` as JAX lays it out (an NCHW flatten runs but scores
+    differently)."""
+    over = dict(use_discriminator=True, max_len_seconds=seconds)
+    cfg_j = jax_preset("synth_tiny").replace(**over)
+    cfg_t = preset("synth_tiny").replace(**over)
+    t = cfg_t.num_frames
+    assert t == cfg_j.num_frames and t in (32, 23)
+    jp = jax_init_discriminator(jax.random.PRNGKey(2), cfg_j)
+    tp = load_jax_params(init_discriminator(cfg_t, device="cpu"), _np(jp))
     assert tuple(tp.out.w.shape) == np.asarray(jp["out"]["w"]).shape
     specs = np.abs(np.random.default_rng(t).standard_normal(
         (2, 2, t, cfg_t.freq_bins))).astype(np.float32)
