@@ -79,12 +79,32 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      every update), the classifier step at H=600, remat, tdaa_crm,
      tdaa_recursive, their timings;
  11. the learning check: 1,000 steps of run.train must raise the held-out
-     SI-SDR of run.evaluate by at least 1 dB.
+     SI-SDR of run.evaluate by at least 1 dB;
+ 12. data sources and scoring on a rehearsal corpus that the port writes
+     (101 speakers, 5 s, +/-2.5 dB, k = 1, 2, 3 lists; 12 utterances a
+     speaker, 1,600 / 160 / 160 entries a k): the native loader against
+     the plain one, a list batch on the card against the CPU's, the
+     device prefetch against synchronous copies (pinned, bit-equal),
+     run.train from the speaker tree (torch_multi, torch_multi_noise with
+     noise wavs, tdaa adversarial) and from the lists (tdaa adversarial
+     with dis-sp, torch_multi_3db on k = 1, 2, 3), run.classify from the
+     lists, each list-driven step launching what its bank-driven one
+     does, a list-driven run resumed after an epoch against the unbroken
+     one, list-driven against bank-driven step times, BSS-Eval on the
+     card against the float64 oracle, run.evaluate --list-dir --bss-eval
+     --oracle irm --export-wavs from the tdaa checkpoint, and run.score
+     reproducing its SDR.
 
     python3 chip_smoke.py --learning STEPS
 
 runs phase 11 alone for STEPS steps (a multiple of 1,000), scored every
-1,000 steps, and prints no `ok` line.
+1,000 steps, and prints no `ok` line;
+
+    python3 chip_smoke.py --rehearsal
+
+runs phase 12 alone at the official wsj0-2mix depth (135 utterances a
+speaker, 20,000 / 5,000 / 3,000 entries: one tdaa epoch of 1,250 steps and
+the whole 3,000-mixture tt split scored), and prints no `ok` line.
 
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
@@ -119,6 +139,18 @@ BANK_UTTS = 2               # utterances per speaker in its synthetic bank
 RESUME_STEPS = 4            # steps per epoch of the save / resume runs
 LEARN_STEPS = 1000          # steps of the learning check (B=16)
 LEARN_BATCHES = 8           # held-out batches it is scored on
+# the data phase's rehearsal corpus (101 speakers, 5 s, k = 1, 2, 3 lists):
+# utterances a speaker, the last `holdout` of them for cv / tt only, and
+# list entries per k; SMOKE_DATA is cut in depth, REHEARSAL_DATA is the
+# official wsj0-2mix depth (chip_smoke.py --rehearsal)
+SMOKE_DATA = dict(utts=12, holdout=4, tr=1600, cv=160, tt=160)
+REHEARSAL_DATA = dict(utts=135, holdout=10, tr=20000, cv=5000, tt=3000)
+DATA_HEAD = 800             # list entries a k of the shorter runs
+DATA_TREE_STEPS = 2         # steps of the speaker-tree runs
+DATA_TREE_UTTS = 4          # utterances a speaker of the timing bank
+DATA_PLAIN_UTTS = 101       # utterances the plain loader decodes
+DATA_PREFETCH = 8           # streamed batches through the prefetch
+DATA_BSS_ORACLE = 4         # mixtures held to the float64 BSS-Eval
 
 # Published H100 SXM peaks (NVIDIA data sheet), for the bound column.
 HBM_BYTES_PER_S = 3.35e12
@@ -170,7 +202,17 @@ TOL = {"stft_features": 1e-4, "gru_fwd": 1e-4, "gru_fwd_bf16": 2e-2,
        "repeat_rel": 1e-6,
        # the learning check: held-out teacher-forced SI-SDR after
        # LEARN_STEPS steps must gain at least this over step 0 (dB)
-       "learning_gain_db": 1.0}
+       "learning_gain_db": 1.0,
+       # the native loader against the numpy one (tests/test_native.py)
+       "loader": 1e-6,
+       # a list batch mixed on the card against the CPU's: a gather, a
+       # normalisation and a gain in f32
+       "list_batch": 1e-6,
+       # BSS-Eval's f32 solves on the card against the float64 oracle, dB
+       # (tests/test_eval.py's bar)
+       "bss_db": 0.2,
+       # run.score on the exported PCM16 wavs against run.evaluate's SDR, dB
+       "score_db": 0.01}
 
 
 def fail(msg: str) -> None:
@@ -887,6 +929,438 @@ def learning_curve(torch, steps: int) -> int:
     return 0
 
 
+def _head_lists(src, dst, n):
+    """Copy every list of `src` to `dst`, cut to its first `n` entries."""
+    os.makedirs(dst, exist_ok=True)
+    for name in sorted(os.listdir(src)):
+        with open(os.path.join(src, name)) as fh:
+            lines = fh.read().splitlines()[:n]
+        with open(os.path.join(dst, name), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+
+
+def _per_step(launches, steps, names):
+    """Launches of `names` per step; fails unless each divides evenly."""
+    out = {}
+    for n in names:
+        count = launches.get(n, 0)
+        if count % steps:
+            fail(f"{count} launches of {n} over {steps} steps")
+        out[n] = count // steps
+    return out
+
+
+def data_phase(torch, dev, tmp, size):
+    """12. Data sources and scoring at full width on a rehearsal corpus
+    that the port's generate_corpus writes: 101 speakers, 5 s at 8 kHz,
+    +/-2.5 dB gains, k = 1, 2 and 3 lists, `size` setting the depth
+    (utterances a speaker and list entries). The native loader against
+    the plain one; a list batch mixed on the card against the CPU's; the
+    device prefetch against synchronous copies; run.train from the speaker
+    tree (torch_multi joint, torch_multi_noise with a noise directory,
+    tdaa adversarial), from the lists (tdaa adversarial with dis-sp, a
+    resumed run against an unbroken one, torch_multi_3db on k = 1, 2, 3)
+    and run.classify from the lists, each list-driven step launching what
+    its bank-driven counterpart launches; the list-driven step time against
+    the bank-driven one; BSS-Eval on the card against the float64 oracle;
+    run.evaluate --list-dir --bss-eval --oracle irm --export-wavs from the
+    tdaa checkpoint, and run.score reproducing its SDR. Returns the
+    launches by kernel of the CLI runs."""
+    from dl4ss_tpu_torch import native, preset
+    from dl4ss_tpu_torch.data.dirtree import (DirTreeSampler,
+                                              StreamingTreeSampler,
+                                              _load_fixed)
+    from dl4ss_tpu_torch.data.listsampler import (
+        Wsj0MixSampler, list_same_speaker_real_specs, mix_from_list)
+    from dl4ss_tpu_torch.data.loader import device_prefetch, to_pinned
+    from dl4ss_tpu_torch.data.rehearsal import generate_corpus
+    from dl4ss_tpu_torch.data.synth import (MixtureBatch, featurize,
+                                            same_speaker_real_specs,
+                                            sample_mixtures)
+    from dl4ss_tpu_torch.data.wavio import write_wav
+    from dl4ss_tpu_torch.eval.bss_eval import (bss_eval_sources,
+                                               bss_eval_sources_numpy)
+    from dl4ss_tpu_torch.models import init_separator, separate
+    from dl4ss_tpu_torch.run import classify as classify_cli
+    from dl4ss_tpu_torch.run import evaluate as evaluate_cli
+    from dl4ss_tpu_torch.run import score as score_cli
+    from dl4ss_tpu_torch.run import train as train_cli
+    from dl4ss_tpu_torch.train.state import create_train_state
+    from dl4ss_tpu_torch.train.steps import (make_adversarial_step,
+                                             make_eval_step, make_fused_step,
+                                             make_train_step)
+    total = collections.Counter()
+    root = os.path.join(tmp, "corpus")
+    t0 = time.perf_counter()
+    stats = generate_corpus(root, n_spk=101, utts=size["utts"],
+                            seconds=N_SAMPLES / 8000,
+                            tr_entries=size["tr"], cv_entries=size["cv"],
+                            tt_entries=size["tt"], mix_ks=(1, 2, 3),
+                            cv_holdout=size["holdout"])
+    print(f"data: rehearsal corpus {stats['speakers']} speakers x "
+          f"{size['utts']} utterances ({size['holdout']} held out), lists "
+          f"{size['tr']} / {size['cv']} / {size['tt']} entries for k = 1, 2, "
+          f"3, written in {time.perf_counter() - t0:.1f} s", flush=True)
+    lists, head = os.path.join(root, "lists"), os.path.join(tmp, "head")
+    _head_lists(lists, head, DATA_HEAD)
+    tree = os.path.join(root, "wsj0")
+    noise = os.path.join(tmp, "noise")
+    os.makedirs(noise)
+    nrng = np.random.default_rng(SEED)
+    for i in range(6):     # brown noise: integrated white noise, 5 s
+        w = np.cumsum(nrng.standard_normal(N_SAMPLES))
+        w = w - np.linspace(w[0], w[-1], N_SAMPLES)
+        write_wav(os.path.join(noise, f"street{i}.wav"),
+                  0.5 * w / np.abs(w).max(), 8000)
+
+    # ---- the loader: native against plain, decode rates ----------------
+    cfg = preset("torch_multi")
+    paths = sorted(os.path.join(d, f) for d, _, fs in os.walk(tree)
+                   for f in fs if f.endswith(".wav"))
+    t0 = time.perf_counter()
+    native.library()                   # the g++ build, outside the timing
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bank_n = native.load_batch(paths, cfg.frame_rate, cfg.max_len,
+                               normalize=True)
+    native_s = time.perf_counter() - t0
+    sub = paths[::max(1, len(paths) // DATA_PLAIN_UTTS)][:DATA_PLAIN_UTTS]
+    t0 = time.perf_counter()
+    bank_p = np.stack([_load_fixed(p, cfg.frame_rate, cfg.max_len, True)
+                       for p in sub])
+    plain_s = time.perf_counter() - t0
+    err = float(np.abs(bank_n[[paths.index(p) for p in sub]]
+                       - bank_p).max())
+    print(f"data: native loader built in {build_s:.2f} s; decode "
+          f"{len(paths)} utterances native in {native_s:.2f} s "
+          f"({len(paths) / native_s:.1f} utterances/s); plain "
+          f"{len(sub) / plain_s:.1f} utterances/s ({len(sub)} utterances)",
+          flush=True)
+    check("native loader vs plain, normalized utterances", err,
+          TOL["loader"])
+    del bank_n
+
+    # ---- a list batch on the card against the CPU's ---------------------
+    tcfg = preset("tdaa")
+    t0 = time.perf_counter()
+    sampler = Wsj0MixSampler(lists, root, tcfg, "train", device=dev)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dbank = sampler.device_bank()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    bank_bytes = dbank.numel() * dbank.element_size()
+    print(f"data: train sampler {len(sampler.utt2row)} unique utterances "
+          f"decoded in {load_s:.2f} s, bank {bank_bytes} bytes on the "
+          f"device ({bank_bytes / 2**30:.3f} GiB, upload {upload_s:.3f} s), "
+          f"{sampler.num_batches(BATCH)} B={BATCH} batches an epoch",
+          flush=True)
+    cpu_bank = torch.as_tensor(sampler.bank)
+    errs = []
+    for i, (utt, db, spk, live) in enumerate(sampler.epoch(BATCH, seed=1)):
+        if i == 2:
+            break
+        on_card = sampler.to_batch(utt, db, spk, live)
+        on_cpu = mix_from_list(cpu_bank, torch.as_tensor(utt).long(),
+                               torch.as_tensor(db), torch.as_tensor(spk),
+                               tcfg, live=torch.as_tensor(live))
+        errs += [max_err(on_card.mix_wav.cpu(), on_cpu.mix_wav),
+                 max_err(on_card.source_wavs.cpu(), on_cpu.source_wavs)]
+    check("list batch on the card vs the CPU", max(errs), TOL["list_batch"])
+    del cpu_bank
+
+    # ---- the device prefetch ----------------------------------------------
+    streamer = StreamingTreeSampler(tree, cfg, "si_tr_s", seed=SEED + 3)
+    batches = list(streamer.batches(BATCH, DATA_PREFETCH))
+    pinned = all(t.is_pinned() for t in to_pinned(batches[0]).values())
+    sync = [{k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+            for b in batches]
+    got = list(device_prefetch(iter(batches), depth=2, device=dev))
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a[k], b[k]) for a, b in zip(got, sync)
+                for k in a)
+    model = init_separator(cfg, torch.Generator().manual_seed(SEED), dev)
+
+    def compute(b):
+        mb = MixtureBatch(b["mix_wav"], b["source_wavs"],
+                          b["spk_idx"].long(), b["gains"])
+        with torch.no_grad():
+            return separate(model, featurize(mb, cfg)["mix_feas"], cfg,
+                            spk_idx=mb.spk_idx).masks
+
+    def loop(feed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in feed():
+            compute(b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    def copies():
+        return ({k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+                for b in batches)
+
+    def copy_only():
+        for b in copies():
+            pass
+    h2d_ms = host_ms(torch, copy_only, 3) / len(batches)
+    loop(copies)
+    sync_ms = statistics.median(loop(copies) for _ in range(3))
+    pref_ms = statistics.median(loop(lambda: device_prefetch(
+        iter(batches), depth=2, device=dev)) for _ in range(3))
+    print(f"data: prefetch of {len(batches)} streamed B={BATCH} batches "
+          f"bit-equal to synchronous copies {equal}, host buffers pinned "
+          f"{pinned}; H2D {h2d_ms:.3f} ms a batch (synchronous, pageable); "
+          f"featurize + forward over them {sync_ms:.3f} ms with synchronous "
+          f"copies, {pref_ms:.3f} ms through the prefetch: "
+          f"{sync_ms - pref_ms:.3f} ms hidden", flush=True)
+    if not (equal and pinned):
+        fail("device_prefetch differs from synchronous copies or its host "
+             "buffers are not pinned")
+    del batches, sync, got, model
+
+    # ---- the training runs -------------------------------------------------
+    joint_k = ("stft_features", "gru_fwd", "gru_bwd", "maskhead_fwd",
+               "maskhead_bwd")
+    adv_k = ("stft_features", "lstm_fwd", "lstm_bwd", "maskhead_fwd",
+             "maskhead_bwd")
+    cls_k = ("stft_features", "lstm_fwd", "lstm_bwd")
+    base = ["--seed", str(SEED), "--device", "cuda", "--eval-every", "0"]
+    tree_args = ["--data-root", tree, "--split", "si_tr_s", "--utts",
+                 str(size["utts"] - size["holdout"]), "--epochs", "1",
+                 "--epoch-size", str(DATA_TREE_STEPS)]
+    ck = os.path.join(tmp, "data_ck")
+    head_steps = {k: DATA_HEAD // cfg.batch_size for k in (1, 2, 3)}
+    runs = (
+        ("torch_multi joint, tree", ["--preset", "torch_multi", *tree_args],
+         DATA_TREE_STEPS, joint_k),
+        ("torch_multi_noise joint, tree + noise",
+         ["--preset", "torch_multi_noise", *tree_args, "--noise-wavs",
+          noise], DATA_TREE_STEPS, joint_k),
+        ("tdaa adversarial dis-sp, tree",
+         ["--preset", "tdaa", "--mode", "adversarial", "--dis-sp",
+          *tree_args], DATA_TREE_STEPS, adv_k),
+        ("tdaa adversarial dis-sp, lists",
+         ["--preset", "tdaa", "--mode", "adversarial", "--dis-sp",
+          "--list-dir", lists, "--wav-root", root, "--epochs", "1",
+          "--checkpoint-dir", ck], size["tr"] // tcfg.batch_size, adv_k),
+        ("torch_multi_3db joint, lists k=1,2,3",
+         ["--preset", "torch_multi_3db", "--list-dir", head, "--wav-root",
+          root, "--mix-k", "1,2,3", "--epochs", "1"],
+         sum(head_steps.values()), joint_k),
+    )
+    per_step = {}
+    for label, argv, steps, names in runs:
+        zero_counts(torch)
+        t0 = time.perf_counter()
+        state, _ = quiet(train_cli.main, [*argv, *base])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, bodies = read_counts(torch, total)
+        if state.step != steps:
+            fail(f"run.train {label}: {state.step} steps, expected {steps}")
+        per_step[label] = _per_step(launches, steps, names)
+        print(f"data: run.train {label}: {steps} steps in {run_s:.2f} s, "
+              f"launches a step {per_step[label]}, bodies {bodies}",
+              flush=True)
+        if label.startswith("tdaa adversarial dis-sp, lists"):
+            tdaa_state = state
+    for bank_label, list_label, want in (
+            ("torch_multi joint, tree", "torch_multi_3db joint, lists "
+             "k=1,2,3", {"stft_features": 2, "gru_fwd": 2, "gru_bwd": 2,
+                         "maskhead_fwd": 1, "maskhead_bwd": 1}),
+            ("tdaa adversarial dis-sp, tree",
+             "tdaa adversarial dis-sp, lists",
+             {"stft_features": 2, "lstm_fwd": 8, "lstm_bwd": 4,
+              "maskhead_fwd": 2, "maskhead_bwd": 1})):
+        for label in (bank_label, list_label):
+            expect_counts(f"run.train {label}, a step", per_step[label],
+                          want)
+    if per_step["torch_multi_noise joint, tree + noise"] != per_step[
+            "torch_multi joint, tree"]:
+        fail("the noise run launched other kernels than the joint one")
+
+    # run.classify from the lists: K1 2, K7 2 and K8 2 a step, K1 2 and K7 2
+    # a report batch
+    zero_counts(torch)
+    report, text = quiet(classify_cli.main, [
+        "--preset", "torch_multi", "--list-dir", head, "--wav-root", root,
+        "--epochs", "1", "--eval-batches", "2", "--seed", str(SEED),
+        "--device", "cuda"])
+    launches, _ = read_counts(torch, total)
+    csteps = head_steps[2]
+    want = {"stft_features": 2 * (csteps + 2), "lstm_fwd": 2 * (csteps + 2),
+            "lstm_bwd": 2 * csteps}
+    print(f"data: run.classify --list-dir: {csteps} steps, launches "
+          f"{launches}; top3_recall {report['top3_recall']:.4f}",
+          flush=True)
+    expect_counts("run.classify --list-dir", launches, want)
+
+    # ---- resume from the lists ---------------------------------------------
+    resume = ["--preset", "torch_multi", "--list-dir", head, "--wav-root",
+              root, "--set", "augment_data=1", "--seed", str(SEED),
+              "--device", "cuda", "--eval-every", "0"]
+    rck = os.path.join(tmp, "data_resume")
+    quiet(train_cli.main, [*resume, "--epochs", "1", "--checkpoint-dir",
+                           rck])
+    resumed, text = quiet(train_cli.main, [*resume, "--epochs", "2",
+                                           "--checkpoint-dir", rck,
+                                           "--resume"])
+    unbroken, _ = quiet(train_cli.main, [*resume, "--epochs", "2"])
+    pairs = list(zip(resumed.model.state_dict().values(),
+                     unbroken.model.state_dict().values()))
+    pairs += list(zip(resumed.opt_state.mu + resumed.opt_state.nu,
+                      unbroken.opt_state.mu + unbroken.opt_state.nu))
+    worst = max(rel_l2(a, b) for a, b in pairs)
+    bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    print(f"data: list-driven resume (1 epoch + --resume 1 against 2 "
+          f"unbroken epochs of {head_steps[2]} steps, shift augment on): "
+          f"steps {resumed.step} and {unbroken.step}, {len(pairs)} tensors, "
+          f"worst rel L2 {worst:.3e}, bit-equal {bit_equal}", flush=True)
+    if (resumed.step != unbroken.step or "resuming" not in text
+            or not worst <= TOL["repeat_rel"]):
+        fail(f"the resumed list-driven run differs from the unbroken one: "
+             f"{worst}")
+
+    # ---- list-driven against bank-driven steps -----------------------------
+    timing = {}
+    for name, pcfg, make in (("joint", cfg, None),
+                             ("tdaa adversarial", tcfg,
+                              make_adversarial_step)):
+        pcfg = pcfg.replace(num_speakers=sampler.num_speakers,
+                            use_discriminator=make is not None)
+        st = create_train_state(pcfg, SEED, device=dev)
+        gen = torch.Generator().manual_seed(SEED)
+        tbank = torch.as_tensor(DirTreeSampler(tree, pcfg, "si_tr_s",
+                                               DATA_TREE_UTTS).bank,
+                                device=dev)
+        rows, counts = sampler.spk_tables()
+        stream = iter(())
+
+        def next_batch():
+            nonlocal stream
+            for b in stream:
+                return b
+            stream = sampler.batches(BATCH, seed=SEED, augment=True)
+            return next(stream)
+        if make is None:
+            fused, inner = make_fused_step(pcfg), make_train_step(pcfg)
+
+            def bank_step():
+                fused(st, tbank)
+
+            def list_step():
+                inner(st, featurize(next_batch(), pcfg))
+        else:
+            adv = make(pcfg)
+
+            def bank_step():
+                b = sample_mixtures(gen, tbank, pcfg)
+                f = featurize(b, pcfg)
+                f["real_specs"] = same_speaker_real_specs(gen, b, tbank, pcfg)
+                adv(st, f)
+
+            def list_step():
+                b = next_batch()
+                f = featurize(b, pcfg)
+                f["real_specs"] = list_same_speaker_real_specs(
+                    gen, b, sampler.device_bank(), rows, counts, pcfg)
+                adv(st, f)
+        for side, fn in (("bank", bank_step), ("list", list_step),
+                         ("list", list_step), ("bank", bank_step)):
+            timing.setdefault(f"{name} {side}", []).append(
+                host_ms(torch, fn, 5))
+        print_profile(f"B={BATCH} {name} step, list-driven", list_step,
+                      statistics.median(timing[f"{name} list"]), torch)
+        del tbank
+    print("data: step ms (median of 5 synchronised steps, two runs each, "
+          "bank / list / list / bank): " + "; ".join(
+              f"{k} {' '.join(f'{v:.3f}' for v in vals)}"
+              for k, vals in timing.items()), flush=True)
+
+    # ---- BSS-Eval on the card against the float64 oracle -------------------
+    tt = Wsj0MixSampler(lists, root, tcfg, "test",
+                        spk2idx=sampler.spk2idx, device=dev)
+    batch = next(tt.batches(BATCH, shuffle=False))
+    ev = make_eval_step(tcfg.replace(num_speakers=sampler.num_speakers,
+                                     use_discriminator=True))
+    out = ev(tdaa_state.model, featurize(batch, tcfg))
+    ref, est = batch.source_wavs.float(), out["pred_wavs"].float()
+    res = bss_eval_sources(ref, est)
+    bss_ms = host_ms(torch, lambda: bss_eval_sources(ref, est), 3)
+    print_profile(f"BSS-Eval B={BATCH}", lambda: bss_eval_sources(ref, est),
+                  bss_ms, torch, top=6)
+    worst, perms_ok = 0.0, True
+    t0 = time.perf_counter()
+    for i in range(DATA_BSS_ORACLE):
+        sdr, sir, sar, perm = bss_eval_sources_numpy(
+            ref[i].double().cpu().numpy(), est[i].double().cpu().numpy())
+        perms_ok &= bool((res.perm[i].cpu().numpy() == perm).all())
+        for got, want_ in ((res.sdr, sdr), (res.sir, sir), (res.sar, sar)):
+            worst = max(worst, float(np.abs(got[i].cpu().numpy()
+                                            - want_).max()))
+    oracle_s = time.perf_counter() - t0
+    print(f"data: BSS-Eval flen=512 on the card {bss_ms:.3f} ms per "
+          f"B={BATCH} batch (K=2, N={N_SAMPLES}); against the float64 "
+          f"oracle on {DATA_BSS_ORACLE} mixtures ({oracle_s:.1f} s): worst "
+          f"{worst:.3e} dB over SDR / SIR / SAR, permutations equal "
+          f"{perms_ok}; mean SDR {float(res.sdr.mean()):.3f} dB", flush=True)
+    if not (perms_ok and worst <= TOL["bss_db"]):
+        fail(f"BSS-Eval on the card: worst {worst} dB, permutations equal "
+             f"{perms_ok}")
+
+    # ---- run.evaluate --list-dir, then run.score ---------------------------
+    export = os.path.join(tmp, "data_export")
+    zero_counts(torch)
+    t0 = time.perf_counter()
+    sisdr, text = quiet(evaluate_cli.main, [
+        "--preset", "tdaa", "--checkpoint-dir", ck, "--list-dir", lists,
+        "--wav-root", root, "--split", "test", "--teacher-forced",
+        "--bss-eval", "--oracle", "irm", "--export-wavs", export,
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches, _ = read_counts(torch, total)
+    line = next(x for x in text.splitlines() if x.startswith("BSS-Eval SDR"))
+    eval_sdr = float(line.split()[2])
+    n_eval = size["tt"] // tcfg.batch_size_eval
+    print(f"data: run.evaluate --list-dir --split test: {eval_s:.2f} s; "
+          + "; ".join(x for x in text.splitlines()
+                      if x.startswith(("SI-SDR", "oracle", "BSS-Eval")))
+          + f"; launches {launches}", flush=True)
+    expect_counts("run.evaluate --list-dir", launches, {
+        "stft_features": 2 * n_eval, "lstm_fwd": 4 * n_eval,
+        "maskhead_fwd": n_eval})
+    t0 = time.perf_counter()
+    scored, _ = quiet(score_cli.main, [export, "--nsdr", "--device",
+                                       "cuda"])
+    score_s = time.perf_counter() - t0
+    gap = abs(scored["mean_sdr"] - eval_sdr)
+    print(f"data: run.score --nsdr: {scored['n_mixtures']} mixtures in "
+          f"{score_s:.2f} s, SDR {scored['mean_sdr']:.4f} dB (run.evaluate "
+          f"{eval_sdr:.4f}, gap {gap:.4f} dB), NSDR "
+          f"{scored['mean_nsdr']:.4f} dB", flush=True)
+    if scored["n_mixtures"] != size["tt"] or not gap <= TOL["score_db"]:
+        fail(f"run.score: {scored['n_mixtures']} mixtures, SDR gap {gap} dB")
+    return total
+
+
+def rehearsal(torch) -> int:
+    """`chip_smoke.py --rehearsal`: phase 12 alone at the official depth
+    (REHEARSAL_DATA), then the card's line."""
+    from dl4ss_tpu_torch import resolve_device
+    dev = resolve_device("cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_phase(torch, dev, tmp, REHEARSAL_DATA)
+    print(f"rehearsal: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    return 0
+
+
 def main(argv=None) -> int:
     import torch
     argv = sys.argv[1:] if argv is None else argv
@@ -896,8 +1370,11 @@ def main(argv=None) -> int:
         return 2
     if argv[:1] == ["--learning"] and len(argv) == 2:
         return learning_curve(torch, int(argv[1]))
+    if argv == ["--rehearsal"]:
+        return rehearsal(torch)
     if argv:
-        print("usage: chip_smoke.py [--learning STEPS]", file=sys.stderr)
+        print("usage: chip_smoke.py [--learning STEPS | --rehearsal]",
+              file=sys.stderr)
         return 2
     from dl4ss_tpu_torch import preset, resolve_device
     from dl4ss_tpu_torch.models import init_separator
@@ -2136,6 +2613,8 @@ def main(argv=None) -> int:
         tdaa_launches = tdaa_phase(torch, dev, rng, wav, reqs)
         # ---- 11. the learning check ----------------------------------------
         learning_phase(torch, tmp)
+        # ---- 12. data sources and scoring --------------------------------
+        data_launches = data_phase(torch, dev, tmp, SMOKE_DATA)
 
     for row in kernels:
         # the kernel's launches on the tdaa paths (phase 10), beside those
@@ -2143,6 +2622,8 @@ def main(argv=None) -> int:
         # once per K6 launch)
         name = "maskhead_bwd" if row.get("yardstick") else row["name"]
         row["tdaa_launches"] = tdaa_launches.get(name, 0)
+        # and on the data-source paths (phase 12)
+        row["data_launches"] = data_launches.get(name, 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

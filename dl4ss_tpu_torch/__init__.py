@@ -9,10 +9,13 @@ Layout mirrors the JAX package so each counterpart is found by name:
            wrappers (`*_kernels.py`; sources in csrc/)
   models/  encoder, embedding, mask heads (sigmoid and cRM), classifier,
            ADDJUST, discriminator, separator
-  objectives/, eval/, train/  losses and selection, metrics, the trainers
-           and their checkpoints
-  data/    wav I/O, resampling, the synthetic bank (numpy / scipy)
-  run/     CLI entry points (separate, train, classify, evaluate)
+  objectives/, eval/, train/  losses and selection, metrics (SI-SDR,
+           BSS-Eval), the trainers and their checkpoints
+  data/    wav I/O, resampling, the synthetic bank, speaker trees, the
+           wsj0-mix lists, the device prefetch, the rehearsal corpus
+  native/  the C++ wav loader (g++, built at first use)
+  run/     CLI entry points (separate, train, classify, evaluate, score,
+           analyze)
   serve.py the serving programs: wav -> STFT features -> separate -> iSTFT,
            with given or classifier-selected speakers, and the recursive peel
   weights.py  load a JAX parameter pytree into the port's modules

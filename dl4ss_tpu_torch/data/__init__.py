@@ -1,1 +1,3 @@
-"""Host-side data helpers (numpy / scipy): wav I/O and resampling."""
+"""Data sources: wav I/O and resampling, the synthetic bank and mixture
+synthesis, speaker trees, the wsj0-mix lists, the native loader's banks,
+the device prefetch and the rehearsal-corpus generator."""

@@ -37,21 +37,32 @@ def normalize_utterance(wav: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 
 
 def make_synthetic_bank(seed: int, num_speakers: int, utts_per_speaker: int,
-                        num_samples: int, rate: int = 8000) -> np.ndarray:
+                        num_samples: int, rate: int = 8000,
+                        timbre: bool = False) -> np.ndarray:
     """(S, U, N) float32 bank of harmonic speech-like utterances: a
     per-speaker f0 with +/-4% per-utterance jitter, 8 harmonics, vibrato and
-    an AM envelope. The same numpy draws, in the same order, as the JAX
-    package's (its default, timbre=False)."""
+    an AM envelope. timbre=True also fixes a per-speaker harmonic amplitude
+    envelope (with +/-8% per-utterance shimmer), which makes speaker
+    identity learnable across utterances: the rehearsal corpus uses it. The
+    same numpy draws, in the same order, as the JAX package's, so one seed
+    gives a bit-identical bank."""
     rng = np.random.default_rng(seed)
     t = np.arange(num_samples) / rate
     f0s = rng.uniform(80.0, 280.0, num_speakers)
+    # log-uniform over [0.02, 1]: wide per-speaker spectral contrast
+    prof = (np.exp(rng.uniform(np.log(0.02), 0.0, (num_speakers, 8)))
+            if timbre else None)
     bank = np.zeros((num_speakers, utts_per_speaker, num_samples), np.float32)
     for s in range(num_speakers):
         for u in range(utts_per_speaker):
             f0 = f0s[s] * (1.0 + 0.04 * rng.standard_normal())
             sig = np.zeros_like(t)
             for h in range(1, 9):
-                amp = rng.uniform(0.2, 1.0) / h
+                if timbre:
+                    amp = (prof[s, h - 1]
+                           * (1.0 + 0.08 * rng.standard_normal()) / h)
+                else:
+                    amp = rng.uniform(0.2, 1.0) / h
                 vib = 1.0 + 0.01 * np.sin(2 * np.pi * rng.uniform(2, 6) * t)
                 sig += amp * np.sin(2 * np.pi * h * f0 * vib * t
                                     + rng.uniform(0, 2 * np.pi))
@@ -132,6 +143,23 @@ def sample_mixtures(generator: torch.Generator, bank: torch.Tensor,
             noise_bank[nidx][:, :n], nshift)
     return MixtureBatch(mix_wav=mix, source_wavs=sources, spk_idx=spk_idx,
                         gains=gains, utt_idx=utt_idx)
+
+
+def add_noise_to_mix(generator: torch.Generator, batch: MixtureBatch,
+                     noise_bank: torch.Tensor, cfg: Config) -> MixtureBatch:
+    """Eval-time background noise: cfg.bgd_noise_ratio (0.3) times a random
+    noise wav, circularly shifted by a random amount, added to the MIXTURE
+    only; the clean sources stay the scoring references (Cocktail
+    predict.py:152-158; predata_multiAims_noisedB.py:198-222). The noise
+    row and shift of each item come from `generator`."""
+    b, n = batch.mix_wav.shape
+    dev = batch.mix_wav.device
+    nidx = torch.randint(0, noise_bank.shape[0], (b,),
+                         generator=generator).to(dev)
+    nshift = torch.randint(0, noise_bank.shape[1], (b,),
+                           generator=generator).to(dev)
+    noise = _roll_rows(noise_bank[nidx][:, :n], nshift)
+    return batch._replace(mix_wav=batch.mix_wav + cfg.bgd_noise_ratio * noise)
 
 
 def featurize(batch: MixtureBatch, cfg: Config) -> dict:

@@ -8,4 +8,8 @@
                                             classifier
   python -m dl4ss_tpu_torch.run.classify  — train / evaluate the classifier
   python -m dl4ss_tpu_torch.run.evaluate  — score a checkpoint by SI-SDR
+                                            and BSS-Eval, export wavs
+  python -m dl4ss_tpu_torch.run.score     — BSS-Eval SDR of an exported
+                                            wav directory (bss_test.cal)
+  python -m dl4ss_tpu_torch.run.analyze   — PCA of the speaker embeddings
 """

@@ -1,11 +1,13 @@
-"""Shared CLI plumbing: preset selection + overrides + data source + the
+"""Shared CLI plumbing: preset selection + overrides + data source (the
+synthetic bank or a speaker tree, `--data-root`), the noise bank and the
 checkpoint-zoo graft (the port of `dl4ss_tpu/run/common.py`), plus the
-`--device` flag. The bank is the synthetic one; real speaker trees
-(`--data-root`) wait for the data sources (ROADMAP P10)."""
+`--device` flag."""
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 from typing import Optional
 
 import torch
@@ -18,8 +20,11 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--preset", default="torch_multi", choices=preset_names(),
                    help="named configuration replicating a reference config")
     p.add_argument("--data-root", default=None,
-                   help="speaker-tree root (not ported yet, ROADMAP P10); "
+                   help="speaker-tree root (predata_multiAims layout); "
                         "synthetic bank if omitted")
+    p.add_argument("--split", default="train",
+                   help="split subdirectory of --data-root, or the list "
+                        "split of --list-dir (train / valid / test)")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--seed", type=int, default=1,
                    help="reference convention: seed 1 (main_run.py:21-23)")
@@ -30,6 +35,10 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="override any Config field, e.g. --set max_mix=3")
     p.add_argument("--utts", type=int, default=None,
                    help="utterances per speaker in the bank (default 8)")
+    p.add_argument("--utts-from", type=int, default=0,
+                   help="start each speaker's utterance slice at this "
+                        "index (held-out banks: rehearsal corpora keep the "
+                        "LAST utterances for cv / tt)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: cuda (default; fails "
                         "without a GPU) or cpu")
@@ -59,15 +68,58 @@ def build_cfg(args) -> Config:
     return apply_overrides(preset(args.preset), args).validate()
 
 
-def load_bank(cfg: Config, args, device: torch.device) -> torch.Tensor:
-    """The (S, U, N) bank on `device`: the synthetic one from --seed with
-    --utts utterances per speaker (default 8)."""
+def load_bank(cfg: Config, args, device: torch.device):
+    """(the (S, U, N) bank on `device`, `cfg` with the bank's speaker
+    count, {row: speaker name}): the speaker tree under --data-root
+    (--split, --utts utterances a speaker from --utts-from) or the
+    synthetic bank from --seed, with --utts utterances a speaker
+    (default 8)."""
+    utts = args.utts or 8
     if args.data_root:
-        raise SystemExit("--data-root (speaker trees) is not ported yet "
-                         "(ROADMAP P10); omit it for the synthetic bank")
-    bank = make_synthetic_bank(args.seed, cfg.num_speakers, args.utts or 8,
+        from dl4ss_tpu_torch.data.dirtree import DirTreeSampler
+        sampler = DirTreeSampler(args.data_root, cfg, args.split, utts,
+                                 utts_offset=args.utts_from)
+        cfg = cfg.replace(num_speakers=sampler.num_speakers)
+        return (torch.as_tensor(sampler.bank, device=device), cfg,
+                sampler.idx2spk)
+    bank = make_synthetic_bank(args.seed, cfg.num_speakers, utts,
                                cfg.max_len)
-    return torch.as_tensor(bank, device=device)
+    return (torch.as_tensor(bank, device=device), cfg,
+            {i: f"spk{i:03d}" for i in range(cfg.num_speakers)})
+
+
+def load_noise_bank(noise_dir: str, cfg: Config,
+                    device: torch.device) -> torch.Tensor:
+    """The background-noise wavs of `noise_dir` as (W, N) on `device`,
+    loaded RAW: the reference adds 0.3x the decoded noise wav, not a
+    peak-normalized one (predata_multiAims_noisedB.py:198)."""
+    from dl4ss_tpu_torch.data.dirtree import _load_bank
+    paths = sorted(os.path.join(noise_dir, f) for f in os.listdir(noise_dir)
+                   if f.lower().endswith(".wav"))
+    if not paths:
+        raise SystemExit(f"no .wav files under {noise_dir}")
+    return torch.as_tensor(_load_bank(paths, cfg.frame_rate, cfg.max_len,
+                                      normalize=False), device=device)
+
+
+def read_vocab(checkpoint_dir: Optional[str]) -> Optional[dict]:
+    """The training vocabulary ({speaker: row}) that run.train --list-dir
+    records beside its checkpoints, or None."""
+    if not checkpoint_dir:
+        return None
+    path = os.path.join(checkpoint_dir, "vocab.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def write_vocab(checkpoint_dir: str, spk2idx: dict) -> None:
+    """Record the training vocabulary beside the checkpoints, as the JAX
+    CLI writes it (json.dump, byte for byte)."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    with open(os.path.join(checkpoint_dir, "vocab.json"), "w") as f:
+        json.dump(spk2idx, f)
 
 
 def restore_for_eval(cfg: Config, args, device: torch.device):

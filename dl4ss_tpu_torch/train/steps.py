@@ -163,15 +163,18 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
     return step
 
 
-def make_fused_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
+def make_fused_step(cfg: Config, steps_per_epoch: int = 1,
+                    noise_bank: Optional[torch.Tensor] = None) -> Callable:
     """Synthesis + STFT + train: step(state, bank) -> (state, metrics).
     The batch is drawn from the state's generator; on the kernel route the
     features come from K1 (the reference's CPU generator -> numpy STFT ->
-    H2D copy -> GPU step, run on the device)."""
+    H2D copy -> GPU step, run on the device). `noise_bank` (W, N) enables
+    the street-noise augment (A5) under cfg.add_bgd_noise."""
     inner = make_train_step(cfg, steps_per_epoch)
 
     def step(state: TrainState, bank: torch.Tensor):
-        batch = sample_mixtures(state.generator, bank, cfg)
+        batch = sample_mixtures(state.generator, bank, cfg,
+                                noise_bank=noise_bank)
         return inner(state, featurize(batch, cfg))
 
     return step

@@ -179,10 +179,8 @@ def test_train_cli_classifier_mode(tmp_path):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--list-dir", "lists"], "P10"),
     (["--eval-only", "--checkpoint-dir", "ck"], "holds no checkpoint"),
     (["--eval-only"], "restores --checkpoint-dir"),
-    (["--data-root", "somewhere"], "P10"),
 ])
 def test_classify_cli_exits_with_a_one_line_message(argv, message):
     from dl4ss_tpu_torch.run import classify
@@ -191,14 +189,10 @@ def test_classify_cli_exits_with_a_one_line_message(argv, message):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--bss-eval"], "P11"),
-    (["--oracle", "iam"], "P11"),
-    (["--export-wavs", "out"], "P11"),
-    (["--list-dir", "lists"], "P10"),
-    (["--noise-wavs", "noise"], "P10"),
+    (["--file-lists", "lists"], "P12"),
     (["--mode", "memory"], "P12"),
     (["--query-source", "video"], "P12"),
-    (["--mix-k", "1"], "largest count must be 2"),
+    (["--set", "min_mix=1", "--set", "max_mix=1"], "top_k=2"),
     (["--mode", "recursive", "--teacher-forced"], "selects one speaker"),
     (["--candidates", "1"], "--candidates must be >= top_k"),
 ])
@@ -211,11 +205,12 @@ def test_evaluate_cli_exits_with_a_one_line_message(argv, message):
 
 
 def test_evaluate_cli_mixed_speaker_counts(capsys):
-    """--mix-k 1,2: mixtures of one or two live speakers from the synthetic
+    """min_mix=1: mixtures of one or two live speakers from the synthetic
     sampler, scored with the complement mask (random weights from --seed)."""
     from dl4ss_tpu_torch.run import evaluate
     score = evaluate.main(["--preset", "synth_tiny", "--device", "cpu",
-                           "--utts", "2", "--batches", "1", "--mix-k", "1,2",
+                           "--utts", "2", "--batches", "1", "--set",
+                           "min_mix=1", "--set", "max_mix=2",
                            "--complement-mask", "--dedup"])
     assert np.isfinite(score)
     assert "SI-SDR over 1 batches" in capsys.readouterr().out

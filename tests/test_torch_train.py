@@ -170,7 +170,8 @@ def test_train_cli_writes_its_metrics_line(tmp_path):
     (["--dis-sp"], "only applies to --mode adversarial"),
     (["--resume", "--checkpoint-dir", "ck", "--init-from", "ck"],
      "conflict"),
-    (["--data-root", "somewhere"], "P10"),
+    (["--file-lists", "lists"], "P12"),
+    (["--list-dir", "lists", "--noise-wavs", "noise"], "bank-mode"),
 ])
 def test_train_cli_exits_with_a_one_line_message(argv, message):
     from dl4ss_tpu_torch.run import train as cli
