@@ -93,7 +93,27 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      one, list-driven against bank-driven step times, BSS-Eval on the
      card against the float64 oracle, run.evaluate --list-dir --bss-eval
      --oracle irm --export-wavs from the tdaa checkpoint, and run.score
-     reproducing its SDR.
+     reproducing its SDR;
+ 13. the memory, image-query and video generations at full width:
+     cocktail in memory mode on a rehearsal corpus (12 speakers x 6
+     utterances, 5 s) and its Cocktail wavlists (run.train saved after one
+     epoch, --resume adds a second, which must improve the dev loss and
+     equal an unbroken run in parameters, memory rows and ages, moments,
+     step and generator; --file-lists; run.evaluate --mode memory on known
+     speakers, --unk-holdout, --unk-root and the wavlists' test and unk
+     splits), run.train --mode image-query (multimodal_image, two steps),
+     one step of cocktail, grid_video, multimodal_image and cocktail_debug
+     each held to the launches its flags send, the query BiLSTMs on K7 / K8
+     against their plain loop on the card, a memory and a video-query step
+     on the card against the CPU, one grid_video step with the frozen
+     Inception trunk at 299x299 (its parameters unmoved), the step times
+     and profiles, the speech query's share of a memory step on either
+     route, and the two learning gates on a 101 x 8 rehearsal tree (seed
+     3): cocktail memory mode's dev MSE after 1,000 steps at most 0.8 of
+     step 0's, and grid_video's held-out SI-SDR gain over 500 steps at
+     encoder depth 1, the mean over seeds 0-7, at least JAX's mean less 1.5
+     standard deviations on the same protocol
+     (tools/grid_video_jax_curve.py).
 
     python3 chip_smoke.py --learning STEPS
 
@@ -104,7 +124,11 @@ runs phase 11 alone for STEPS steps (a multiple of 1,000), scored every
 
 runs phase 12 alone at the official wsj0-2mix depth (135 utterances a
 speaker, 20,000 / 5,000 / 3,000 entries: one tdaa epoch of 1,250 steps and
-the whole 3,000-mixture tt split scored), and prints no `ok` line.
+the whole 3,000-mixture tt split scored), and prints no `ok` line;
+
+    python3 chip_smoke.py --generations
+
+builds the kernels and runs phase 13 alone, and prints no `ok` line.
 
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
@@ -151,6 +175,29 @@ DATA_TREE_UTTS = 4          # utterances a speaker of the timing bank
 DATA_PLAIN_UTTS = 101       # utterances the plain loader decodes
 DATA_PREFETCH = 8           # streamed batches through the prefetch
 DATA_BSS_ORACLE = 4         # mixtures held to the float64 BSS-Eval
+# the generations phase: its rehearsal corpus (speakers, utterances a
+# speaker, the last 2 of them for the wavlists' dev and test), the steps an
+# epoch of its CLI runs and of its resume check, and the steps of the memory
+# learning gate
+GEN_SPEAKERS = 12
+GEN_UTTS = 6
+GEN_STEPS = 2
+GEN_RESUME_STEPS = 50
+MEM_LEARN_STEPS = 1000
+LEARN_SPEAKERS = 101        # the learning gates' tree: speakers and
+LEARN_UTTS = 8              # utterances a speaker, and its seed
+LEARN_TREE_SEED = 3
+# both gates hold out each speaker's last LEARN_HELD_UTTS utterances where
+# they score unseen ones: the grid_video gate, on the protocol of
+# tools/grid_video_jax_curve.py, trains from each of VIDEO_LEARN_SEEDS for
+# VIDEO_LEARN_STEPS steps at encoder depth 1 and is scored before and after
+# on VIDEO_HELD_BATCHES batches of them; the memory gate's second run
+# (printed, not gated) on MEM_HELD_BATCHES
+LEARN_HELD_UTTS = 2
+VIDEO_LEARN_STEPS = 500
+VIDEO_HELD_BATCHES = 16
+MEM_HELD_BATCHES = 16
+VIDEO_LEARN_SEEDS = tuple(range(8))
 
 # Published H100 SXM peaks (NVIDIA data sheet), for the bound column.
 HBM_BYTES_PER_S = 3.35e12
@@ -212,7 +259,62 @@ TOL = {"stft_features": 1e-4, "gru_fwd": 1e-4, "gru_fwd_bf16": 2e-2,
        # (tests/test_eval.py's bar)
        "bss_db": 0.2,
        # run.score on the exported PCM16 wavs against run.evaluate's SDR, dB
-       "score_db": 0.01}
+       "score_db": 0.01,
+       # a cocktail memory step on the card against the CPU: all f32 (K7 /
+       # K8 f32, the plain align head), so summation order only: the loss
+       # (relative), every gradient, the grad norm and every update
+       # (relative L2), and the memory rows after the write (max abs)
+       "mem_step_loss": 1e-5, "mem_step_update": 1e-3, "memory": 1e-5,
+       # a grid_video step the same way: K3 / K6 run the mask head in bf16
+       "video_step_loss": 1e-3, "video_step_update": 2e-2,
+       # the query BiLSTMs on K7 / K8 against their plain loop on the card
+       # (max abs of the output; relative L2 of each parameter's gradient):
+       # K7 / K8's own bars
+       "query_rnn_fwd": 2e-2, "query_rnn_bwd": 5e-2,
+       # the learning gates: cocktail memory mode's dev MSE after
+       # MEM_LEARN_STEPS steps as a share of step 0's at most; grid_video's
+       # held-out SI-SDR gain after VIDEO_LEARN_STEPS steps, the mean over
+       # VIDEO_LEARN_SEEDS, at least (dB): JAX's mean gain on the same
+       # protocol and seeds (tools/grid_video_jax_curve.py, seeds 0-7:
+       # mean 0.9847) less 1.5 times their standard deviation (0.1020)
+       "memory_learn_ratio": 0.8, "video_learn_db": 0.83}
+
+
+def cocktail_layout(corpus_root: str, out_root: str, holdout: int,
+                    unk_root: str | None = None) -> str:
+    """Cocktail's `{train,dev,test[,unk]}/<spk>/*.wav` tree over corpora
+    that `generate_corpus` wrote, as symbolic links, for
+    `layout_tools.generate_file_lists`: each speaker's utterances but the
+    last `holdout` train, the held-out ones go to dev (the first half)
+    and test (the rest) under the same speaker, and `unk_root`'s speakers
+    (another corpus, with other speakers) form the unk split, named
+    `u<id>`. Returns `out_root`. Phase 13 and tests/test_torch_memory.py
+    build their Cocktail wavlists on it."""
+    def speakers(root):
+        base = os.path.join(root, "wsj0", "si_tr_s")
+        return {s: sorted(os.path.join(base, s, w)
+                          for w in os.listdir(os.path.join(base, s)))
+                for s in sorted(os.listdir(base))}
+
+    def link(paths, split, spk):
+        d = os.path.join(out_root, split, spk)
+        os.makedirs(d, exist_ok=True)
+        for p in paths:
+            os.symlink(os.path.abspath(p),
+                       os.path.join(d, os.path.basename(p)))
+
+    for spk, paths in speakers(corpus_root).items():
+        if len(paths) <= holdout or holdout < 2:
+            raise ValueError(f"speaker {spk!r} has {len(paths)} "
+                             f"utterances: cannot hold out {holdout} for "
+                             f"dev and test")
+        link(paths[:-holdout], "train", spk)
+        link(paths[-holdout:-holdout // 2], "dev", spk)
+        link(paths[-holdout // 2:], "test", spk)
+    if unk_root is not None:
+        for spk, paths in speakers(unk_root).items():
+            link(paths, "unk", "u" + spk)
+    return out_root
 
 
 def fail(msg: str) -> None:
@@ -1345,6 +1447,506 @@ def data_phase(torch, dev, tmp, size):
     return total
 
 
+def generations_phase(torch, dev, tmp):
+    """13. The Cocktail memory, image-query and video generations at full
+    width. `cocktail` in memory mode on a rehearsal corpus that
+    generate_corpus writes (GEN_SPEAKERS speakers, 5 s) and on the Cocktail
+    wavlists over it: run.train saves one epoch of GEN_RESUME_STEPS steps,
+    --resume adds a second, which must improve the dev loss (the loop then
+    ends on it, so the resumed run and an unbroken one must agree in
+    parameters, memory rows and ages, moments, step and generator);
+    run.train --file-lists; run.evaluate --mode memory on known speakers,
+    --unk-holdout, --unk-root (a second corpus) and the wavlists' test and
+    unk splits. `multimodal_image` (two image-query steps on the glyphs),
+    `grid_video` (the conv trunk on 48x48 synthetic lips, then one step
+    with the frozen Inception trunk at 299x299, whose parameters must not
+    move). One step of each path with the counts zeroed just before and
+    read just after, held to the launches its flags send (K1 2, K7 / K8 4
+    each for a cocktail memory step; K1 2, K2 / K5 2 each, K3 / K6 1 each
+    with one W pack, and K7 / K8 2 each for a grid_video step; none for
+    multimodal_image and cocktail_debug); the query BiLSTMs on K7 / K8
+    against their plain loop on the card; one memory and one video-query
+    step on the card against the CPU; the step times and profiles, the
+    speech query's share of a memory step on either route; the two
+    learning gates. Returns the launches by kernel of the CLI runs."""
+    from dl4ss_tpu_torch import preset
+    from dl4ss_tpu_torch.data.dirtree import DirTreeSampler
+    from dl4ss_tpu_torch.data.layout_tools import generate_file_lists
+    from dl4ss_tpu_torch.data.mnist import digit_query_bank, load_mnist
+    from dl4ss_tpu_torch.data.rehearsal import generate_corpus
+    from dl4ss_tpu_torch.data.synth import make_synthetic_bank
+    from dl4ss_tpu_torch.data.video import synthetic_frame_bank
+    from dl4ss_tpu_torch.models.query import (apply_speech_query,
+                                              apply_video_query)
+    from dl4ss_tpu_torch.run import evaluate as evaluate_cli
+    from dl4ss_tpu_torch.run import train as train_cli
+    from dl4ss_tpu_torch.train.memory_trainer import (_valid_frames,
+                                                      create_memory_state,
+                                                      make_memory_eval_step,
+                                                      make_memory_train_step,
+                                                      memory_batch)
+    from dl4ss_tpu_torch.train.query_trainer import (create_query_state,
+                                                     make_query_eval_step,
+                                                     make_query_train_step,
+                                                     query_batch)
+    from dl4ss_tpu_torch.weights import export_jax_params, flatten_tree
+    total = collections.Counter()
+
+    def leaves(m):
+        return dict(flatten_tree(export_jax_params(m)))
+
+    def dev_losses(path):
+        with open(path) as fh:
+            return [json.loads(line)["dev_loss"] for line in fh
+                    if '"dev_loss"' in line]
+
+    # ---- the corpora and the Cocktail wavlists ---------------------------
+    root = os.path.join(tmp, "gen")
+    t0 = time.perf_counter()
+    for name, n_spk, utts, seed in (("a", GEN_SPEAKERS, GEN_UTTS, 1),
+                                    ("b", 4, 3, 7)):
+        generate_corpus(os.path.join(root, name), n_spk=n_spk, utts=utts,
+                        seconds=N_SAMPLES / 8000, tr_entries=16,
+                        cv_entries=4, tt_entries=4, seed=seed,
+                        cv_holdout=1)
+    cocktail_layout(os.path.join(root, "a"), os.path.join(root, "ct"), 2,
+                    os.path.join(root, "b"))
+    lists = os.path.join(root, "lists")
+    generate_file_lists(os.path.join(root, "ct"), lists)
+    print(f"generations: corpora of {GEN_SPEAKERS} x {GEN_UTTS} and 4 x 3 "
+          f"utterances, Cocktail wavlists ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    # ---- cocktail, memory mode: save, resume, wavlists, evaluation --------
+    tree = ["--data-root", os.path.join(root, "a", "wsj0"), "--split",
+            "si_tr_s", "--utts", str(GEN_UTTS - 2)]
+    mem = ["--preset", "cocktail", "--mode", "memory", "--seed", str(SEED),
+           "--device", "cuda", "--epoch-size", str(GEN_RESUME_STEPS), *tree]
+    ck = os.path.join(tmp, "gen_ck")
+    m_res, m_unb = (os.path.join(tmp, f"gen_{n}.jsonl") for n in "ru")
+    zero_counts(torch)
+    t0 = time.perf_counter()
+    quiet(train_cli.main, [*mem, "--epochs", "1", "--checkpoint-dir", ck,
+                           "--metrics", m_res])
+    resumed, text = quiet(train_cli.main, [*mem, "--epochs", "2",
+                                           "--checkpoint-dir", ck,
+                                           "--resume", "--metrics", m_res])
+    unbroken, _ = quiet(train_cli.main, [*mem, "--epochs", "2",
+                                         "--metrics", m_unb])
+    runs_s = time.perf_counter() - t0
+    launches, _ = read_counts(torch, total)
+    if "resumed memory-mode step" not in text:
+        fail("run.train --mode memory --resume did not restore the "
+             "checkpoint")
+    hist, hist_r = dev_losses(m_unb), dev_losses(m_res)
+    # the loop ends on its best epoch's parameters and memory with the last
+    # step's moments, and the checkpoint holds that state, as JAX's does:
+    # a resumed run restarts from the best state. The resumed run's best is
+    # its one epoch, the second; the unbroken run ends on the second only
+    # if it improved on the first, which this check requires
+    improved = len(hist) == 2 and hist[1] < hist[0]
+    same = list(zip(resumed.opt_state.mu + resumed.opt_state.nu,
+                    unbroken.opt_state.mu + unbroken.opt_state.nu))
+    same += list(zip([*resumed.model.state_dict().values(),
+                      *resumed.memory],
+                     [*unbroken.model.state_dict().values(),
+                      *unbroken.memory]))
+    bit_equal = (all(torch.equal(a, b) for a, b in same)
+                 and hist_r == hist and resumed.step == unbroken.step
+                 and torch.equal(resumed.generator.get_state(),
+                                 unbroken.generator.get_state()))
+    print(f"cocktail memory resume: 1 epoch + --resume 1 against 2 unbroken "
+          f"epochs of {GEN_RESUME_STEPS} steps in {runs_s:.1f} s; dev losses "
+          f"unbroken {hist}, resumed {hist_r}; the second epoch improved "
+          f"{improved}; step {resumed.step} and {unbroken.step}; "
+          f"{len(same)} tensors (moments, parameters, memory rows and "
+          f"ages), the step and the batch generator bit-equal {bit_equal}; "
+          f"launches {launches}", flush=True)
+    if not improved:
+        fail(f"cocktail memory resume: the second epoch did not improve the "
+             f"dev loss ({hist})")
+    if not bit_equal:
+        fail("cocktail memory: the resumed run is not bit-equal to the "
+             "unbroken one")
+    del resumed, unbroken
+
+    ckl = os.path.join(tmp, "gen_ckl")
+    zero_counts(torch)
+    quiet(train_cli.main, ["--preset", "cocktail", "--mode", "memory",
+                           "--seed", str(SEED), "--device", "cuda",
+                           "--file-lists", lists, "--epochs", "1",
+                           "--epoch-size", str(GEN_STEPS),
+                           "--checkpoint-dir", ckl])
+    launches, _ = read_counts(torch, total)
+    with open(os.path.join(ckl, "vocab.json")) as fh:
+        vocab = json.load(fh)
+    print(f"cocktail memory --file-lists: {len(vocab)} speakers in "
+          f"vocab.json; launches {launches}", flush=True)
+    if len(vocab) != GEN_SPEAKERS:
+        fail(f"run.train --file-lists wrote a vocabulary of {len(vocab)}")
+    evals = (("known speakers", ck, [*tree, "--batches", "2"]),
+             ("--unk-holdout 2", ck, [*tree, "--unk-holdout", "2"]),
+             ("--unk-root", ck, [*tree, "--unk-root",
+                                 os.path.join(root, "b", "wsj0")]),
+             ("wavlist test", ckl, ["--file-lists", lists, "--split",
+                                    "test"]),
+             ("wavlist unk", ckl, ["--file-lists", lists, "--split",
+                                   "unk"]))
+    for label, ckd, extra in evals:
+        zero_counts(torch)
+        t0 = time.perf_counter()
+        res, text = quiet(evaluate_cli.main, [
+            "--mode", "memory", "--checkpoint-dir", ckd, "--seed",
+            str(SEED), "--device", "cuda", *extra])
+        launches, _ = read_counts(torch, total)
+        lines = [ln for ln in text.splitlines() if "SI-SDR" in ln]
+        print(f"run.evaluate --mode memory {label}: {lines[-1:]} "
+              f"({time.perf_counter() - t0:.1f} s); launches {launches}",
+              flush=True)
+        if not np.isfinite([res["si_sdr"], res["nsdr"],
+                            *res["gain"].values()]).all():
+            fail(f"run.evaluate --mode memory {label}: {res}")
+
+    # ---- one step of each path: its launches ------------------------------
+    cfg_m = preset("cocktail")
+    bank = torch.as_tensor(make_synthetic_bank(
+        SEED, cfg_m.num_speakers, BANK_UTTS, N_SAMPLES), device=dev)
+    gen = torch.Generator().manual_seed(SEED)
+    mstate = create_memory_state(cfg_m, SEED, device=dev)
+    mstep = make_memory_train_step(cfg_m)
+    # a step draws its batch: K1 runs in featurize
+    zero_counts(torch)
+    mfeats = memory_batch(gen, bank, cfg_m)
+    mstep(mstate, mfeats)
+    launches, bodies = read_counts(torch)
+    print(f"cocktail memory step: launches {launches}, bodies {bodies}",
+          flush=True)
+    expect_counts("cocktail memory step", launches, {
+        "stft_features": 2, "lstm_fwd": 4, "lstm_bwd": 4, "gru_fwd": 0,
+        "gru_bwd": 0, "maskhead_pack": 0, "maskhead_fwd": 0,
+        "maskhead_bwd": 0, "masked_istft": 0})
+
+    cfg_v = preset("grid_video")
+    frames = torch.as_tensor(synthetic_frame_bank(
+        cfg_v.num_speakers, 2, 4, (48, 48), seed=SEED), device=dev)
+    vstate = create_query_state(cfg_v, SEED, device=dev)
+    vstep = make_query_train_step(cfg_v)
+    zero_counts(torch)
+    vfeats = query_batch(gen, bank, cfg_v, "query_video", frames)
+    vstep(vstate, vfeats)
+    launches, bodies = read_counts(torch)
+    print(f"grid_video step (conv trunk): launches {launches}, bodies "
+          f"{bodies}", flush=True)
+    expect_counts("grid_video step", launches, {
+        "stft_features": 2, "gru_fwd": 2, "gru_bwd": 2, "maskhead_pack": 1,
+        "maskhead_fwd": 1, "maskhead_bwd": 1, "lstm_fwd": 2, "lstm_bwd": 2,
+        "masked_istft": 0})
+
+    cfg_i = preset("multimodal_image")
+    imgs, labels = load_mnist(None)
+    digits = torch.as_tensor(digit_query_bank(imgs, labels,
+                                              cfg_i.num_speakers),
+                             device=dev)
+    istate = create_query_state(cfg_i, SEED, "image", device=dev)
+    istep = make_query_train_step(cfg_i, "image")
+    cfg_d = preset("cocktail_debug")
+    dstate = create_memory_state(cfg_d, SEED, device=dev)
+    dstep = make_memory_train_step(cfg_d)
+    for label, run in (
+            ("multimodal_image step", lambda: istep(istate, query_batch(
+                gen, bank, cfg_i, "query_image", digits))),
+            ("cocktail_debug memory step", lambda: dstep(
+                dstate, memory_batch(gen, bank, cfg_d)))):
+        zero_counts(torch)
+        run()
+        launches, _ = read_counts(torch)
+        print(f"{label}: launches {launches}", flush=True)
+        if launches:
+            fail(f"{label} launched {launches}; its flags ask for none")
+    del dstate
+
+    # run.train --mode image-query: two steps on the glyphs, no kernel
+    zero_counts(torch)
+    t0 = time.perf_counter()
+    img, _ = quiet(train_cli.main, [
+        "--preset", "multimodal_image", "--mode", "image-query", "--seed",
+        str(SEED), "--device", "cuda", "--utts", str(BANK_UTTS),
+        "--epochs", "1", "--epoch-size", "2"])
+    launches, _ = read_counts(torch)
+    print(f"run.train --preset multimodal_image --mode image-query: step "
+          f"{img.step} in {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}", flush=True)
+    if img.step != 2 or launches:
+        fail(f"run.train --mode image-query: step {img.step}, launches "
+             f"{launches}")
+    del img
+
+    # ---- the query BiLSTMs: K7 / K8 against the plain loop on the card ----
+    # JAX runs them as a lax.scan (no kernel); the port sends them through
+    # K7 / K8 where the preset asks for the recurrent kernels
+    clean = mfeats["clean_feas"]
+    valid = _valid_frames(clean, cfg_m)
+    query = mstate.model.speech_query
+    vquery = vstate.model.video_query
+    # (B, K, T, H, W, 3): one clip a mixture's speaker
+    clips = vfeats["query_video"].flatten(0, 1)
+    for label, module, run in (
+            ("speech query BiLSTM-25 x 2", query,
+             lambda k: apply_speech_query(query, clean, valid, k)),
+            ("video query BiLSTM-300 x 2", vquery,
+             lambda k: apply_video_query(vquery, clips, k)[1])):
+        names = [n for n, _ in module.named_parameters()
+                 if n.startswith("rnn.")]
+        params = [p for n, p in module.named_parameters()
+                  if n.startswith("rnn.")]
+        outs, grads = {}, {}
+        for kernels in (True, False):
+            out = run(kernels)
+            # a fixed random cotangent reaches every gradient
+            cot = torch.randn(out.shape, generator=torch.Generator()
+                              .manual_seed(SEED)).to(dev)
+            grads[kernels] = torch.autograd.grad((out * cot).sum(), params)
+            outs[kernels] = out.detach()
+        err = check(f"{label} K7 vs plain loop (forward)",
+                    max_err(outs[True], outs[False]), TOL["query_rnn_fwd"])
+        worst = max((rel_l2(a, b), n) for n, a, b in
+                    zip(names, grads[True], grads[False]))
+        print(f"{label}: K7 / K8 against the plain loop on the card: output "
+              f"max_abs_err {err:.3e} tol {TOL['query_rnn_fwd']:.0e}; "
+              f"{len(names)} gradients, worst rel L2 {worst[0]:.3e} "
+              f"({worst[1]}) tol {TOL['query_rnn_bwd']:.0e}", flush=True)
+        if not worst[0] <= TOL["query_rnn_bwd"]:
+            fail(f"{label}: the gradient of {worst[1]} on K8 differs from "
+                 f"the plain loop's by {worst[0]}")
+
+    # ---- the card against the CPU: one memory and one video-query step ----
+    # fresh states from one seed: the weights are drawn on the CPU, so the
+    # twins start equal
+    for label, make, create, feats, keys, loss_tol, tol in (
+            ("cocktail memory step", make_memory_train_step,
+             lambda d: create_memory_state(cfg_m, SEED, device=d), mfeats,
+             ("loss",), TOL["mem_step_loss"], TOL["mem_step_update"]),
+            ("grid_video step", make_query_train_step,
+             lambda d: create_query_state(cfg_v, SEED, device=d), vfeats,
+             ("loss", "mask_loss", "query_ce"), TOL["video_step_loss"],
+             TOL["video_step_update"])):
+        cfg = cfg_m if label.startswith("cocktail") else cfg_v
+        state, twin = create(dev), create("cpu")
+        before = leaves(state.model)
+        step = make(cfg)
+        t0 = time.perf_counter()
+        (_, met_g), grads_g = recorded_grads(step, state, feats)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (_, met_c), grads_c = recorded_grads(
+            step, twin, {k: v.cpu() for k, v in feats.items()})
+        t_cpu = time.perf_counter() - t0
+        print(f"{label} card vs CPU (card {t_card:.2f} s incl. warm-up, "
+              f"CPU {t_cpu:.2f} s)", flush=True)
+        close_losses(label, met_g, met_c, keys, loss_tol)
+        close_losses(label, met_g, met_c, ("grad_norm",), tol)
+        worst = leaf_updates(label, before, leaves(state.model),
+                             leaves(twin.model), tol, grads_g, grads_c)
+        mem_err = (max_err(state.memory.vectors.cpu(), twin.memory.vectors)
+                   if hasattr(state, "memory") else 0.0)
+        ages = (torch.equal(state.memory.age.cpu(), twin.memory.age)
+                if hasattr(state, "memory") else True)
+        print(f"{label}: {len(grads_c)} gradients and updates, worst update "
+              f"rel L2 {worst:.3e} tol {tol:.0e}; memory after the write "
+              f"max_abs_err {mem_err:.3e} tol {TOL['memory']:.0e}, ages "
+              f"equal {ages}", flush=True)
+        if not (mem_err <= TOL["memory"] and ages):
+            fail(f"{label}: the memory after the write differs by {mem_err} "
+                 f"(ages equal {ages})")
+        del state, twin
+
+    # ---- timings and profiles -----------------------------------------------
+    ifeats = query_batch(gen, bank, cfg_i, "query_image", digits)
+    mem_ms = host_ms(torch, lambda: mstep(mstate, mfeats), 10)
+    vid_ms = host_ms(torch, lambda: vstep(vstate, vfeats), 10)
+    img_ms = host_ms(torch, lambda: istep(istate, ifeats), 2)
+    for label, fn, wall in (
+            ("cocktail memory step", lambda: mstep(mstate, mfeats), mem_ms),
+            ("grid_video step (conv trunk)", lambda: vstep(vstate, vfeats),
+             vid_ms),
+            ("multimodal_image step", lambda: istep(istate, ifeats),
+             img_ms)):
+        print_profile(f"B={BATCH} {label}", fn, wall, torch, top=12)
+    # the speech query's BiLSTM-25 x 2 forward and backward, on the eager
+    # loop (JAX's route there, lax.scan) and on K7 / K8
+    q_ms = {}
+    for route, kernels in (("eager loop", False), ("K7/K8", True)):
+        def fwd_bwd():
+            apply_speech_query(query, clean, valid, kernels).sum().backward()
+        q_ms[route] = host_ms(torch, fwd_bwd, 5 if not kernels else 10)
+    eager_step = mem_ms - q_ms["K7/K8"] + q_ms["eager loop"]
+    print(f"time speech query BiLSTM-{query.rnn[0].fwd.wh.shape[0]} x "
+          f"{len(query.rnn)} forward + backward at B={BATCH}, T="
+          f"{clean.shape[1]}: eager loop {q_ms['eager loop']:.3f} ms, K7/K8 "
+          f"{q_ms['K7/K8']:.3f} ms; its share of a memory step: "
+          f"{q_ms['K7/K8'] / mem_ms:.1%} of {mem_ms:.3f} ms on K7/K8, "
+          f"{q_ms['eager loop'] / eager_step:.1%} of {eager_step:.3f} ms on "
+          f"the eager loop", flush=True)
+    print(f"time B={BATCH} steps (median wall ms): cocktail memory "
+          f"{mem_ms:.3f}, grid_video conv trunk {vid_ms:.3f}, "
+          f"multimodal_image (plain recurrences) {img_ms:.3f}", flush=True)
+    del mstate, vstate, istate
+
+    # ---- grid_video with the frozen Inception trunk at 299x299 -----------
+    video = ["--preset", "grid_video", "--mode", "video", "--seed",
+             str(SEED), "--device", "cuda"]
+    zero_counts(torch)
+    t0 = time.perf_counter()
+    inc, _ = quiet(train_cli.main, [*video, "--video-trunk", "inception",
+                                    "--epochs", "1", "--epoch-size", "1",
+                                    "--eval-every", "0"])
+    inc_s = time.perf_counter() - t0
+    launches, _ = read_counts(torch, total)
+    fresh = create_query_state(cfg_v, SEED, video_trunk="inception",
+                               frame_hw=(299, 299), device=dev)
+    trunk = [(n, p) for n, p in inc.model.named_parameters()
+             if n.startswith("video_query.inception.")]
+    ref = dict(fresh.model.named_parameters())
+    moved = [n for n, p in trunk if not torch.equal(p, ref[n])]
+    head_moved = not torch.equal(inc.model.video_query.dense.w,
+                                 ref["video_query.dense.w"])
+    print(f"grid_video Inception trunk: one step in {inc_s:.1f} s (frames "
+          f"made and trunk built included); {len(trunk)} trunk parameters, "
+          f"{len(moved)} moved; the query head moved {head_moved}; "
+          f"launches {launches}", flush=True)
+    if moved or not head_moved:
+        fail(f"the frozen Inception trunk moved ({moved[:3]}) or the head "
+             f"did not")
+    del fresh
+    istack = torch.as_tensor(synthetic_frame_bank(4, 1, 4, (299, 299),
+                                                  seed=SEED), device=dev)
+    inc_step = make_query_train_step(cfg_v)
+    incfeats = query_batch(gen, bank[:4], cfg_v, "query_video", istack)
+    inc_ms = host_ms(torch, lambda: inc_step(inc, incfeats), 3)
+    print(f"time B={BATCH} grid_video step with the Inception trunk "
+          f"(2 x 4 frames of 299x299 a mixture): {inc_ms:.3f} ms", flush=True)
+    print_profile(f"B={BATCH} grid_video step (Inception trunk)",
+                  lambda: inc_step(inc, incfeats), inc_ms, torch, top=12)
+    del inc, istack, incfeats
+
+    # ---- the learning gates, on one 101 x 8 rehearsal tree ------------------
+    t0 = time.perf_counter()
+    generate_corpus(os.path.join(root, "c"), n_spk=LEARN_SPEAKERS,
+                    utts=LEARN_UTTS, seconds=N_SAMPLES / 8000,
+                    tr_entries=16, cv_entries=4, tt_entries=4,
+                    seed=LEARN_TREE_SEED, cv_holdout=1)
+    learn_root = os.path.join(root, "c", "wsj0")
+    train_utts = LEARN_UTTS - LEARN_HELD_UTTS
+    print(f"generations: learning corpus of {LEARN_SPEAKERS} x {LEARN_UTTS} "
+          f"utterances, seed {LEARN_TREE_SEED} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def held_bank(cfg):
+        held = DirTreeSampler(learn_root, cfg, "si_tr_s", LEARN_HELD_UTTS,
+                              utts_offset=train_utts)
+        return (cfg.replace(num_speakers=held.num_speakers),
+                torch.as_tensor(held.bank, device=dev))
+
+    # cocktail memory mode: run.train's own dev MSE (its dev batch drawn
+    # from seed + 13, as JAX's run.train draws it) at step 0 and after
+    # MEM_LEARN_STEPS steps, on all LEARN_UTTS utterances a speaker
+    def memory_run(utts, epochs, esize, path):
+        return quiet(train_cli.main, [
+            "--preset", "cocktail", "--mode", "memory", "--seed", str(SEED),
+            "--device", "cuda", "--data-root", learn_root, "--split",
+            "si_tr_s", "--utts", str(utts), "--epochs", str(epochs),
+            "--epoch-size", str(esize), "--metrics", path])[0]
+
+    m0, m1 = (os.path.join(tmp, f"gen_learn{i}.jsonl") for i in (0, 1))
+    memory_run(LEARN_UTTS, 1, 0, m0)
+    t0 = time.perf_counter()
+    zero_counts(torch)
+    memory_run(LEARN_UTTS, 10, MEM_LEARN_STEPS // 10, m1)
+    read_counts(torch, total)
+    learn_s = time.perf_counter() - t0
+    start, curve = dev_losses(m0)[0], dev_losses(m1)
+    ratio = curve[-1] / start
+    print(f"learning cocktail memory ({LEARN_SPEAKERS}-speaker tree, "
+          f"{LEARN_UTTS} utterances a speaker): dev MSE {start:.4f} at step "
+          f"0, {curve} every {MEM_LEARN_STEPS // 10} steps ({learn_s:.1f} s); "
+          f"after {MEM_LEARN_STEPS} steps {ratio:.4f} of step 0 (gate: at "
+          f"most {TOL['memory_learn_ratio']})", flush=True)
+    # printed, not gated: the same model trained on each speaker's first
+    # train_utts utterances, its MSE on mixtures of the last ones
+    cfg_h, hbank = held_bank(preset("cocktail"))
+    score_m = make_memory_eval_step(cfg_h)
+
+    def held_mse(state):
+        return float(np.mean([float(score_m(state.model, state.memory,
+                                            memory_batch(
+            torch.Generator().manual_seed(10 ** 6 + i), hbank,
+            cfg_h))["loss"]) for i in range(MEM_HELD_BATCHES)]))
+
+    held0 = held_mse(create_memory_state(cfg_h, SEED, device=dev))
+    m2 = os.path.join(tmp, "gen_learn2.jsonl")
+    held_state = memory_run(train_utts, 10, MEM_LEARN_STEPS // 10, m2)
+    held1 = held_mse(held_state)
+    del held_state
+    print(f"learning cocktail memory, printed and not gated: trained on "
+          f"{train_utts} utterances a speaker, MSE on {MEM_HELD_BATCHES} "
+          f"batches of mixtures of the last {LEARN_HELD_UTTS}: {held0:.4f} "
+          f"at step 0, {held1:.4f} after {MEM_LEARN_STEPS} steps "
+          f"({held1 / held0:.4f}); its run.train dev MSE {dev_losses(m2)}",
+          flush=True)
+    if not ratio <= TOL["memory_learn_ratio"]:
+        fail(f"cocktail memory did not learn: dev MSE {start} -> "
+             f"{curve[-1]}")
+
+    # grid_video learns on the protocol of tools/grid_video_jax_curve.py,
+    # JAX's reference: run.train from each seed on each speaker's first
+    # utterances, scored before and after on mixtures of the utterances it
+    # never trained on
+    cfg_l, hbank = held_bank(preset("grid_video").replace(encoder_layers=1))
+    score = make_query_eval_step(cfg_l)
+
+    def held_out(state, seed):
+        # the lips of the run's seed, as run.train draws them
+        lips = torch.as_tensor(synthetic_frame_bank(
+            cfg_l.num_speakers, 2, 4, (48, 48), seed=seed), device=dev)
+        return float(np.mean([float(score(state.model, query_batch(
+            torch.Generator().manual_seed(10 ** 6 + 1000 * seed + i), hbank,
+            cfg_l, "query_video", lips))["si_sdr"].mean())
+            for i in range(VIDEO_HELD_BATCHES)]))
+
+    curves, ces = {}, {}
+    t0 = time.perf_counter()
+    zero_counts(torch)
+    for seed in VIDEO_LEARN_SEEDS:
+        m3 = os.path.join(tmp, f"gen_v{seed}.jsonl")
+        start = held_out(create_query_state(cfg_l, seed, device=dev), seed)
+        state, _ = quiet(train_cli.main, [
+            "--preset", "grid_video", "--mode", "video", "--seed", str(seed),
+            "--device", "cuda", "--data-root", learn_root, "--split",
+            "si_tr_s", "--utts", str(train_utts), "--set", "encoder_layers=1",
+            "--epochs", "5", "--epoch-size", str(VIDEO_LEARN_STEPS // 5),
+            "--eval-every", "0", "--metrics", m3])
+        curves[seed] = (round(start, 6), round(held_out(state, seed), 6))
+        with open(m3) as fh:
+            ces[seed] = round(json.loads(fh.readlines()[-1])["query_ce"], 3)
+    read_counts(torch, total)
+    learn_s = time.perf_counter() - t0
+    gains = [end - start for start, end in curves.values()]
+    gain = float(np.mean(gains))
+    print(f"learning grid_video (encoder depth 1, {cfg_l.num_speakers}-"
+          f"speaker tree, {train_utts} utterances a speaker, conv trunk, "
+          f"48x48 synthetic lips): held-out SI-SDR (step 0, step "
+          f"{VIDEO_LEARN_STEPS}) by seed {curves} dB on "
+          f"{VIDEO_HELD_BATCHES} batches of the last {LEARN_HELD_UTTS} "
+          f"utterances ({learn_s:.1f} s); the query CE {ces}; gains "
+          f"{[round(g, 4) for g in gains]}, mean {gain:.4f} dB (gate: at "
+          f"least {TOL['video_learn_db']})", flush=True)
+    if not gain >= TOL["video_learn_db"]:
+        fail(f"grid_video did not learn: held-out {curves}")
+
+    return total
+
+
 def rehearsal(torch) -> int:
     """`chip_smoke.py --rehearsal`: phase 12 alone at the official depth
     (REHEARSAL_DATA), then the card's line."""
@@ -1354,6 +1956,25 @@ def rehearsal(torch) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         data_phase(torch, dev, tmp, REHEARSAL_DATA)
     print(f"rehearsal: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    return 0
+
+
+def generations(torch) -> int:
+    """`chip_smoke.py --generations`: the kernels' build and phase 13 alone,
+    then the card's line."""
+    from dl4ss_tpu_torch import resolve_device
+    from dl4ss_tpu_torch.ops import cuda_lib
+    dev = resolve_device("cuda")
+    t0 = time.perf_counter()
+    cuda_lib.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        print(f"generations: launches of the CLI runs "
+              f"{dict(generations_phase(torch, dev, tmp))}", flush=True)
+    print(f"generations: {time.perf_counter() - t0:.1f} s", flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1372,9 +1993,11 @@ def main(argv=None) -> int:
         return learning_curve(torch, int(argv[1]))
     if argv == ["--rehearsal"]:
         return rehearsal(torch)
+    if argv == ["--generations"]:
+        return generations(torch)
     if argv:
-        print("usage: chip_smoke.py [--learning STEPS | --rehearsal]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--learning STEPS | --rehearsal | "
+              "--generations]", file=sys.stderr)
         return 2
     from dl4ss_tpu_torch import preset, resolve_device
     from dl4ss_tpu_torch.models import init_separator
@@ -2615,6 +3238,8 @@ def main(argv=None) -> int:
         learning_phase(torch, tmp)
         # ---- 12. data sources and scoring --------------------------------
         data_launches = data_phase(torch, dev, tmp, SMOKE_DATA)
+        # ---- 13. the memory, image-query and video generations ----------
+        gen_launches = generations_phase(torch, dev, tmp)
 
     for row in kernels:
         # the kernel's launches on the tdaa paths (phase 10), beside those
@@ -2624,6 +3249,8 @@ def main(argv=None) -> int:
         row["tdaa_launches"] = tdaa_launches.get(name, 0)
         # and on the data-source paths (phase 12)
         row["data_launches"] = data_launches.get(name, 0)
+        # and on the generations' CLI runs (phase 13)
+        row["gen_launches"] = gen_launches.get(name, 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

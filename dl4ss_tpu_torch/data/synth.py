@@ -226,3 +226,16 @@ def same_speaker_real_specs(generator: torch.Generator, batch: MixtureBatch,
         utt = torch.randint(0, u, (b, k), generator=generator).to(dev)
     wavs = normalize_utterance(bank[batch.spk_idx, utt])
     return stft_cfg(wavs, cfg).abs()
+
+
+def linear_target_mags(feats: dict, batch: MixtureBatch, cfg: Config):
+    """(mix_mag, target_mag) for the memory trainer: the mask's
+    multiplicand and the loss target are LINEAR spectra even when the
+    network's input features are log-domain (output = mask (.) mixture
+    spectrum, Cocktail nnet.py:95, predict.py:241-245). The target is the
+    first speaker (the Cocktail first-speaker-is-target convention)."""
+    if not cfg.log_spectral:
+        return feats["mix_feas"], feats["src_feas"][:, 0]
+    ri = feats["mix_ri"]
+    mix_mag = torch.complex(ri[..., 0], ri[..., 1]).abs()
+    return mix_mag, stft_cfg(batch.source_wavs[:, 0], cfg).abs()

@@ -76,10 +76,40 @@ def conv_init(in_ch: int, out_ch: int, kh: int, kw: int,
     return Conv2d(in_ch, out_ch, kh, kw, generator, dtype, device)
 
 
-def conv2d(p: Conv2d, x: torch.Tensor, stride=(1, 1)) -> torch.Tensor:
-    """x NHWC -> NHWC, VALID padding, accumulated in f32 and returned in x's
-    dtype: the layouts of JAX's conv2d, permuted around `F.conv2d` (cuDNN
-    on the card, with TF32 off, see `resolve_device`)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2).float(),
-                 p.w.permute(3, 2, 0, 1).float(), stride=stride)
+def same_pads(size: int, kernel: int, stride: int):
+    """XLA's SAME padding of one spatial axis: the output is ceil(size /
+    stride), the total pad max((out - 1) * stride + kernel - size, 0), its
+    lower half before the axis and the rest after it, so a stride > 1 can
+    pad one more at the end than at the start."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_nchw(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
+                padding: str = "VALID") -> torch.Tensor:
+    """x NCHW, w HWIO -> NCHW, no bias: `F.conv2d` with JAX's VALID or
+    SAME padding (the latter through `F.pad` first where it is
+    asymmetric)."""
+    kh, kw = w.shape[0], w.shape[1]
+    w = w.permute(3, 2, 0, 1)
+    if padding == "VALID":
+        return F.conv2d(x, w, stride=stride)
+    if padding != "SAME":
+        raise ValueError(f"unknown padding {padding!r}")
+    (top, bottom) = same_pads(x.shape[2], kh, stride[0])
+    (left, right) = same_pads(x.shape[3], kw, stride[1])
+    if top == bottom and left == right:
+        return F.conv2d(x, w, stride=stride, padding=(top, left))
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, stride=stride)
+
+
+def conv2d(p: Conv2d, x: torch.Tensor, stride=(1, 1),
+           padding: str = "VALID") -> torch.Tensor:
+    """x NHWC -> NHWC, VALID or SAME padding (XLA's rule, `same_pads`),
+    accumulated in f32 and returned in x's dtype: the layouts of JAX's
+    conv2d, permuted around `F.conv2d` (cuDNN on the card, with TF32 off,
+    see `resolve_device`)."""
+    y = conv2d_nchw(x.permute(0, 3, 1, 2).float(), p.w.float(), stride,
+                    padding)
     return (y.permute(0, 2, 3, 1) + p.b.float()).to(x.dtype)

@@ -95,8 +95,11 @@ def stft_features_plain(xpad: torch.Tensor, frame_length: int,
     tab = dsp_tables(frame_length, window, xpad.device)
     bins = _bins(frame_length)
     frames = xpad.unfold(-1, frame_length, frame_shift) * tab.win
-    re = torch.matmul(frames, tab.dft[:, :bins])
-    im = torch.matmul(frames, tab.dft[:, bins:])
+    # one product against the whole table, split after it: K9's plain
+    # version runs the same product, so the two agree bit for bit on any
+    # CPU (two half-width products sum in another order)
+    ri = torch.matmul(frames, tab.dft)
+    re, im = ri[..., :bins].contiguous(), ri[..., bins:].contiguous()
     return torch.sqrt(re * re + im * im).to(feat_dtype), re, im
 
 

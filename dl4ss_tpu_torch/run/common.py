@@ -1,7 +1,7 @@
 """Shared CLI plumbing: preset selection + overrides + data source (the
-synthetic bank or a speaker tree, `--data-root`), the noise bank and the
-checkpoint-zoo graft (the port of `dl4ss_tpu/run/common.py`), plus the
-`--device` flag."""
+synthetic bank or a speaker tree, `--data-root`), the noise bank, the
+checkpoint-zoo graft and the video modes' frame bank (the port of
+`dl4ss_tpu/run/common.py`), plus the `--device` flag."""
 
 from __future__ import annotations
 
@@ -169,3 +169,29 @@ def apply_graft(state, graft_arg: str, cfg: Optional[Config] = None):
         raise SystemExit(f"--graft: {err.args[0]}") from None
     print(f"grafted components: {', '.join(kv[0] for kv in pairs)}")
     return state
+
+
+def frame_hw(args) -> tuple:
+    """Frame geometry of the video trunk: Inception-v3 fixes 299x299
+    (models/inception.py); the conv trunk uses --frame-size."""
+    if getattr(args, "video_trunk", "conv") == "inception":
+        return (299, 299)
+    return (args.frame_size, args.frame_size)
+
+
+def load_frame_bank(cfg: Config, args, hw, seed: int):
+    """(S, C, T, H, W, 3) lip-frame bank (numpy): a GRID-style tree
+    (--video-root, paired speaker-for-speaker with the audio bank,
+    Torch_multi/predata.py:161-184) or the synthetic per-speaker bank."""
+    if args.video_root:
+        from dl4ss_tpu_torch.data.video import speaker_frame_bank
+        frames, _ = speaker_frame_bank(args.video_root, args.frames, size=hw)
+        if frames.shape[0] != cfg.num_speakers:
+            raise SystemExit(
+                f"--video-root has {frames.shape[0]} speakers but the audio "
+                f"bank has {cfg.num_speakers}; the trees must pair "
+                f"speaker-for-speaker (predata.py:161-184)")
+        return frames
+    from dl4ss_tpu_torch.data.video import synthetic_frame_bank
+    return synthetic_frame_bank(cfg.num_speakers, 2, args.frames, hw,
+                                seed=seed)

@@ -24,9 +24,22 @@ wsj0-mix lists (`--list-dir`, `--mix-k` pools, speakers indexed by the
 training run's vocab.json; `--batches` caps it); `--noise-wavs` adds street
 noise to every mixture. The model is `--checkpoint-dir`'s latest step under
 its cfg.json, with `--graft component=dir,...` over it (random weights from
---seed without either). Not ported yet, each exiting with a one-line
-message: the memory mode, its options and the Cocktail wavlists
-(`--file-lists`) (ROADMAP P12).
+--seed without either).
+
+    python -m dl4ss_tpu_torch.run.evaluate --mode memory --checkpoint-dir ck
+    python -m dl4ss_tpu_torch.run.evaluate --mode memory --checkpoint-dir ck \
+        --unk-holdout 2 | --unk-root other_tree [--enroll-seconds 1]
+    python -m dl4ss_tpu_torch.run.evaluate --mode memory --checkpoint-dir ck \
+        --file-lists lists --wav-root . --split dev|test|unk
+
+`--mode memory` scores the Cocktail extractor: the trained memory rows
+drive the masks of known speakers; unknown speakers (the last
+--unk-holdout bank speakers, or a disjoint tree under --unk-root) are
+enrolled from --enroll-seconds of their audio first, the first into the
+reserved unk row and the rest into appended rows. `--file-lists` re-mixes
+the Cocktail wavlists deterministically, `--split unk` enrolling from the
+supplemental column. It prints SI-SDR, its improvement over the mixture
+and the BSS-Eval 2.0 gain (SDR / SIR / SAR / NSDR).
 """
 
 from __future__ import annotations
@@ -54,11 +67,6 @@ from dl4ss_tpu_torch.train.checkpoint import load_cfg
 from dl4ss_tpu_torch.train.steps import (make_eval_step,
                                          make_recursive_eval_step)
 
-# the memory mode's options (ROADMAP P12): each refuses naming the item
-_P12 = ("file_lists", "query_source", "video_trunk", "frame_size",
-        "enroll_seconds", "unk_holdout", "unk_root")
-
-
 def _hits(spk_idx: torch.Tensor, live: torch.Tensor, chosen: torch.Tensor):
     """(true speakers recovered in `chosen`, true speakers) over a batch."""
     hits = total = 0
@@ -77,9 +85,38 @@ def main(argv=None):
                         "mode: a cap on the whole split's batch count")
     p.add_argument("--mode", default="separate",
                    choices=["separate", "recursive", "memory"],
-                   help="recursive = peel-and-subtract extraction scored "
-                        "per step (main_run_multi_selfSS_recu.py:341-409); "
-                        "memory is not ported yet (ROADMAP P12)")
+                   help="memory = Cocktail/Multi_modal target "
+                        "extraction driven by the life-long speaker memory, "
+                        "with optional unknown-speaker enrollment; "
+                        "recursive = peel-and-subtract extraction scored "
+                        "per step (main_run_multi_selfSS_recu.py:341-409)")
+    p.add_argument("--query-source", default="speech",
+                   choices=["speech", "image", "video"],
+                   help="memory mode: which modality trained the memory "
+                        "(video = lip-frame queries in the VIDEO slot)")
+    p.add_argument("--frame-size", type=int, default=48,
+                   help="memory mode, video query: square frame edge the "
+                        "checkpoint was trained with")
+    p.add_argument("--video-trunk", default="conv",
+                   choices=["conv", "inception"],
+                   help="memory mode, video query: the checkpoint's "
+                        "per-frame trunk")
+    p.add_argument("--enroll-seconds", type=float, default=1.0,
+                   help="memory mode: seconds of unknown-speaker audio "
+                        "enrolled before scoring (predict.py:160-180)")
+    p.add_argument("--unk-holdout", type=int, default=0,
+                   help="memory mode: treat the LAST N bank speakers as "
+                        "unknown: enroll each from a spare utterance, then "
+                        "score memory-only extraction")
+    p.add_argument("--unk-root", default=None,
+                   help="memory mode: speaker tree of UNKNOWN speakers "
+                        "(disjoint from training); overrides --unk-holdout")
+    p.add_argument("--file-lists", default=None, metavar="DIR",
+                   help="memory mode: directory of Cocktail wavlists "
+                        "(generate_file_lists output), re-mixed "
+                        "deterministically (predict.py:104-155); --split "
+                        "dev/test picks the list, --split unk runs the "
+                        "enrollment protocol (predict.py:160-180)")
     p.add_argument("--teacher-forced", action="store_true",
                    help="use the ground-truth speakers; default: the "
                         "classifier's top-k")
@@ -120,18 +157,10 @@ def main(argv=None):
                    help="checkpoint-zoo composition: comma-separated "
                         "component=ckpt_dir pairs grafted over "
                         "--checkpoint-dir (e.g. classifier=ck_cls)")
-    for name in _P12:
-        p.add_argument("--" + name.replace("_", "-"), default=None,
-                       help="not ported yet (ROADMAP P12)")
     args = p.parse_args(argv)
 
     if args.mode == "memory":
-        raise SystemExit("--mode memory (the life-long speaker memory) is "
-                         "not ported yet (ROADMAP P12)")
-    for name in _P12:
-        if getattr(args, name) is not None:
-            raise SystemExit(f"--{name.replace('_', '-')} is not ported yet "
-                             f"(ROADMAP P12)")
+        return _memory_eval(args)
     if args.mode == "recursive" and (args.dedup or args.teacher_forced
                                      or args.complement_mask):
         raise SystemExit(
@@ -297,6 +326,262 @@ def main(argv=None):
         print(f"BSS-Eval SDR: {float(np.mean(np.concatenate(all_sdr))):.4f} "
               f"dB over {sum(len(x) for x in all_sdr)} channels")
     return sisdr
+
+
+def _memory_eval(args):
+    """Memory-driven target extraction scoring (the Cocktail evaluator):
+
+      * known speakers: the trained memory row alone drives the mask
+        (predict.py:231-245);
+      * unknown speakers (--unk-holdout / --unk-root): enroll
+        --enroll-seconds of their audio into a fresh row first
+        (predict.py:160-180), the first into the reserved unk row, each
+        further one into an appended row of its own (lifting the
+        reference's batch-size-1 restriction, predict.py:48-50).
+
+    Reports SI-SDR of the extracted target, its improvement over the raw
+    mixture, and the BSS-Eval 2.0 gain decomposition with NSDR (the
+    reference's headline Cocktail metric, BSS_EVAL.m:8-21)."""
+    from dl4ss_tpu_torch.data.listsampler import mix_from_list
+    from dl4ss_tpu_torch.data.synth import (linear_target_mags,
+                                            normalize_utterance)
+    from dl4ss_tpu_torch.eval.bss_eval import gain_nsdr
+    from dl4ss_tpu_torch.eval.sisdr import si_sdr
+    from dl4ss_tpu_torch.models.memory import (memory_extend,
+                                               memory_reset_rows)
+    from dl4ss_tpu_torch.ops.stft import istft_cfg, spectral_feature_cfg
+    from dl4ss_tpu_torch.run.common import apply_graft, frame_hw
+    from dl4ss_tpu_torch.train.checkpoint import restore_checkpoint
+    from dl4ss_tpu_torch.train.memory_trainer import (create_memory_state,
+                                                      enroll,
+                                                      make_memory_eval_step,
+                                                      unk_row)
+    from dl4ss_tpu_torch.train.steps import _mixture_phasor
+
+    # state shapes come from the training config; the CLI's runtime
+    # overrides (batch_size_eval etc.) still win on top
+    cfg = checkpoint_cfg(build_cfg(args), args)
+    device = resolve_device(args.device)
+    state = create_memory_state(cfg, args.seed, args.query_source,
+                                frame_hw=frame_hw(args),
+                                video_trunk=args.video_trunk, device=device)
+    if args.checkpoint_dir:
+        state = restore_checkpoint(args.checkpoint_dir, state)
+        print(f"restored step {state.step} from {args.checkpoint_dir}")
+    if args.graft:
+        state = apply_graft(state, args.graft, cfg)
+    ev = make_memory_eval_step(cfg, args.query_source)
+
+    def score(memory, batch, spk_id):
+        feats = featurize(batch, cfg)
+        mix_mag, target_mag = linear_target_mags(feats, batch, cfg)
+        out = ev(state.model, memory,
+                 {"mix_feas": feats["mix_feas"], "mix_mag": mix_mag,
+                  "spk_id": spk_id, "target_mag": target_mag,
+                  # a checkpoint fine-tuned under loss_mode='si_sdr' reports
+                  # -SI-SDR and needs the resynthesis inputs
+                  "mix_ri": feats["mix_ri"],
+                  "target_wav": batch.source_wavs[:, 0]})
+        with torch.no_grad():
+            wav = istft_cfg(out["pred_mag"] * _mixture_phasor(
+                feats["mix_ri"]), cfg, length=cfg.max_len)
+            target = batch.source_wavs[:, 0]
+            pred_sdr = si_sdr(wav, target)
+            mix_sdr = si_sdr(batch.mix_wav, target)
+            res, g_ns = gain_nsdr(wav, batch.mix_wav, batch.source_wavs,
+                                  live=batch.gains > 0)
+        gain = {k: v.float().cpu().numpy() for k, v in
+                (("sdr", res.sdr), ("sir", res.sir), ("sar", res.sar),
+                 ("nsdr", g_ns))}
+        return (pred_sdr.cpu().numpy(), (pred_sdr - mix_sdr).cpu().numpy(),
+                gain)
+
+    def report(label, sdrs, gains, g_rows):
+        sisdr = float(np.mean(np.concatenate(sdrs)))
+        ns = float(np.mean(np.concatenate(gains)))
+        gm = {k: float(np.mean(np.concatenate([r[k] for r in g_rows])))
+              for k in g_rows[0]}
+        print(f"{label}: SI-SDR {sisdr:.2f} dB (SI-SDR NSDR {ns:+.2f} dB)")
+        print(f"BSS-Eval 2.0 gain (BSS_EVAL.m): SDR {gm['sdr']:.2f} "
+              f"SIR {gm['sir']:.2f} SAR {gm['sar']:.2f} "
+              f"NSDR {gm['nsdr']:+.2f} dB")
+        return {"si_sdr": sisdr, "nsdr": ns, "gain": gm}
+
+    if args.file_lists:
+        return _wavlist_protocol(args, cfg, state, score, report, device)
+
+    bank, bank_cfg, _ = load_bank(cfg, args, device)
+    if bank_cfg.num_speakers != cfg.num_speakers:
+        raise SystemExit(
+            f"data root has {bank_cfg.num_speakers} speakers but the "
+            f"checkpoint was trained with {cfg.num_speakers}")
+
+    unk_bank = None
+    if args.unk_root:
+        from dl4ss_tpu_torch.data.dirtree import DirTreeSampler
+        unk = DirTreeSampler(args.unk_root, cfg, args.split, 2)
+        unk_bank = torch.as_tensor(unk.bank, device=device)
+        trained_bank = bank
+    elif args.unk_holdout:
+        unk_bank = bank[-args.unk_holdout:]
+        trained_bank = bank[:-args.unk_holdout]
+
+    generator = torch.Generator().manual_seed(args.seed + 1)
+    sdrs, gains, g_rows = [], [], []
+    if unk_bank is None:
+        # known speakers: the memory rows from training drive the mask
+        n_b = args.batches if args.batches is not None else 4
+        for _ in range(n_b):
+            batch = sample_mixtures(generator, bank, cfg, train=False)
+            s, g, gr = score(state.memory, batch, batch.spk_idx[:, 0])
+            sdrs.append(s)
+            gains.append(g)
+            g_rows.append(gr)
+        return report(f"memory-eval over {n_b} batches", sdrs, gains,
+                      g_rows)
+
+    if args.query_source != "speech":
+        raise SystemExit("unknown-speaker enrollment is the voiceprint "
+                         "(speech) protocol")
+    if not cfg.unk_spk:
+        raise SystemExit(
+            "unknown-speaker evaluation needs a model trained with "
+            "unk_spk=true — the config that reserves the unk memory row "
+            "(SpkLifeLongMemory's unk slot, extend_layers.py:133-136)")
+    n_unk, n_utt = unk_bank.shape[:2]
+    n_trained = trained_bank.shape[0]
+    supp = min(int(args.enroll_seconds * cfg.frame_rate), cfg.max_len)
+    base_rows = state.memory.vectors.shape[0]
+    rows = [unk_row(cfg)] + list(range(base_rows, base_rows + n_unk - 1))
+    memory = memory_extend(state.memory, n_unk - 1)
+    for u in range(n_unk):
+        row = torch.tensor([rows[u]], device=device)
+        memory = memory_reset_rows(memory, row)
+        ewav = normalize_utterance(unk_bank[u, min(1, n_utt - 1)])[:supp]
+        ewav = torch.nn.functional.pad(ewav, (0, cfg.max_len - supp))
+        efeat, _ = spectral_feature_cfg(ewav[None], cfg)
+        memory = enroll(state.model, memory, cfg, row, efeat,
+                        args.query_source)
+    b = cfg.batch_size_eval
+    for u in range(n_unk):
+        # b mixtures: the unk target utterance + one random trained
+        # interferer each
+        spk = torch.randint(0, n_trained, (b,), generator=generator)
+        utt = torch.randint(0, trained_bank.shape[1], (b,),
+                            generator=generator)
+        spk, utt = spk.to(device), utt.to(device)
+        flat = torch.cat([unk_bank[u, :1], trained_bank[spk, utt]], dim=0)
+        utt_idx = torch.stack([torch.zeros(b, dtype=torch.long,
+                                           device=device),
+                               1 + torch.arange(b, device=device)], dim=1)
+        spk_idx = torch.stack([torch.full((b,), rows[u], device=device),
+                               spk], dim=1)
+        batch = mix_from_list(flat, utt_idx,
+                              torch.zeros((b, 2), device=device), spk_idx,
+                              cfg)
+        s, g, gr = score(memory, batch, spk_idx[:, 0])
+        sdrs.append(s)
+        gains.append(g)
+        g_rows.append(gr)
+    out = report(f"unk-speaker eval ({n_unk} speakers, "
+                 f"{args.enroll_seconds:.2f}s enrollment)", sdrs, gains,
+                 g_rows)
+    return dict(out, n_unk=n_unk)
+
+
+def _wavlist_protocol(args, cfg, state, score, report, device):
+    """Deterministic Cocktail list-driven evaluation: every mixture is
+    re-mixed from the wavlist columns as the reference evaluator does
+    (predict.py:104-155). --split dev/test scores known speakers (memory
+    rows drive the mask); --split unk enrolls each unknown speaker from
+    the supplemental-sounds column first (predict.py:160-180)."""
+    import os
+
+    from dl4ss_tpu_torch.data.wavlist import (WavListMixer, _speaker_of,
+                                              enrollment_wav, parse_wavlist)
+
+    # speaker -> memory row: the TRAINING bank's ordering, recorded beside
+    # the checkpoints by run.train --mode memory; the train wavlist
+    # reproduces it otherwise (both are sorted names)
+    vocab = read_vocab(args.checkpoint_dir)
+    if vocab is None:
+        tl = os.path.join(args.file_lists, "train_wavlist.txt")
+        if os.path.exists(tl):
+            names = sorted({r.speaker for r in parse_wavlist(tl)})
+            vocab = {s: i for i, s in enumerate(names)}
+    if vocab is None:
+        raise SystemExit(
+            "--file-lists: no speaker vocabulary — the checkpoint dir has "
+            "no vocab.json and the list dir no train_wavlist.txt")
+    names = {"dev": "dev_wavlist.txt", "valid": "dev_wavlist.txt",
+             "test": "test_wavlist.txt", "unk": "unk_wavlist.txt"}
+    if args.split not in names:
+        raise SystemExit(f"--file-lists evaluates --split dev/test/unk, "
+                         f"got {args.split!r}")
+    rows = parse_wavlist(os.path.join(args.file_lists, names[args.split]))
+    root = args.wav_root or "."
+    b = cfg.batch_size_eval
+
+    target_rows = None
+    memory = state.memory
+    if args.split == "unk":
+        if args.query_source != "speech":
+            raise SystemExit("unk enrollment is the voiceprint (speech) "
+                             "protocol")
+        if not cfg.unk_spk:
+            raise SystemExit("unk evaluation needs a model trained with "
+                             "unk_spk=true (the reserved unk memory row)")
+        from dl4ss_tpu_torch.models.memory import (memory_extend,
+                                                   memory_reset_rows)
+        from dl4ss_tpu_torch.ops.stft import spectral_feature_cfg
+        from dl4ss_tpu_torch.train.memory_trainer import enroll, unk_row
+        # one fresh row per distinct unk speaker; the first takes the
+        # reserved row, the rest append
+        spk_names, first_row = [], {}
+        for r in rows:
+            s = _speaker_of(r.target)
+            if s not in first_row:
+                spk_names.append(s)
+                first_row[s] = r
+        base = memory.vectors.shape[0]
+        mem_rows = [unk_row(cfg)] + list(range(base,
+                                               base + len(spk_names) - 1))
+        memory = memory_extend(memory, len(spk_names) - 1)
+        for s, mrow in zip(spk_names, mem_rows):
+            ridx = torch.tensor([mrow], device=device)
+            memory = memory_reset_rows(memory, ridx)
+            ewav = enrollment_wav(first_row[s], root, cfg,
+                                  args.enroll_seconds)
+            efeat, _ = spectral_feature_cfg(
+                torch.as_tensor(ewav, device=device)[None], cfg)
+            memory = enroll(state.model, memory, cfg, ridx, efeat,
+                            args.query_source)
+        by_name = dict(zip(spk_names, mem_rows))
+        target_rows = {r.target: by_name[_speaker_of(r.target)]
+                       for r in rows}
+        print(f"enrolled {len(spk_names)} unknown speakers "
+              f"({args.enroll_seconds:.2f}s each) from the supplemental "
+              f"column")
+    else:
+        missing = sorted({r.speaker for r in rows} - set(vocab))
+        if missing:
+            raise SystemExit(f"list speakers {missing} absent from the "
+                             f"training vocabulary")
+
+    mixer = WavListMixer(rows, root, cfg, spk2idx=vocab, device=device)
+    n_batches = (len(rows) + b - 1) // b
+    print(f"wavlist bank ready: {len(mixer.utt2row)} unique utterances, "
+          f"{n_batches} batches of {b}", flush=True)
+    sdrs, nsdrs, g_rows = [], [], []
+    for batch, n_valid in mixer.batches(b, target_rows=target_rows):
+        s, ns, gr = score(memory, batch, batch.spk_idx[:, 0])
+        sdrs.append(s[:n_valid])
+        nsdrs.append(ns[:n_valid])
+        g_rows.append({k: v[:n_valid] for k, v in gr.items()})
+    n = sum(x.shape[0] for x in sdrs)
+    out = report(f"wavlist {names[args.split]}: {n} list mixtures "
+                 f"(deterministic)", sdrs, nsdrs, g_rows)
+    return dict(out, n=n)
 
 
 if __name__ == "__main__":

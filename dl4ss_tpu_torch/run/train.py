@@ -25,9 +25,23 @@ SI-SDR. `--noise-wavs DIR` mixes street noise into every training mixture
 (bank mode). `--checkpoint-dir` saves the state there (with a `cfg.json`
 sidecar, and the list vocabulary as `vocab.json`); `--resume` goes on from
 its latest step under the sidecar's config; `--init-from DIR` warm-starts
-from another run's parameters with a fresh optimizer. Not ported yet, each
-exiting with a one-line message: the memory, video and image-query modes
-and the Cocktail wavlists (--file-lists) (ROADMAP P12).
+from another run's parameters with a fresh optimizer.
+
+    python -m dl4ss_tpu_torch.run.train --preset cocktail --mode memory \
+        --epochs 20 --checkpoint-dir ck [--file-lists lists --wav-root .]
+    python -m dl4ss_tpu_torch.run.train --preset multimodal_image \
+        --mode image-query
+    python -m dl4ss_tpu_torch.run.train --preset grid_video --mode video \
+        [--video-trunk inception] [--video-root grid]
+
+`--mode memory` trains the Cocktail target-speaker extractor with the
+life-long speaker memory (voiceprint, image or lip-frame queries by
+--query-source), early-stopped on the dev loss (--patience), keeping the
+best parameters and memory, from the bank, a speaker tree or the Cocktail
+train wavlist (--file-lists); it writes `vocab.json` beside its
+checkpoint, and --resume / --init-from carry the memory. `--mode video` /
+`image-query` train the separator on lip-frame (synthetic, or
+--video-root) or digit-glyph queries; the Inception trunk is frozen.
 """
 
 from __future__ import annotations
@@ -35,12 +49,21 @@ from __future__ import annotations
 import argparse
 import os
 
+import torch
+
 from dl4ss_tpu_torch.device import resolve_device
 from dl4ss_tpu_torch.run.common import (add_common_args, apply_overrides,
-                                        build_cfg, load_bank,
-                                        load_noise_bank, write_vocab)
+                                        build_cfg, frame_hw, load_bank,
+                                        load_frame_bank, load_noise_bank,
+                                        write_vocab)
 from dl4ss_tpu_torch.train.checkpoint import load_cfg
 from dl4ss_tpu_torch.train.loop import train_loop
+
+
+_QUERY_MODES = ("memory", "video", "image-query")
+_NOISE_REFUSAL = ("--noise-wavs is the bank-mode street-noise augment "
+                  "(sample_mixtures, A5) — the list-driven and memory/query "
+                  "paths do not mix noise; drop the flag or use bank mode")
 
 
 def main(argv=None):
@@ -50,15 +73,41 @@ def main(argv=None):
                             "memory", "video", "image-query"],
                    help="dense = the all-speaker channel layout "
                         "(Torch_multi/main_run.py:473-506); adversarial = "
-                        "TDAA's two-phase discriminator trainer; memory, "
-                        "video and image-query are not ported yet")
+                        "TDAA's two-phase discriminator trainer; memory = "
+                        "Cocktail target extraction with the speaker "
+                        "memory; video = GRID audio-visual query training "
+                        "(main_run.py:226-256); image-query = "
+                        "MNIST-digit-conditioned separation (Multi_modal)")
+    p.add_argument("--query-source", default="speech",
+                   choices=["speech", "image", "video"],
+                   help="memory mode: voiceprint (Cocktail), MNIST digit "
+                        "(Multi_modal), or lip-frame query written into "
+                        "the memory's VIDEO slot (MEMORY.add_video, "
+                        "Torch_multi/main_run.py:142-171)")
+    p.add_argument("--video-root", default=None,
+                   help="video queries: GRID-style speaker tree of lip "
+                        "clips (root/<speaker>/<clip dir of frames or video "
+                        "file>); synthetic speaker-keyed frames if omitted")
+    p.add_argument("--frames", type=int, default=4,
+                   help="video queries: frames per clip")
+    p.add_argument("--frame-size", type=int, default=48,
+                   help="video queries: square frame edge in pixels")
+    p.add_argument("--video-trunk", default="conv",
+                   choices=["conv", "inception"],
+                   help="video queries: per-frame feature trunk; "
+                        "'inception' is the reference's frozen Inception-v3 "
+                        "(299x299 frames)")
+    p.add_argument("--patience", type=int, default=10,
+                   help="memory mode: dev-loss early-stop patience "
+                        "(nnet.py:159-172)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--epoch-size", type=int, default=None)
     p.add_argument("--resume", action="store_true",
                    help="go on from the latest step in --checkpoint-dir, "
                         "under the config it was trained with")
     p.add_argument("--init-from", default=None,
-                   help="warm-start fine-tune: load the parameters of this "
+                   help="warm-start fine-tune: load the parameters (and, in "
+                        "memory mode, the speaker memory) of this "
                         "checkpoint dir into a FRESH optimizer")
     p.add_argument("--eval-every", type=int, default=1)
     p.add_argument("--dis-sp", action="store_true",
@@ -73,8 +122,10 @@ def main(argv=None):
                         "mix_{k}_spk_tr.txt, the reference's list recipe "
                         "(TDAA_beta/predata_fromList.py:80-233)")
     p.add_argument("--file-lists", default=None, metavar="DIR",
-                   help="Cocktail wavlist directory of the memory mode "
-                        "(not ported yet, ROADMAP P12)")
+                   help="memory mode: Cocktail wavlist directory "
+                        "(generate_file_lists output); the training bank "
+                        "is built from train_wavlist.txt's `wav spk` rows "
+                        "(prepare_data.py:104-155)")
     p.add_argument("--wav-root", default=None,
                    help="root the list wav paths are relative to")
     p.add_argument("--mix-k", default="2",
@@ -83,18 +134,14 @@ def main(argv=None):
                         "(e.g. 1,2,3, predata_fromList_123.py:45-110)")
     args = p.parse_args(argv)
 
-    if args.mode in ("memory", "video", "image-query"):
-        raise SystemExit(f"--mode {args.mode} is not ported yet (ROADMAP "
-                         f"P12)")
-    if args.file_lists:
-        raise SystemExit("--file-lists (the Cocktail wavlists of the memory "
-                         "mode) is not ported yet (ROADMAP P12); use "
-                         "--list-dir or --data-root")
-    if args.noise_wavs and args.list_dir:
-        raise SystemExit(
-            "--noise-wavs is the bank-mode street-noise augment "
-            "(sample_mixtures, A5); the list-driven path mixes no noise: "
-            "drop the flag or use bank mode")
+    if args.list_dir and args.mode in _QUERY_MODES:
+        raise SystemExit(f"--list-dir is not supported in {args.mode} mode")
+    if args.file_lists and args.mode != "memory":
+        raise SystemExit("--file-lists is the Cocktail memory-mode "
+                         "protocol (run.train --mode memory); separator "
+                         "training uses --list-dir / --data-root")
+    if args.noise_wavs and (args.list_dir or args.mode in _QUERY_MODES):
+        raise SystemExit(_NOISE_REFUSAL)
     if args.dis_sp and args.mode != "adversarial":
         raise SystemExit("--dis-sp only applies to --mode adversarial")
     if args.init_from and args.resume:
@@ -110,6 +157,14 @@ def main(argv=None):
             cfg = apply_overrides(ck_cfg, args).validate()
             print(f"resuming under the checkpoint's config (preset "
                   f"{ck_cfg.name!r})")
+    # the trainer family fixes the query modality: rebind cfg.mode and
+    # check the dataset against it (MODE 1-4, Torch_multi/config.py:66-76)
+    want_mode = {"video": "video", "image-query": "image"}.get(args.mode)
+    if args.mode == "memory":
+        want_mode = {"image": "image", "video": "video"}.get(
+            args.query_source, "speech")
+    if want_mode is not None and cfg.mode != want_mode:
+        cfg = cfg.replace(mode=want_mode).validate()
     if args.mode == "adversarial":
         cfg = cfg.replace(use_discriminator=True)
     device = resolve_device(args.device)
@@ -137,8 +192,23 @@ def main(argv=None):
             if dev.num_batches(cfg.batch_size) >= 1:
                 eval_batch = next(dev.batches(cfg.batch_size,
                                               shuffle=False))
+    elif args.file_lists:
+        from dl4ss_tpu_torch.data.wavlist import train_bank_from_wavlist
+        bank_np, spk2idx = train_bank_from_wavlist(
+            os.path.join(args.file_lists, "train_wavlist.txt"),
+            args.wav_root or ".", cfg, utts_per_speaker=args.utts)
+        bank = torch.as_tensor(bank_np, device=device)
+        cfg = cfg.replace(num_speakers=len(spk2idx))
+        if args.checkpoint_dir:
+            # the wavlist evaluator indexes memory rows through it
+            write_vocab(args.checkpoint_dir, spk2idx)
     else:
-        bank, cfg, _ = load_bank(cfg, args, device)
+        bank, cfg, idx2spk = load_bank(cfg, args, device)
+        if args.mode == "memory" and args.checkpoint_dir:
+            # memory-mode evaluators need the speaker -> memory-row mapping
+            # of THIS training bank
+            write_vocab(args.checkpoint_dir,
+                        {s: i for i, s in idx2spk.items()})
     if args.noise_wavs:
         noise_bank = load_noise_bank(args.noise_wavs, cfg, device)
         cfg = cfg.replace(add_bgd_noise=True)
@@ -148,6 +218,10 @@ def main(argv=None):
             f"but the checkpoint was trained with {ck_cfg.num_speakers}; "
             f"resume with the original data/lists")
     print(cfg.log_config())
+    if args.mode == "memory":
+        return _run_memory_mode(cfg, bank, args, device)
+    if args.mode in ("video", "image-query"):
+        return _run_query_mode(cfg, bank, args, device)
     try:
         state, sdr = train_loop(
             cfg, bank=bank, max_epochs=args.epochs,
@@ -163,6 +237,110 @@ def main(argv=None):
         raise
     if sdr:
         print(f"final SI-SDR: {sdr[-1]:.2f} dB (best {max(sdr):.2f})")
+    return state
+
+
+def _query_bank(cfg, args, query_source: str, device):
+    """(feats key, the query bank on `device`) of a query source: the
+    lip-frame bank (S, C, T, H, W, 3) or the digit bank (S, V, 28, 28, 1)
+    of the synthetic glyphs."""
+    if query_source == "video":
+        frames = load_frame_bank(cfg, args, frame_hw(args), args.seed)
+        return "query_video", torch.as_tensor(frames, device=device)
+    from dl4ss_tpu_torch.data.mnist import digit_query_bank, load_mnist
+    imgs, labels = load_mnist(None)
+    return "query_image", torch.as_tensor(
+        digit_query_bank(imgs, labels, cfg.num_speakers), device=device)
+
+
+def _run_query_mode(cfg, bank, args, device):
+    """Query-conditioned separation training: GRID lip clips (video,
+    Torch_multi/main_run.py:226-256) or MNIST digit queries (image-query,
+    Multi_modal nnet.py:70-90), with the auxiliary speaker CE on the video
+    logits (main_run.py:451)."""
+    from dl4ss_tpu_torch.train.query_trainer import (query_batch,
+                                                     query_train_loop)
+
+    query_source = "video" if args.mode == "video" else "image"
+    qkey, qbank = _query_bank(cfg, args, query_source, device)
+
+    def make_batch(generator):
+        return query_batch(generator, bank, cfg, qkey, qbank)
+
+    dev = make_batch(torch.Generator().manual_seed(args.seed + 13))
+    try:
+        state, sdr = query_train_loop(
+            cfg, make_batch, seed=args.seed, max_epochs=args.epochs,
+            epoch_size=args.epoch_size, query_source=query_source,
+            video_trunk=args.video_trunk, frame_hw=frame_hw(args),
+            metrics_path=args.metrics, checkpoint_dir=args.checkpoint_dir,
+            resume=args.resume, dev_batch=dev, eval_every=args.eval_every,
+            init_from=args.init_from, device=device)
+    except ValueError as err:
+        if args.init_from and "do not match the model" in str(err):
+            raise SystemExit(f"--init-from: {err}") from None
+        raise
+    if sdr:
+        print(f"final SI-SDR: {sdr[-1]:.2f} dB (best {max(sdr):.2f})")
+    return state
+
+
+def _run_memory_mode(cfg, bank, args, device):
+    """Cocktail / Multi_modal training: life-long-memory target extraction
+    with early stopping (train/memory_trainer.py)."""
+    from dl4ss_tpu_torch.train.checkpoint import (latest_step,
+                                                  restore_checkpoint,
+                                                  save_checkpoint)
+    from dl4ss_tpu_torch.train.memory_trainer import (create_memory_state,
+                                                      memory_batch,
+                                                      memory_train_loop)
+
+    qs = args.query_source
+    hw = frame_hw(args)
+    qkey, qbank = (_query_bank(cfg, args, qs, device) if qs != "speech"
+                   else (None, None))
+
+    def make_batch(generator):
+        return memory_batch(generator, bank, cfg, qkey, qbank)
+
+    def template():
+        return create_memory_state(cfg, args.seed, qs,
+                                   args.epoch_size or cfg.epoch_size, hw,
+                                   args.video_trunk, device)
+
+    init_state = None
+    try:
+        if args.init_from:
+            # warm start (fresh optimizer and step): the parameters AND the
+            # memory rows come from the donor; the memory is model state
+            # (extend_layers.py:144-145)
+            donor = restore_checkpoint(args.init_from, template())
+            init_state = template()
+            init_state.model.load_state_dict(donor.model.state_dict())
+            init_state.memory = donor.memory
+            print(f"warm-started memory-mode params+memory from "
+                  f"{args.init_from} (fresh optimizer)")
+        elif (args.resume and args.checkpoint_dir
+              and latest_step(args.checkpoint_dir) is not None):
+            init_state = restore_checkpoint(args.checkpoint_dir, template())
+            print(f"resumed memory-mode step {init_state.step} from "
+                  f"{args.checkpoint_dir}")
+    except ValueError as err:
+        raise SystemExit(f"--init-from / --resume: {err}") from None
+
+    dev = make_batch(torch.Generator().manual_seed(args.seed + 13))
+    state, history = memory_train_loop(
+        cfg, make_batch, seed=args.seed, max_epochs=args.epochs,
+        epoch_size=args.epoch_size, query_source=qs,
+        patience=args.patience, dev_batch=dev, init_state=init_state,
+        frame_hw=hw, video_trunk=args.video_trunk,
+        metrics_path=args.metrics, device=device)
+    if history:
+        print(f"dev-loss: first {history[0]:.4f} best {min(history):.4f} "
+              f"({len(history)} epochs)")
+    if args.checkpoint_dir:
+        save_checkpoint(args.checkpoint_dir, state, cfg=cfg)
+        print(f"saved memory-mode checkpoint to {args.checkpoint_dir}")
     return state
 
 

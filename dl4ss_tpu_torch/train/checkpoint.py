@@ -3,14 +3,16 @@
 
 One file per step, `<dir>/step_<step>.pt`: the model's `state_dict`, the
 Adam moments and count of the generator's parameters (and of the
-discriminator's, when the model has one), the step, and the state of the
+discriminator's, when the model has one), the step, the state of the
 generator that draws the batches, so that a resumed run draws the same
-batches as an unbroken one. The payload holds only tensors, ints, lists and
-dicts and loads under `torch.load(..., weights_only=True)`. A step is
-written under a temporary name and moved into place with `os.replace`, so
-a killed run never leaves half a step; the last 5 steps are kept, as the
-JAX package's orbax manager keeps them. Beside the steps, `cfg.json`
-records the training config, byte for byte as the JAX package writes it.
+batches as an unbroken one, and the memory trainer's speaker memory (its
+rows and ages) when the state has one. The payload holds only tensors,
+ints, lists and dicts and loads under `torch.load(..., weights_only=True)`.
+A step is written under a temporary name and moved into place with
+`os.replace`, so a killed run never leaves half a step; the last 5 steps
+are kept, as the JAX package's orbax manager keeps them. Beside the
+steps, `cfg.json` records the training config, byte for byte as the JAX
+package writes it.
 
 The JAX package's orbax directories cannot be read here (orbax imports
 jax): weights cross between the packages as parameter pytrees, through
@@ -71,8 +73,12 @@ def save_checkpoint(directory: str, state: TrainState,
     os.makedirs(directory, exist_ok=True)
     payload = {"step": step, "model": state.model.state_dict(),
                "opt_state": _adam(state.opt_state),
-               "d_opt_state": _adam(state.d_opt_state),
+               "d_opt_state": _adam(getattr(state, "d_opt_state", None)),
                "generator": state.generator.get_state()}
+    memory = getattr(state, "memory", None)
+    if memory is not None:
+        # the memory trainer's speaker memory is model state
+        payload["memory"] = {"vectors": memory.vectors, "age": memory.age}
     _write_atomic(_step_path(directory, step),
                   lambda path: torch.save(payload, path))
     for old in _steps(directory)[:-MAX_TO_KEEP]:
@@ -139,6 +145,19 @@ def _check_shapes(want: Dict[str, torch.Tensor], got: Dict[str, torch.Tensor],
             f"match the model{here}: {detail}")
 
 
+def _memory(payload: dict, template, directory: str):
+    """The saved speaker memory, checked against the template's shapes."""
+    from dl4ss_tpu_torch.models.memory import MemorySlots
+    saved = payload.get("memory")
+    if saved is None:
+        raise ValueError(f"checkpoint in {directory!r} (preset "
+                         f"{_preset(directory)}) holds no speaker memory")
+    _check_shapes({"vectors": template.memory.vectors,
+                   "age": template.memory.age}, saved, "the speaker memory",
+                  directory, None)
+    return MemorySlots(saved["vectors"], saved["age"])
+
+
 def restore_checkpoint(directory: str, template: TrainState,
                        step: Optional[int] = None) -> TrainState:
     """Restore step `step` (default the latest) into `template`, a state
@@ -157,7 +176,10 @@ def restore_checkpoint(directory: str, template: TrainState,
         return AdamState(saved["count"], list(saved["mu"]), list(saved["nu"]))
 
     template.opt_state = adam(payload["opt_state"])
-    template.d_opt_state = adam(payload["d_opt_state"])
+    if hasattr(template, "d_opt_state"):
+        template.d_opt_state = adam(payload["d_opt_state"])
+    if hasattr(template, "memory"):
+        template.memory = _memory(payload, template, directory)
     template.step = int(payload["step"])
     template.generator.set_state(payload["generator"].cpu())
     return template

@@ -10,14 +10,15 @@ from typing import IO, Optional
 
 
 class MetricsWriter:
-    def __init__(self, path: Optional[str] = None):
+    def __init__(self, path: Optional[str] = None, echo: bool = True):
         self.path = path
+        self.echo = echo
         self._fh: Optional[IO] = open(path, "a") if path else None
         self._t0 = time.time()
 
     def write(self, kind: str, step: int, **scalars) -> dict:
-        """Write (and print) one record; tensors and numpy scalars become
-        Python numbers, floats rounded to 6 decimals."""
+        """Write (and, with `echo`, print) one record; tensors and numpy
+        scalars become Python numbers, floats rounded to 6 decimals."""
         rec = {"kind": kind, "step": int(step),
                "wall_s": round(time.time() - self._t0, 3)}
         for k, v in scalars.items():
@@ -30,7 +31,8 @@ class MetricsWriter:
         if self._fh:
             self._fh.write(line + "\n")
             self._fh.flush()
-        print(line)
+        if self.echo:
+            print(line)
         return rec
 
     def close(self):

@@ -189,16 +189,21 @@ def test_classify_cli_exits_with_a_one_line_message(argv, message):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--file-lists", "lists"], "P12"),
-    (["--mode", "memory"], "P12"),
-    (["--query-source", "video"], "P12"),
+    (["--mode", "memory", "--file-lists", "nolists"],
+     "no speaker vocabulary"),
+    (["--mode", "memory", "--unk-holdout", "2", "--utts", "2"],
+     "unk_spk=true"),
+    (["--mode", "memory", "--query-source", "video", "--unk-holdout", "2",
+      "--utts", "2"], "voiceprint"),
     (["--set", "min_mix=1", "--set", "max_mix=1"], "top_k=2"),
     (["--mode", "recursive", "--teacher-forced"], "selects one speaker"),
     (["--candidates", "1"], "--candidates must be >= top_k"),
 ])
 def test_evaluate_cli_exits_with_a_one_line_message(argv, message):
-    """run.evaluate refuses the options of later ROADMAP items by name, and
-    the combinations it cannot score."""
+    """run.evaluate refuses, with the JAX CLI's words, the combinations it
+    cannot score: the wavlist protocol without a speaker vocabulary,
+    unknown-speaker evaluation of a model without the unk row or with a
+    non-speech query."""
     from dl4ss_tpu_torch.run import evaluate
     with pytest.raises(SystemExit, match=message):
         evaluate.main(["--preset", "synth_tiny", "--device", "cpu", *argv])

@@ -166,11 +166,12 @@ def test_train_cli_writes_its_metrics_line(tmp_path):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--mode", "memory"], "P12"),
+    (["--mode", "memory", "--noise-wavs", "noise"],
+     "bank-mode street-noise"),
     (["--dis-sp"], "only applies to --mode adversarial"),
     (["--resume", "--checkpoint-dir", "ck", "--init-from", "ck"],
      "conflict"),
-    (["--file-lists", "lists"], "P12"),
+    (["--file-lists", "lists"], "Cocktail memory-mode"),
     (["--list-dir", "lists", "--noise-wavs", "noise"], "bank-mode"),
 ])
 def test_train_cli_exits_with_a_one_line_message(argv, message):
