@@ -113,7 +113,20 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      step 0's, and grid_video's held-out SI-SDR gain over 500 steps at
      encoder depth 1, the mean over seeds 0-7, at least JAX's mean less 1.5
      standard deviations on the same protocol
-     (tools/grid_video_jax_curve.py).
+     (tools/grid_video_jax_curve.py);
+ 14. parallel and utils: run.train --preset torch_multi --dp auto (one
+     card: dp=1, no process group) launches per step what the run without
+     --dp launches and ends bit-equal to it; run.train --dp 2 exits
+     non-zero with JAX's message; two gloo ranks on cuda:0
+     (make_mesh(2, 1, devices=[cuda:0, cuda:0]); NCCL refuses two ranks on
+     one card) run one torch_multi joint step and one cocktail memory step
+     (a speaker on both ranks) at B=16 global, each held to the same step
+     on one rank: joint loss 1e-4 relative, every gradient after the
+     all-reduce and every update 5e-2 relative L2; memory loss 1e-5,
+     gradients and updates 1e-3, memory rows 1e-5, ages equal; every rank
+     launches the kernels; utils.StepTimer times the joint step (median of
+     10), profile_trace writes one step's Chrome trace, seed_everything
+     repeats its draws.
 
     python3 chip_smoke.py --learning STEPS
 
@@ -128,7 +141,24 @@ the whole 3,000-mixture tt split scored), and prints no `ok` line;
 
     python3 chip_smoke.py --generations
 
-builds the kernels and runs phase 13 alone, and prints no `ok` line.
+builds the kernels and runs phase 13 alone, and prints no `ok` line;
+
+    python3 chip_smoke.py --parallel
+
+builds the kernels and runs phase 14 alone, and prints no `ok` line;
+
+    python3 chip_smoke.py --cards
+
+needs an even number of cards, two or more (all visible ones, one rank a
+card over NCCL): it builds the kernels, runs phase 14's joint and
+memory steps on a dp = cards mesh and the joint step on a dp = cards / 2 x
+mp = 2 mesh (torch_multi with 104 speakers, so that the embedding table's
+rows split over the model axis), each held to the same step on one rank at
+phase 14's gates, then run.train --preset torch_multi --dp auto and --dp
+cards / 2 --mp 2 for PAR_STEPS steps against the run without --dp (their
+parameters' largest difference printed, not gated: Adam's first steps move
+an element whose gradient lies within the rounding by ~lr either way), and
+prints no `ok` line.
 
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
@@ -198,6 +228,8 @@ VIDEO_LEARN_STEPS = 500
 VIDEO_HELD_BATCHES = 16
 MEM_HELD_BATCHES = 16
 VIDEO_LEARN_SEEDS = tuple(range(8))
+PAR_STEPS = 2               # steps of the run.train --dp auto check
+PAR_TIMINGS = 10            # StepTimer chains of one step each (median)
 
 # Published H100 SXM peaks (NVIDIA data sheet), for the bound column.
 HBM_BYTES_PER_S = 3.35e12
@@ -277,7 +309,14 @@ TOL = {"stft_features": 1e-4, "gru_fwd": 1e-4, "gru_fwd_bf16": 2e-2,
        # VIDEO_LEARN_SEEDS, at least (dB): JAX's mean gain on the same
        # protocol and seeds (tools/grid_video_jax_curve.py, seeds 0-7:
        # mean 0.9847) less 1.5 times their standard deviation (0.1020)
-       "memory_learn_ratio": 0.8, "video_learn_db": 0.83}
+       "memory_learn_ratio": 0.8, "video_learn_db": 0.83,
+       # a dp=2 step (two ranks, each on its half of the B=16 batch, the
+       # gradients all-reduced) against the same step on one rank, fixed
+       # before any chip call: the joint step's bf16 mask head sets its
+       # bars (the loss relative, each gradient and update relative L2),
+       # the memory step is all f32 (as mem_step_* and memory above)
+       "par_joint_loss": 1e-4, "par_joint_update": 5e-2,
+       "par_mem_loss": 1e-5, "par_mem_update": 1e-3, "par_memory": 1e-5}
 
 
 def cocktail_layout(corpus_root: str, out_root: str, holdout: int,
@@ -559,10 +598,10 @@ def recorded_grads(step, state, feats):
     grads = {}
     update = state_mod.Optimizer.update
 
-    def recording(self, params, g, opt_state):
+    def recording(self, params, g, opt_state, **kwargs):
         for p, x in zip(params, g):
             grads[names[id(p)]] = x.detach().float().cpu().numpy().copy()
-        return update(self, params, g, opt_state)
+        return update(self, params, g, opt_state, **kwargs)
 
     state_mod.Optimizer.update = recording
     try:
@@ -1982,6 +2021,378 @@ def generations(torch) -> int:
     return 0
 
 
+def _leaves(model):
+    return {n: p.detach().float().cpu().numpy().copy()
+            for n, p in model.named_parameters()}
+
+
+def par_case(torch, dev, name, mesh, speakers=None):
+    """Phase 14's two steps from SEED, the same on one rank (mesh None) and
+    on each rank of a mesh: (state, run), run(state) -> (state, metrics);
+    `speakers` replaces the preset's speaker count. "joint": torch_multi's fused step, which draws the global
+    B=16 batch from the state's generator and trains on this rank's rows.
+    "memory": a cocktail memory batch (drawn, featurized and then split,
+    as memory_train_loop does) whose first target speaker is also the
+    target of the first item of the second half, so that the two ranks
+    write one memory row; the memory starts from random unit rows."""
+    from dl4ss_tpu_torch import preset
+    from dl4ss_tpu_torch.data.synth import make_synthetic_bank
+    from dl4ss_tpu_torch.models.memory import MemorySlots
+    from dl4ss_tpu_torch.parallel.mesh import shard_batch
+    from dl4ss_tpu_torch.train.memory_trainer import (create_memory_state,
+                                                      make_memory_train_step,
+                                                      memory_batch)
+    from dl4ss_tpu_torch.train.state import create_train_state
+    from dl4ss_tpu_torch.train.steps import make_fused_step
+    cfg = preset("torch_multi" if name == "joint" else "cocktail")
+    if speakers is not None:
+        cfg = cfg.replace(num_speakers=speakers)
+    bank = torch.as_tensor(make_synthetic_bank(
+        SEED, cfg.num_speakers, BANK_UTTS, N_SAMPLES), device=dev)
+    if name == "joint":
+        fused = make_fused_step(cfg, mesh=mesh)
+        return (create_train_state(cfg, SEED, device=dev),
+                lambda state: fused(state, bank))
+    state = create_memory_state(cfg, SEED, device=dev)
+    rows = torch.randn(state.memory.vectors.shape,
+                       generator=torch.Generator().manual_seed(SEED))
+    state.memory = MemorySlots(
+        (rows / rows.norm(dim=-1, keepdim=True)).to(dev), state.memory.age)
+    step = make_memory_train_step(cfg, mesh=mesh)
+
+    def run(state):
+        feats = memory_batch(state.generator, bank, cfg)
+        spk = feats["spk_id"].clone()
+        spk[BATCH // 2] = spk[0]
+        feats["spk_id"] = spk
+        return step(state, shard_batch(feats, mesh))
+
+    return state, run
+
+
+def par_record(torch, state, run):
+    """One step of `run` with the counts zeroed just before and read just
+    after: (metrics, recorded gradients, parameters, memory, launches)."""
+    zero_counts(torch)
+    (state, met), grads = recorded_grads(lambda s, _: run(s), state, None)
+    launches, _ = read_counts(torch)
+    memory = getattr(state, "memory", None)
+    if memory is not None:
+        memory = (memory.vectors.cpu(), memory.age.cpu())
+    return ({k: float(v) for k, v in met.items()}, grads,
+            _leaves(state.model), memory, launches)
+
+
+# the launches of one step of par_case, on every rank
+PAR_LAUNCHES = {
+    "joint": {"stft_features": 2, "gru_fwd": 2, "gru_bwd": 2,
+              "maskhead_fwd": 1, "maskhead_pack": 1, "maskhead_bwd": 1,
+              "lstm_fwd": 0, "lstm_bwd": 0, "masked_istft": 0},
+    "memory": {"stft_features": 2, "lstm_fwd": 4, "lstm_bwd": 4,
+               "gru_fwd": 0, "gru_bwd": 0, "maskhead_fwd": 0,
+               "masked_istft": 0}}
+# the gates of a par_case step on a mesh against one rank (TOL keys)
+PAR_GATES = {"joint": ("par_joint_loss", "par_joint_update"),
+             "memory": ("par_mem_loss", "par_mem_update")}
+
+
+def hold_to_one_rank(torch, label, refs, res):
+    """Each step of `res` (rank 0's par_record by step name, every rank's
+    launches) against the one-rank step of `refs` (parameters before, then
+    par_record) at PAR_GATES; every rank must launch PAR_LAUNCHES. Returns
+    the launches of every rank, summed."""
+    total = collections.Counter()
+    for name in res["steps"]:
+        loss_tol, update_tol = PAR_GATES[name]
+        before, met_1, grads_1, after_1, mem_1, _ = refs[name]
+        met_2, grads_2, after_2, mem_2, every = res[name]
+        path = f"{label} {name} step against one rank"
+        for key in met_1:
+            print(f"{path} {key}: {label} {met_2[key]:.6f} one rank "
+                  f"{met_1[key]:.6f}", flush=True)
+        close_losses(path, met_2, met_1, ("loss",), TOL[loss_tol])
+        worst = leaf_updates(path, before, after_2, after_1, TOL[update_tol],
+                             grads_g=grads_2, grads_c=grads_1)
+        print(f"{path}: worst update rel L2 {worst:.3e} tol "
+              f"{TOL[update_tol]:.0e}", flush=True)
+        if mem_1 is not None:
+            check(f"{path}: memory rows", max_err(mem_2[0], mem_1[0]),
+                  TOL["par_memory"])
+            if not torch.equal(mem_2[1], mem_1[1]):
+                fail(f"{path}: memory ages differ")
+        for rank, launches in enumerate(every):
+            print(f"{path}: rank {rank} launches {launches}", flush=True)
+            expect_counts(f"{label} {name} step, rank {rank}", launches,
+                          PAR_LAUNCHES[name])
+            total.update(launches)
+    return total
+
+
+def parallel_rank():
+    """One of phase 14's two ranks on cuda:0 (parallel.launch.run_ranks
+    starts each in a process of its own, over gloo): the joint and the
+    memory step on a dp=2 mesh after rank 0's state is broadcast. Returns
+    the backend and, by step, rank 0's par_record with both ranks'
+    launches."""
+    import torch
+    import torch.distributed as dist
+    from dl4ss_tpu_torch import resolve_device
+    from dl4ss_tpu_torch.parallel.mesh import make_mesh, shard_state
+    dev = resolve_device("cuda")
+    mesh = make_mesh(2, 1, devices=[dev, dev])
+    out = {"backend": dist.get_backend(), "steps": ("joint", "memory")}
+    for name in out["steps"]:
+        state, run = par_case(torch, dev, name, mesh)
+        shard_state(state, mesh)
+        *rec, launches = par_record(torch, state, run)
+        every = [None] * mesh.dp
+        dist.all_gather_object(every, launches)
+        out[name] = (*rec, every)
+    return out
+
+
+def parallel_phase(torch, dev, tmp):
+    """14. The parallel layout and the utils on the card. a: run.train
+    --preset torch_multi --dp auto, PAR_STEPS steps with the counts zeroed
+    just before and read just after, against the same run without --dp:
+    dp=1 on one card, no process group, the same launches (K1 2, K2 2, K5
+    2, K3 1 with one W pack, K6 1 a step) and bit-equal parameters. b:
+    run.train --dp 2 exits non-zero with JAX's message. c: two gloo ranks
+    on cuda:0 run par_case's joint and memory steps, each held to the same
+    step on one rank (TOL par_*), every rank launching the kernels. d:
+    StepTimer, profile_trace and seed_everything. Returns the launches of
+    a and c by kernel."""
+    import random
+
+    import torch.distributed as dist
+    from dl4ss_tpu_torch.parallel.launch import run_ranks
+    from dl4ss_tpu_torch.run import train as train_cli
+    from dl4ss_tpu_torch.utils import (StepTimer, profile_trace,
+                                       seed_everything)
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"parallel: compute mode {mode}", flush=True)
+
+    # ---- a. --dp auto on one card -----------------------------------------
+    argv = ["--preset", "torch_multi", "--seed", str(SEED), "--device",
+            "cuda", "--utts", str(BANK_UTTS), "--epochs", "1",
+            "--epoch-size", str(PAR_STEPS), "--eval-every", "0"]
+    runs = {}
+    for label, extra in (("--dp auto", ["--dp", "auto"]), ("no --dp", [])):
+        zero_counts(torch)
+        t0 = time.perf_counter()
+        state, text = quiet(train_cli.main, argv + extra)
+        launches, bodies = read_counts(torch, total if extra else None)
+        runs[label] = (_leaves(state.model), launches, text)
+        print(f"run.train --preset torch_multi {label}: step {state.step} "
+              f"in {time.perf_counter() - t0:.1f} s; launches {launches}, "
+              f"bodies {bodies}", flush=True)
+        if state.step != PAR_STEPS:
+            fail(f"run.train {label} ended at step {state.step}")
+    auto, plain = runs["--dp auto"], runs["no --dp"]
+    if dist.is_initialized() or "parallel:" in auto[2]:
+        fail("--dp auto started a process group on one card")
+    expect_counts("run.train --dp auto", auto[1],
+                  {k: v * PAR_STEPS for k, v in PAR_LAUNCHES["joint"].items()})
+    if auto[1] != plain[1]:
+        fail(f"--dp auto launched {auto[1]}, without --dp {plain[1]}")
+    moved = [n for n in plain[0] if not np.array_equal(auto[0][n],
+                                                       plain[0][n])]
+    print(f"run.train --dp auto against no --dp: {len(plain[0])} "
+          f"parameters, {len(moved)} differ", flush=True)
+    if moved:
+        fail(f"--dp auto is not bit-equal to the run without --dp: {moved}")
+
+    # ---- b. --dp 2 on one card --------------------------------------------
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "dl4ss_tpu_torch.run.train", "--preset",
+         "torch_multi", "--dp", "2", "--epochs", "1", "--epoch-size", "1"],
+        capture_output=True, text=True, cwd=here)
+    want = (f"dp_size*mp_size = 2*1 exceeds the "
+            f"{torch.cuda.device_count()} available device(s)")
+    print(f"run.train --dp 2: exit {proc.returncode}, stderr "
+          f"{proc.stderr.strip().splitlines()[-1:]}", flush=True)
+    if proc.returncode == 0 or want not in proc.stderr:
+        fail(f"run.train --dp 2 on one card: exit {proc.returncode}, "
+             f"expected {want!r}")
+
+    # ---- c. two ranks on one card -----------------------------------------
+    refs = {}
+    for name in ("joint", "memory"):
+        state, run = par_case(torch, dev, name, None)
+        refs[name] = (_leaves(state.model), *par_record(torch, state, run))
+        del state, run
+    t0 = time.perf_counter()
+    res = run_ranks(parallel_rank, 2, backend="gloo", timeout=600)
+    print(f"parallel: two ranks on cuda:0 over {res['backend']}, "
+          f"{time.perf_counter() - t0:.1f} s with their start", flush=True)
+    if res["backend"] != "gloo":
+        fail(f"the ranks ran over {res['backend']}")
+    total.update(hold_to_one_rank(torch, "dp=2", refs, res))
+    # ---- d. the utils -----------------------------------------------------
+    state, run = par_case(torch, dev, "joint", None)
+    timer = StepTimer(warmup=1)
+    times = [timer.time_chain(lambda s: run(s)[0], state, iters=1)
+             for _ in range(PAR_TIMINGS)]
+    step_ms = statistics.median(times)
+    print(f"utils.StepTimer: torch_multi joint step {step_ms:.3f} ms "
+          f"(median of {PAR_TIMINGS} chains of one step after one "
+          f"warm-up, closed by torch.cuda.synchronize)", flush=True)
+    with profile_trace(os.path.join(tmp, "trace")) as log_dir:
+        run(state)
+        torch.cuda.synchronize()
+    path = os.path.join(log_dir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"utils.profile_trace: one joint step, {os.path.getsize(path)} "
+          f"bytes, {len(events)} events, {kernels} kernel events",
+          flush=True)
+    if not kernels:
+        fail("profile_trace recorded no kernel of the step")
+    draws = []
+    for _ in range(2):
+        gen = seed_everything(SEED)
+        draws.append([random.random(), *np.random.rand(3),
+                      *torch.rand(3, device=dev).tolist(),
+                      *torch.rand(3, generator=gen).tolist()])
+    print(f"utils.seed_everything({SEED}) twice: {draws[0][:2]}..., equal "
+          f"{draws[0] == draws[1]}", flush=True)
+    if draws[0] != draws[1]:
+        fail(f"seed_everything: {draws[0]} then {draws[1]}")
+    print(f"parallel: phase 14 {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {dict(total)}", flush=True)
+    return total
+
+
+def parallel_only(torch) -> int:
+    """`chip_smoke.py --parallel`: the kernels' build and phase 14 alone,
+    then the card's line."""
+    from dl4ss_tpu_torch import resolve_device
+    from dl4ss_tpu_torch.ops import cuda_lib
+    dev = resolve_device("cuda")
+    t0 = time.perf_counter()
+    cuda_lib.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel_phase(torch, dev, tmp)
+    print(f"parallel: {time.perf_counter() - t0:.1f} s with the build",
+          flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    return 0
+
+
+# --cards: the speaker count of the dp x mp=2 step, which mp=2 divides
+# (torch_multi's 103 rows would stay replicated, as JAX's rule keeps them)
+CARDS_SPEAKERS = 104
+
+
+def cards_rank(mp, names, speakers):
+    """One rank of `--cards`, on its own card (run_ranks sets it) over
+    NCCL: par_case's steps `names` on a (world / mp) x mp mesh from
+    make_mesh's default devices, after rank 0's state is broadcast and the
+    table's rows split. Returns what hold_to_one_rank reads: rank 0's
+    par_record by step, a row-sharded leaf's parameters and gradients
+    gathered whole over the model group, and every rank's launches."""
+    import torch
+    import torch.distributed as dist
+    from dl4ss_tpu_torch.parallel.mesh import (make_mesh, rank_device,
+                                               shard_state)
+    dev = rank_device("cuda")
+    world = dist.get_world_size()
+    mesh = make_mesh(world // mp, mp)
+    out = {"backend": dist.get_backend(), "steps": names, "sharded": [],
+           "devices": [None] * world}
+    dist.all_gather_object(out["devices"], str(mesh.device))
+    for name in names:
+        state, run = par_case(torch, dev, name, mesh, speakers)
+        shard_state(state, mesh)
+        sharded = sorted(n for n, p in state.model.named_parameters()
+                         if getattr(p, "row_sharded", False))
+        met, grads, after, memory, launches = par_record(torch, state, run)
+        for n in sharded:
+            for leaves in (grads, after):
+                parts = [None] * mp
+                dist.all_gather_object(parts, leaves[n],
+                                       group=mesh.model_group)
+                leaves[n] = np.concatenate(parts)
+        every = [None] * world
+        dist.all_gather_object(every, launches)
+        out[name] = (met, grads, after, memory, every)
+        out["sharded"] += sharded
+    return out
+
+
+def cards_only(torch) -> int:
+    """`chip_smoke.py --cards`: the build, then the parallel steps and
+    run.train over NCCL with one rank a card, on every visible card."""
+    from dl4ss_tpu_torch import resolve_device
+    from dl4ss_tpu_torch.ops import cuda_lib
+    from dl4ss_tpu_torch.parallel.launch import backend_for, run_ranks
+    from dl4ss_tpu_torch.run import train as train_cli
+    n = torch.cuda.device_count()
+    if n < 2 or n % 2:
+        fail(f"--cards needs an even number of cards, two or more; {n} "
+             f"visible")
+    dev = resolve_device("cuda")
+    t0 = time.perf_counter()
+    cuda_lib.library()
+    print(f"cards: {n}, the kernels built in {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    for mp, names, speakers in ((1, ("joint", "memory"), None),
+                                (2, ("joint",), CARDS_SPEAKERS)):
+        label = f"dp={n // mp} x mp={mp}"
+        refs = {}
+        for name in names:
+            state, run = par_case(torch, dev, name, None, speakers)
+            refs[name] = (_leaves(state.model),
+                          *par_record(torch, state, run))
+            del state, run
+        t1 = time.perf_counter()
+        res = run_ranks(cards_rank, n, (mp, names, speakers),
+                        backend=backend_for(dev), timeout=600)
+        print(f"cards: {label}, {n} ranks over {res['backend']} on "
+              f"{res['devices']}, {time.perf_counter() - t1:.1f} s with "
+              f"their start; row-sharded {res['sharded']}", flush=True)
+        if res["backend"] != "nccl" or len(set(res["devices"])) != n:
+            fail(f"{label}: ran over {res['backend']} on {res['devices']}")
+        if mp > 1 and res["sharded"] != ["embedding.table"]:
+            fail(f"{label}: row-sharded {res['sharded']}, expected the "
+                 f"embedding table")
+        hold_to_one_rank(torch, label, refs, res)
+
+    argv = ["--preset", "torch_multi", "--seed", str(SEED), "--device",
+            "cuda", "--utts", str(BANK_UTTS), "--epochs", "1",
+            "--epoch-size", str(PAR_STEPS), "--eval-every", "0"]
+    one = _leaves(quiet(train_cli.main, argv)[0].model)
+    for extra in (["--dp", "auto"], ["--dp", str(n // 2), "--mp", "2"]):
+        t1 = time.perf_counter()
+        state = train_cli.main(argv + extra)
+        got = _leaves(state.model)
+        diff = max(float(np.abs(got[k] - one[k]).max()) for k in one)
+        print(f"run.train --preset torch_multi {' '.join(extra)}: step "
+              f"{state.step} in {time.perf_counter() - t1:.1f} s with the "
+              f"ranks' start; largest parameter difference from the run "
+              f"without --dp {diff:.3e}", flush=True)
+        if state.step != PAR_STEPS or set(got) != set(one) or not all(
+                np.isfinite(v).all() for v in got.values()):
+            fail(f"run.train {' '.join(extra)}: step {state.step}, "
+                 f"parameters {sorted(got)}")
+    print(f"cards: {time.perf_counter() - t0:.1f} s with the build",
+          flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    return 0
+
+
 def main(argv=None) -> int:
     import torch
     argv = sys.argv[1:] if argv is None else argv
@@ -1995,9 +2406,13 @@ def main(argv=None) -> int:
         return rehearsal(torch)
     if argv == ["--generations"]:
         return generations(torch)
+    if argv == ["--parallel"]:
+        return parallel_only(torch)
+    if argv == ["--cards"]:
+        return cards_only(torch)
     if argv:
         print("usage: chip_smoke.py [--learning STEPS | --rehearsal | "
-              "--generations]", file=sys.stderr)
+              "--generations | --parallel | --cards]", file=sys.stderr)
         return 2
     from dl4ss_tpu_torch import preset, resolve_device
     from dl4ss_tpu_torch.models import init_separator
@@ -3240,6 +3655,8 @@ def main(argv=None) -> int:
         data_launches = data_phase(torch, dev, tmp, SMOKE_DATA)
         # ---- 13. the memory, image-query and video generations ----------
         gen_launches = generations_phase(torch, dev, tmp)
+        # ---- 14. parallel and utils --------------------------------------
+        par_launches = parallel_phase(torch, dev, tmp)
 
     for row in kernels:
         # the kernel's launches on the tdaa paths (phase 10), beside those
@@ -3251,6 +3668,8 @@ def main(argv=None) -> int:
         row["data_launches"] = data_launches.get(name, 0)
         # and on the generations' CLI runs (phase 13)
         row["gen_launches"] = gen_launches.get(name, 0)
+        # and on the parallel paths (phase 14: --dp auto, both dp=2 ranks)
+        row["par_launches"] = par_launches.get(name, 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

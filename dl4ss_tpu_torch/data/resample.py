@@ -12,12 +12,14 @@ from __future__ import annotations
 from math import gcd
 
 import numpy as np
-import scipy.signal
 
 
 def resample_poly_kaiser(x: np.ndarray, orig_rate: int, target_rate: int,
                          beta: float = 14.769656459379492) -> np.ndarray:
     """Polyphase Kaiser resample (beta matches resampy's kaiser_best)."""
+    # imported here: scipy.signal takes seconds to import, which every
+    # rank a parallel run spawns would pay for nothing
+    import scipy.signal
     if orig_rate == target_rate:
         return np.asarray(x, np.float32)
     g = gcd(int(orig_rate), int(target_rate))

@@ -22,7 +22,10 @@ gradient to the incoming vectors. Duplicate speaker ids in one batch
 accumulate, as JAX's `.at[].add` does; the rows are summed as a one-hot
 (B, S) product, not by `index_add_`, whose CUDA atomics would add the
 duplicates in another order on every run (a resumed run must equal an
-unbroken one bit for bit).
+unbroken one bit for bit). Under data parallelism (parallel/mesh.py) each
+rank holds a share of the batch: the product and the write counts are
+summed over the data group, so that a speaker whose utterances fall on
+two ranks gets both contributions, as in the global batch.
 """
 
 from __future__ import annotations
@@ -76,28 +79,34 @@ def _with_slot(vectors: torch.Tensor, slot: int, new: torch.Tensor
 
 def memory_write_slot(state: MemorySlots, spk_idx: torch.Tensor,
                       vec: torch.Tensor, slot: int = SLOT_SPEECH,
-                      mode: str = "keras") -> MemorySlots:
+                      mode: str = "keras", mesh=None) -> MemorySlots:
     """Batched write: spk_idx (B,) int, vec (B, D) -> new state.
 
     Duplicate indices within the batch accumulate (inc_subtensor
-    semantics)."""
+    semantics). With a `mesh` (a parallel.mesh.Mesh) the batch is this
+    rank's share of the global one, and the sums run over its data group
+    (the gradient's too)."""
+    def batch_sum(x):
+        return x if mesh is None else mesh.data_sum(x)
+
     old = state.vectors[:, slot, :]
     onehot = _one_hot(spk_idx, old.shape[0], old.dtype)
     if mode == "keras":
         incoming = vec / _safe_l2(vec)
-        new = old + onehot.t() @ incoming
+        new = old + batch_sum(onehot.t() @ incoming)
         new = new / _safe_l2(new)
     elif mode == "torch":
-        summed = old + onehot.t() @ vec
+        summed = old + batch_sum(onehot.t() @ vec)
         norm = torch.linalg.vector_norm(summed, dim=-1, keepdim=True)
         new = torch.where(norm > 0, summed / torch.clamp(norm, min=1e-12),
                           summed)
         # only touched rows renormalize in the reference
-        touched = onehot.sum(dim=0) > 0
+        touched = batch_sum(onehot.sum(dim=0)) > 0
         new = torch.where(touched[:, None], new, old)
     else:
         raise ValueError(f"unknown memory mode {mode!r}")
-    counts = torch.bincount(spk_idx.long(), minlength=old.shape[0])
+    counts = batch_sum(torch.bincount(spk_idx.long(),
+                                      minlength=old.shape[0]))
     age = state.age.clone()
     age[:, slot] += counts.to(age.dtype)
     return MemorySlots(_with_slot(state.vectors, slot, new), age)

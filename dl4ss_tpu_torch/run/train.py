@@ -42,14 +42,28 @@ train wavlist (--file-lists); it writes `vocab.json` beside its
 checkpoint, and --resume / --init-from carry the memory. `--mode video` /
 `image-query` train the separator on lip-frame (synthetic, or
 --video-root) or digit-glyph queries; the Inception trunk is frozen.
+
+    python -m dl4ss_tpu_torch.run.train --preset synth_tiny --device cpu \
+        --dp 2 --epochs 1 --epoch-size 2
+    python -m dl4ss_tpu_torch.run.train --preset torch_multi --dp auto
+
+`--dp N` / `--mp M` train on N x M ranks (data x model; the embedding
+table row-sharded over the model axis when M divides its rows): this
+process starts them, one card a rank over NCCL (gloo on the CPU), and
+returns rank 0's final state, which equals the single-device run's.
+`--dp auto` takes every visible card (divided by --mp), one on the CPU.
+Under torchrun (WORLD_SIZE set) the ranks it started are used instead.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
+import sys
 
 import torch
+import torch.distributed as dist
 
 from dl4ss_tpu_torch.device import resolve_device
 from dl4ss_tpu_torch.run.common import (add_common_args, apply_overrides,
@@ -66,7 +80,7 @@ _NOISE_REFUSAL = ("--noise-wavs is the bank-mode street-noise augment "
                   "paths do not mix noise; drop the flag or use bank mode")
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     p = add_common_args(argparse.ArgumentParser(description=__doc__))
     p.add_argument("--mode", default="joint",
                    choices=["joint", "dense", "adversarial", "classifier",
@@ -132,6 +146,78 @@ def main(argv=None):
                    help="mixture speaker count(s) of the lists, "
                         "comma-separated for mixed-k per-pool training "
                         "(e.g. 1,2,3, predata_fromList_123.py:45-110)")
+    p.add_argument("--dp", default=None,
+                   help="data-parallel mesh extent: an integer or 'auto' "
+                        "(all devices / --mp); batches shard over the mesh's "
+                        "data axis, gradients all-reduce over NCCL (gloo on "
+                        "the CPU)")
+    p.add_argument("--mp", type=int, default=None,
+                   help="model-parallel mesh extent (embedding table "
+                        "row-sharded when it divides num_speakers)")
+    return p
+
+
+def _is_main() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _layout(cfg, args):
+    """cfg with --dp / --mp applied (as JAX's run.train applies them):
+    'auto' is the devices divided by the model extent: under torchrun its
+    ranks on every node (WORLD_SIZE), else the visible cards, 1 on the
+    CPU."""
+    if args.dp is None and args.mp is None:
+        return cfg
+    mp = args.mp if args.mp is not None else max(cfg.mp_size, 1)
+    if args.dp in (None, "auto"):
+        if "WORLD_SIZE" in os.environ:
+            n_dev = int(os.environ["WORLD_SIZE"])
+        elif torch.device(args.device).type == "cuda":
+            n_dev = torch.cuda.device_count()
+        else:
+            n_dev = 1
+        dp = n_dev // mp
+    else:
+        dp = int(args.dp)
+    return cfg.replace(dp_size=max(dp, 1), mp_size=mp)
+
+
+def _spawn_ranks(cfg, args, argv):
+    """Start dp x mp ranks running this CLI and return rank 0's final
+    state."""
+    from dl4ss_tpu_torch.parallel.launch import backend_for, run_ranks
+    from dl4ss_tpu_torch.parallel.mesh import (available_devices,
+                                               validate_layout)
+    try:
+        validate_layout(cfg, available_devices(args.device))
+    except ValueError as err:
+        raise SystemExit(str(err)) from None
+    world = cfg.dp_size * cfg.mp_size
+    backend = backend_for(args.device)
+    print(f"parallel: {world} ranks (data {cfg.dp_size} x model "
+          f"{cfg.mp_size}) over {backend}", flush=True)
+    rank_argv = argv + ["--dp", str(cfg.dp_size), "--mp", str(cfg.mp_size)]
+    # each rank runs main() again, its group up: it trains instead
+    return run_ranks(main, world, (rank_argv,), backend)
+
+
+def _join_launcher_group(args) -> None:
+    """Join the group of the ranks an outside launcher (torchrun) started:
+    its address, rank and world size are in the environment."""
+    from dl4ss_tpu_torch.parallel.launch import RENDEZVOUS_S, backend_for
+    backend = backend_for(args.device)
+    if backend == "nccl":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group(
+        backend, timeout=datetime.timedelta(seconds=RENDEZVOUS_S))
+    if _is_main():
+        print(f"parallel: {dist.get_world_size()} ranks from the launcher "
+              f"over {backend}", flush=True)
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    p = build_parser()
     args = p.parse_args(argv)
 
     if args.list_dir and args.mode in _QUERY_MODES:
@@ -157,6 +243,11 @@ def main(argv=None):
             cfg = apply_overrides(ck_cfg, args).validate()
             print(f"resuming under the checkpoint's config (preset "
                   f"{ck_cfg.name!r})")
+    cfg = _layout(cfg, args)
+    if cfg.dp_size * cfg.mp_size > 1 and not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            return _spawn_ranks(cfg, args, argv)
+        _join_launcher_group(args)
     # the trainer family fixes the query modality: rebind cfg.mode and
     # check the dataset against it (MODE 1-4, Torch_multi/config.py:66-76)
     want_mode = {"video": "video", "image-query": "image"}.get(args.mode)
@@ -179,7 +270,7 @@ def main(argv=None):
         sampler = Wsj0MixSampler(args.list_dir, root, cfg, args.split,
                                  mix_ks=mix_ks, device=device)
         cfg = cfg.replace(num_speakers=sampler.num_speakers)
-        if args.checkpoint_dir:
+        if args.checkpoint_dir and _is_main():
             # evaluators index the embedding rows through this vocabulary
             # (speaker -> row is an artifact of the TRAIN lists)
             write_vocab(args.checkpoint_dir, sampler.spk2idx)
@@ -199,12 +290,12 @@ def main(argv=None):
             args.wav_root or ".", cfg, utts_per_speaker=args.utts)
         bank = torch.as_tensor(bank_np, device=device)
         cfg = cfg.replace(num_speakers=len(spk2idx))
-        if args.checkpoint_dir:
+        if args.checkpoint_dir and _is_main():
             # the wavlist evaluator indexes memory rows through it
             write_vocab(args.checkpoint_dir, spk2idx)
     else:
         bank, cfg, idx2spk = load_bank(cfg, args, device)
-        if args.mode == "memory" and args.checkpoint_dir:
+        if args.mode == "memory" and args.checkpoint_dir and _is_main():
             # memory-mode evaluators need the speaker -> memory-row mapping
             # of THIS training bank
             write_vocab(args.checkpoint_dir,
@@ -339,8 +430,11 @@ def _run_memory_mode(cfg, bank, args, device):
         print(f"dev-loss: first {history[0]:.4f} best {min(history):.4f} "
               f"({len(history)} epochs)")
     if args.checkpoint_dir:
-        save_checkpoint(args.checkpoint_dir, state, cfg=cfg)
-        print(f"saved memory-mode checkpoint to {args.checkpoint_dir}")
+        if _is_main():
+            save_checkpoint(args.checkpoint_dir, state, cfg=cfg)
+            print(f"saved memory-mode checkpoint to {args.checkpoint_dir}")
+        if dist.is_initialized():
+            dist.barrier()
     return state
 
 

@@ -11,6 +11,12 @@ is scored by SI-SDR, and with cfg.out_sep_result its separated wavs are
 written under cfg.output_dir (Out_Sep_Result, main_run.py:515-516); every
 cfg.checkpoint_every_epochs epochs, and after the last, the state is saved
 under `checkpoint_dir`.
+
+Under cfg.dp_size / mp_size (`parallel.mesh.mesh_for_cfg`) every rank
+holds the banks and draws every global batch from the same generator,
+then featurizes and trains on its own rows; the held-out SI-SDR is the
+global mean; rank 0 alone writes checkpoints (the file a single-device run
+writes) and metrics, while the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from dl4ss_tpu_torch.data.synth import (featurize, make_synthetic_bank,
                                         sample_mixtures)
 from dl4ss_tpu_torch.eval.wav_export import export_batch_outputs
 from dl4ss_tpu_torch.device import resolve_device
+from dl4ss_tpu_torch.parallel.mesh import (describe_layout, mesh_for_cfg,
+                                           save_on_main, shard_batch,
+                                           shard_state, unshard_state)
 from dl4ss_tpu_torch.train.checkpoint import (init_params_from, latest_step,
                                               restore_checkpoint,
                                               save_checkpoint)
@@ -75,7 +84,8 @@ def train_loop(cfg: Config, bank: Optional[torch.Tensor] = None,
     pool from the list vocabulary. `eval_batch` is the held-out MixtureBatch
     scored each epoch (default: the first unshuffled list batch).
 
-    Returns (final state, list of per-epoch mean SI-SDR)."""
+    Returns (final state, list of per-epoch mean SI-SDR): under a mesh the
+    same on every rank, with any row-sharded table whole again."""
     if mode not in ("joint", "dense", "adversarial", "classifier"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "adversarial" and not cfg.use_discriminator:
@@ -83,6 +93,7 @@ def train_loop(cfg: Config, bank: Optional[torch.Tensor] = None,
     if dis_sp and mode != "adversarial":
         raise ValueError("--dis-sp only applies to adversarial mode")
     device = resolve_device(device)
+    mesh = mesh_for_cfg(cfg, device)
     epochs = max_epochs if max_epochs is not None else cfg.max_epoch
     # horizon-aware schedules (cosine) see the real epoch budget
     cfg = cfg.replace(max_epoch=epochs)
@@ -109,11 +120,17 @@ def train_loop(cfg: Config, bank: Optional[torch.Tensor] = None,
         state = init_params_from(state, init_from, cfg=cfg)
     if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
         state = restore_checkpoint(checkpoint_dir, state)
+    main = mesh is None or mesh.is_main
+    if mesh is not None:
+        state = shard_state(state, mesh)
+        if main:
+            print(describe_layout(mesh, state.model))
     if sampler is not None:
         step_fn = {"joint": make_train_step,
                    "dense": make_dense_train_step,
                    "adversarial": make_adversarial_step,
-                   "classifier": make_classifier_step}[mode](cfg, epoch_size)
+                   "classifier": make_classifier_step}[mode](
+                       cfg, epoch_size, mesh)
         if dis_sp:
             sp_rows, sp_counts = sampler.spk_tables()
 
@@ -126,11 +143,12 @@ def train_loop(cfg: Config, bank: Optional[torch.Tensor] = None,
             for batch in sampler.batches(cfg.batch_size, shuffle=True,
                                          seed=seed + 7919 * (epoch + 1),
                                          augment=cfg.augment_data):
-                feats = featurize(batch, cfg)
+                feats = featurize(shard_batch(batch, mesh), cfg)
                 if dis_sp:
-                    feats["real_specs"] = list_same_speaker_real_specs(
-                        gen, batch, sampler.device_bank(), sp_rows,
-                        sp_counts, cfg)
+                    feats["real_specs"] = shard_batch(
+                        list_same_speaker_real_specs(
+                            gen, batch, sampler.device_bank(), sp_rows,
+                            sp_counts, cfg), mesh)
                 state, last = step_fn(state, feats)
             return state, last
 
@@ -142,20 +160,23 @@ def train_loop(cfg: Config, bank: Optional[torch.Tensor] = None,
     else:
         if mode == "joint":
             run_one = make_fused_step(cfg, epoch_size,
-                                      noise_bank=noise_bank)
+                                      noise_bank=noise_bank, mesh=mesh)
         else:
             step_fn = {"dense": make_dense_train_step,
                        "adversarial": make_adversarial_step,
                        "classifier": make_classifier_step}[mode](
-                           cfg, epoch_size)
+                           cfg, epoch_size, mesh)
 
             def run_one(state, bank):
                 batch = sample_mixtures(state.generator, bank, cfg,
                                         noise_bank=noise_bank)
-                feats = featurize(batch, cfg)
+                feats = featurize(shard_batch(batch, mesh), cfg)
                 if dis_sp:
-                    feats["real_specs"] = same_speaker_real_specs(
-                        state.generator, batch, bank, cfg)
+                    # drawn for the global batch: the generator advances
+                    # as in a single-device run
+                    feats["real_specs"] = shard_batch(
+                        same_speaker_real_specs(state.generator, batch,
+                                                bank, cfg), mesh)
                 return step_fn(state, feats)
 
         def run_epoch(state, epoch):
@@ -168,7 +189,11 @@ def train_loop(cfg: Config, bank: Optional[torch.Tensor] = None,
             return sample_mixtures(state.generator, bank, cfg, train=False)
 
     eval_step = make_eval_step(cfg)
-    writer = MetricsWriter(metrics_path)
+    writer = MetricsWriter(metrics_path if main else None, echo=main)
+
+    def save(state):
+        save_checkpoint(checkpoint_dir, state, cfg=cfg)
+
     sdr_history = []
     start_epoch = state.step // max(epoch_size, 1)
     try:
@@ -177,24 +202,30 @@ def train_loop(cfg: Config, bank: Optional[torch.Tensor] = None,
             record = dict(epoch=epoch, **last)
             if eval_every and (epoch + 1) % eval_every == 0:
                 batch = held_out(state)
-                ev = eval_step(state.model, featurize(batch, cfg))
-                sdr = float(ev["si_sdr"].mean())
+                ev = eval_step(state.model,
+                               featurize(shard_batch(batch, mesh), cfg))
+                sdr = ev["si_sdr"].mean()
+                sdr = float(sdr if mesh is None else mesh.data_mean(sdr))
                 sdr_history.append(sdr)
                 record["si_sdr"] = sdr
                 if cfg.out_sep_result:
                     # the per-epoch separated wavs under the batch_output
                     # contract (Out_Sep_Result, main_run.py:515-516)
+                    wavs = ev["pred_wavs"]
+                    wavs = wavs if mesh is None else mesh.gather(wavs)
                     names = [[f"spk{s:03d}" for s in row]
                              for row in batch.spk_idx.tolist()]
-                    export_batch_outputs(
-                        cfg.output_dir, batch.mix_wav.cpu().numpy(),
-                        ev["pred_wavs"].cpu().numpy(),
-                        batch.source_wavs.cpu().numpy(), names,
-                        cfg.frame_rate)
+                    if main:
+                        export_batch_outputs(
+                            cfg.output_dir, batch.mix_wav.cpu().numpy(),
+                            wavs.cpu().numpy(),
+                            batch.source_wavs.cpu().numpy(), names,
+                            cfg.frame_rate)
             writer.write("epoch", state.step, **record)
             if checkpoint_dir and ((epoch + 1) % cfg.checkpoint_every_epochs
                                    == 0 or epoch + 1 == epochs):
-                save_checkpoint(checkpoint_dir, state, cfg=cfg)
+                save_on_main(mesh, state, save)
     finally:
         writer.close()
-    return state, sdr_history
+    return unshard_state(state, mesh), sdr_history
+

@@ -13,7 +13,10 @@
   * at eval the clean input is unused and the memory row alone drives the
     mask; unknown speakers are `enroll`-ed first (predict.py:160-180);
   * training stops early on the per-epoch dev loss (patience 10) and keeps
-    the best parameters and memory (nnet.py:149-172).
+    the best parameters and memory (nnet.py:149-172);
+  * under cfg.dp_size > 1 each rank trains on its share of the batch and
+    both writes sum over the global batch (models/memory.py); the dev loss
+    is the global mean, so every rank takes the same early-stop decision.
 
 The mask head is the additive `align` head whatever the preset's
 `mask_head`, as in JAX; it has no kernel. The encoder takes the kernel
@@ -38,6 +41,8 @@ from dl4ss_tpu_torch.models.memory import (SLOT_IMAGE, SLOT_SPEECH,
                                            SLOT_VIDEO, MemorySlots,
                                            init_memory, memory_read,
                                            memory_rows, memory_write_slot)
+from dl4ss_tpu_torch.parallel.mesh import (Mesh, mean_metrics, mesh_for_cfg,
+                                           shard_batch, shard_state)
 from dl4ss_tpu_torch.models.query import (apply_image_query,
                                           apply_speech_query,
                                           apply_video_query,
@@ -177,11 +182,13 @@ def _extract(model: MemoryModel, memory: MemorySlots, feats: dict,
 
 
 def make_memory_train_step(cfg: Config, query_source: str = "speech",
-                           steps_per_epoch: int = 1) -> Callable:
+                           steps_per_epoch: int = 1,
+                           mesh: Optional[Mesh] = None) -> Callable:
     """step(state, feats) -> (state, {loss, grad_norm}), updating the model,
     the optimizer state and the memory in place. feats: mix_feas, mix_mag,
     spk_id (B,), target_mag and clean_feas / query_image / query_video
-    (mix_ri and target_wav under loss_mode='si_sdr')."""
+    (mix_ri and target_wav under loss_mode='si_sdr'); with a `mesh`, this
+    rank's rows of the global batch."""
     opt = make_optimizer(cfg, steps_per_epoch)
     slot = _slot(query_source)
 
@@ -190,16 +197,17 @@ def make_memory_train_step(cfg: Config, query_source: str = "speech",
         vp = _voiceprint(state.model, feats, cfg, query_source)
         # the differentiable in-graph write + select (the Keras graph path)
         old = MemorySlots(state.memory.vectors.detach(), state.memory.age)
-        mem = memory_write_slot(old, spk_id, vp, slot)
+        mem = memory_write_slot(old, spk_id, vp, slot, mesh=mesh)
         masks, pred = _extract(state.model, mem, feats, cfg, slot, spk_id)
         loss = _memory_loss(pred, masks, feats, cfg)
         grad_norm = _backward_and_update(list(state.model.parameters()),
-                                         state.opt_state, opt, loss)
+                                         state.opt_state, opt, loss, mesh)
         # the out-of-graph persistent update (update_memory semantics)
         state.memory = memory_write_slot(state.memory, spk_id, vp.detach(),
-                                         slot)
+                                         slot, mesh=mesh)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, mean_metrics({"loss": loss.detach(),
+                                    "grad_norm": grad_norm}, mesh)
 
     return step
 
@@ -293,17 +301,24 @@ def memory_train_loop(cfg: Config, make_batch: Callable, seed: int = 1,
     after `patience` epochs without improvement, return the best params
     and memory. make_batch(generator) -> feats dict, drawn from the
     state's generator. `init_state` goes on from a restored state; its
-    step counts toward the epoch budget. Returns (state, dev losses)."""
+    step counts toward the epoch budget. Under cfg.dp_size / mp_size each
+    rank trains on its rows of every batch (`mesh_for_cfg`); the returned
+    state is the same on every rank. Returns (state, dev losses)."""
     epochs = max_epochs if max_epochs is not None else cfg.max_epoch
     esize = epoch_size if epoch_size is not None else cfg.epoch_size
     # horizon-aware schedules see the real epoch budget
     cfg = cfg.replace(max_epoch=epochs)
+    mesh = mesh_for_cfg(cfg, device)
     state = (init_state if init_state is not None else
              create_memory_state(cfg, seed, query_source, esize, frame_hw,
                                  video_trunk, device))
-    train_step = make_memory_train_step(cfg, query_source, esize)
+    if mesh is not None:
+        state = shard_state(state, mesh)
+        dev_batch = shard_batch(dev_batch, mesh)
+    train_step = make_memory_train_step(cfg, query_source, esize, mesh)
     eval_step = make_memory_eval_step(cfg, query_source)
-    writer = MetricsWriter(metrics_path, echo=False)
+    main = mesh is None or mesh.is_main
+    writer = MetricsWriter(metrics_path if main else None, echo=False)
     best_loss, best = float("inf"), None
     bad_epochs = 0
     history = []
@@ -311,11 +326,13 @@ def memory_train_loop(cfg: Config, make_batch: Callable, seed: int = 1,
     try:
         for epoch in range(state.step // max(esize, 1), epochs):
             for _ in range(esize):
-                state, last = train_step(state, make_batch(state.generator))
+                state, last = train_step(state, shard_batch(
+                    make_batch(state.generator), mesh))
             if dev_batch is None:
                 continue
-            dev = float(eval_step(state.model, state.memory,
-                                  dev_batch)["loss"])
+            dev = eval_step(state.model, state.memory, dev_batch)["loss"]
+            # the global batch's loss: every rank stops on the same epoch
+            dev = float(dev if mesh is None else mesh.data_mean(dev))
             history.append(dev)
             writer.write("epoch", state.step, epoch=epoch, dev_loss=dev,
                          train_loss=float(last["loss"]))

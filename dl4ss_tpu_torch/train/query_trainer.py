@@ -13,6 +13,10 @@ video query's BiLSTM runs K7 / K8 on the card under the same flag
 Batch contract (feats): mix_feas (B,T,F), src_feas (B,K,T,F),
 channel_live (B,K), spk_idx (B,K), mix_ri, source_wavs, and query_video
 (B,K,Tf,H,W,3) or query_image (B,K,28,28,1).
+
+Under cfg.dp_size / mp_size the loop runs as `train.loop`'s does: each
+rank trains on its rows of every batch, the dev SI-SDR is the global mean,
+and rank 0 alone writes checkpoints and metrics.
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ from dl4ss_tpu_torch.models.separator import Separator, init_separator
 from dl4ss_tpu_torch.objectives.losses import mask_mse_loss
 from dl4ss_tpu_torch.objectives.pit import pit_loss
 from dl4ss_tpu_torch.ops.stft import istft_cfg
+from dl4ss_tpu_torch.parallel.mesh import (Mesh, mean_metrics, mesh_for_cfg,
+                                           save_on_main, shard_batch,
+                                           shard_state, unshard_state)
 from dl4ss_tpu_torch.train.checkpoint import (init_params_from, latest_step,
                                               restore_checkpoint,
                                               save_checkpoint)
@@ -92,11 +99,13 @@ def _queries_and_logits(model: Separator, feats: dict, cfg: Config,
 
 def make_query_train_step(cfg: Config, query_source: str = "video",
                           steps_per_epoch: int = 1,
-                          aux_class_weight: float = 1.0) -> Callable:
+                          aux_class_weight: float = 1.0,
+                          mesh: Optional[Mesh] = None) -> Callable:
     """step(state, feats) -> (state, {loss, mask_loss[, query_ce],
     grad_norm}), updating the state in place. Every parameter but the
     discriminator's gets an update; the frozen Inception trunk's gradient
-    is zero, so its update is too."""
+    is zero, so its update is too. With a `mesh` the feats are this
+    rank's rows of the global batch."""
     opt = make_optimizer(cfg, steps_per_epoch)
 
     def step(state: TrainState, feats: dict):
@@ -129,10 +138,10 @@ def make_query_train_step(cfg: Config, query_source: str = "video",
             total = total + aux_class_weight * ce
             metrics["query_ce"] = ce.detach()
         grad_norm = _backward_and_update(generator_params(model),
-                                         state.opt_state, opt, total)
+                                         state.opt_state, opt, total, mesh)
         state.step += 1
-        return state, {"loss": total.detach(), **metrics,
-                       "grad_norm": grad_norm}
+        return state, mean_metrics({"loss": total.detach(), **metrics,
+                                    "grad_norm": grad_norm}, mesh)
 
     return step
 
@@ -185,6 +194,7 @@ def query_train_loop(cfg: Config, make_batch: Callable, seed: int = 1,
     epochs = max_epochs if max_epochs is not None else cfg.max_epoch
     esize = epoch_size if epoch_size is not None else cfg.epoch_size
     cfg = cfg.replace(max_epoch=epochs)
+    mesh = mesh_for_cfg(cfg, device)
     state = create_query_state(cfg, seed, query_source, esize, video_trunk,
                                frame_hw, device)
     if init_from:
@@ -192,30 +202,39 @@ def query_train_loop(cfg: Config, make_batch: Callable, seed: int = 1,
         state = init_params_from(state, init_from, cfg=cfg)
     elif resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
         state = restore_checkpoint(checkpoint_dir, state)
-    train_step = make_query_train_step(cfg, query_source, esize)
+    if mesh is not None:
+        state = shard_state(state, mesh)
+        dev_batch = shard_batch(dev_batch, mesh)
+    train_step = make_query_train_step(cfg, query_source, esize, mesh=mesh)
     eval_step = make_query_eval_step(cfg, query_source)
-    writer = MetricsWriter(metrics_path)
+    main = mesh is None or mesh.is_main
+    writer = MetricsWriter(metrics_path if main else None, echo=main)
+
+    def save(state):
+        return save_checkpoint(checkpoint_dir, state, cfg=cfg)
+
     sdr_history = []
     metrics = {}
     saved_step = -1
     try:
         for epoch in range(state.step // max(esize, 1), epochs):
             for _ in range(esize):
-                state, metrics = train_step(state,
-                                            make_batch(state.generator))
+                state, metrics = train_step(state, shard_batch(
+                    make_batch(state.generator), mesh))
             row = dict(metrics)
             if dev_batch is not None and eval_every \
                     and (epoch + 1) % eval_every == 0:
-                sdr = float(eval_step(state.model,
-                                      dev_batch)["si_sdr"].mean())
+                sdr = eval_step(state.model, dev_batch)["si_sdr"].mean()
+                sdr = float(sdr if mesh is None else mesh.data_mean(sdr))
                 sdr_history.append(sdr)
                 row["si_sdr"] = sdr
             writer.write("epoch", state.step, epoch=epoch, **row)
             if checkpoint_dir and \
                     (epoch + 1) % cfg.checkpoint_every_epochs == 0:
-                saved_step = save_checkpoint(checkpoint_dir, state, cfg=cfg)
+                save_on_main(mesh, state, save)
+                saved_step = state.step
         if checkpoint_dir and state.step != saved_step:
-            save_checkpoint(checkpoint_dir, state, cfg=cfg)
+            save_on_main(mesh, state, save)
     finally:
         writer.close()
-    return state, sdr_history
+    return unshard_state(state, mesh), sdr_history

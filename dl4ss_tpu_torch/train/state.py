@@ -113,11 +113,14 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: AdamState) -> torch.Tensor:
+               state: AdamState, norm: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
         """Apply one update to `params` and `state` in place (`grads` may be
         scaled in place by the clip). Returns the global norm of the
-        incoming grads, before the clip."""
-        norm = global_norm(grads)
+        incoming grads, before the clip: `norm` when the caller has it (a
+        mesh's, over every rank's share of the parameters)."""
+        if norm is None:
+            norm = global_norm(grads)
         if self.clip:
             # optax: g if ||g|| < max else (g / ||g||) * max; one factor
             # per update here, so the clipped grads can differ in the last

@@ -18,6 +18,11 @@ classifier-selected, with the complement mask; magnitude or cRM) and the
 recursive eval step. The separation trainers update every parameter but
 the discriminator's, which only the adversarial step's first phase moves,
 with its own optimizer state.
+
+Given a `mesh` (parallel/mesh.py), a train step runs on this rank's share
+of the global batch: its gradients are averaged over the data group
+before the clip, which sees their global norm, and its metrics are the
+global batch's means.
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ from dl4ss_tpu_torch.objectives.losses import (complex_mse_loss, gan_d_loss,
 from dl4ss_tpu_torch.objectives.pit import pit_loss
 from dl4ss_tpu_torch.ops.crm import unpack_ri
 from dl4ss_tpu_torch.ops.stft import istft_cfg
+from dl4ss_tpu_torch.parallel.mesh import (Mesh, mean_metrics,
+                                           reduce_gradients, shard_batch)
 from dl4ss_tpu_torch.train.state import (TrainState, discriminator_params,
                                          generator_params, make_optimizer)
 
@@ -125,19 +132,26 @@ def _separation_loss(model: Separator, feats: dict, cfg: Config):
     return loss, aux
 
 
-def _backward_and_update(params, opt_state, opt, loss: torch.Tensor
-                         ) -> torch.Tensor:
+def _backward_and_update(params, opt_state, opt, loss: torch.Tensor,
+                         mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Differentiate `loss` with respect to `params` alone, apply one
     optimizer update to them and `opt_state` in place and return the
     global grad norm. Parameters the loss does not reach get zeros, as
-    jax.grad gives them; nothing outside `params` gets a gradient."""
+    jax.grad gives them; nothing outside `params` gets a gradient. With a
+    `mesh` the gradients are averaged over its data group first (where
+    XLA inserts the all-reduce in JAX), and the clip takes the mesh's
+    global norm."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
-    return opt.update(params, grads, opt_state)
+    norm = None
+    if mesh is not None:
+        grads, norm = reduce_gradients(params, grads, mesh)
+    return opt.update(params, grads, opt_state, norm=norm)
 
 
-def make_train_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
+def make_train_step(cfg: Config, steps_per_epoch: int = 1,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """The canonical joint trainer (A17/A18/A19): teacher-forced speakers,
     mask MSE (+PIT) or SI-SDR, clipped Adam. step(state, feats) ->
     (state, metrics), updating the state in place."""
@@ -151,36 +165,40 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
     def step(state: TrainState, feats: dict):
         loss, aux = _separation_loss(state.model, feats, cfg)
         grad_norm = _backward_and_update(generator_params(state.model),
-                                         state.opt_state, opt, loss)
+                                         state.opt_state, opt, loss, mesh)
         metrics = {"loss": loss.detach(),
                    "mask_loss": aux["mask_loss"].detach(),
                    "grad_norm": grad_norm}
         if "sum_loss" in aux:
             metrics["sum_loss"] = aux["sum_loss"].detach()
         state.step += 1
-        return state, metrics
+        return state, mean_metrics(metrics, mesh)
 
     return step
 
 
 def make_fused_step(cfg: Config, steps_per_epoch: int = 1,
-                    noise_bank: Optional[torch.Tensor] = None) -> Callable:
+                    noise_bank: Optional[torch.Tensor] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Synthesis + STFT + train: step(state, bank) -> (state, metrics).
     The batch is drawn from the state's generator; on the kernel route the
     features come from K1 (the reference's CPU generator -> numpy STFT ->
     H2D copy -> GPU step, run on the device). `noise_bank` (W, N) enables
-    the street-noise augment (A5) under cfg.add_bgd_noise."""
-    inner = make_train_step(cfg, steps_per_epoch)
+    the street-noise augment (A5) under cfg.add_bgd_noise. With a `mesh`
+    every rank draws the global batch (the generator is the same on all)
+    and featurizes and trains on its own rows."""
+    inner = make_train_step(cfg, steps_per_epoch, mesh)
 
     def step(state: TrainState, bank: torch.Tensor):
         batch = sample_mixtures(state.generator, bank, cfg,
                                 noise_bank=noise_bank)
-        return inner(state, featurize(batch, cfg))
+        return inner(state, featurize(shard_batch(batch, mesh), cfg))
 
     return step
 
 
-def make_classifier_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
+def make_classifier_step(cfg: Config, steps_per_epoch: int = 1,
+                         mesh: Optional[Mesh] = None) -> Callable:
     """The standalone classifier trainer (A26/B16):
     MultiLabelSoftMarginLoss on 'who is in the mixture'. step(state, feats)
     -> (state, {loss, element_acc}), updating the state in place. Only the
@@ -208,17 +226,19 @@ def make_classifier_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
         logits = logits.float()                   # f32 loss math
         loss = multilabel_softmargin_loss(logits, target)
         _backward_and_update(generator_params(state.model), state.opt_state,
-                             opt, loss)
+                             opt, loss, mesh)
         with torch.no_grad():
             pred = (torch.sigmoid(logits) > cfg.alpha).float()
             acc = (pred == target).float().mean()
         state.step += 1
-        return state, {"loss": loss.detach(), "element_acc": acc}
+        return state, mean_metrics({"loss": loss.detach(),
+                                    "element_acc": acc}, mesh)
 
     return step
 
 
-def make_dense_train_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
+def make_dense_train_step(cfg: Config, steps_per_epoch: int = 1,
+                          mesh: Optional[Mesh] = None) -> Callable:
     """Exact-reference channel layout: every speaker owns a loss channel
     (main_run.py:473-506); targets scattered by speaker id, all-channel
     MSE (complex MSE on the cRM layout, main_run_sstune_cRM_EvalVer.py:
@@ -256,14 +276,15 @@ def make_dense_train_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
             loss = loss + cfg.sum_loss_weight * sl
             metrics["sum_loss"] = sl.detach()
         _backward_and_update(generator_params(state.model), state.opt_state,
-                             opt, loss)
+                             opt, loss, mesh)
         state.step += 1
-        return state, {"loss": loss.detach(), **metrics}
+        return state, mean_metrics({"loss": loss.detach(), **metrics}, mesh)
 
     return step
 
 
-def make_adversarial_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
+def make_adversarial_step(cfg: Config, steps_per_epoch: int = 1,
+                          mesh: Optional[Mesh] = None) -> Callable:
     """TDAA's two-phase adversarial trainer (B9 dis-ss / B10 dis-sp):
     phase 1 trains the discriminator on real-vs-predicted spectrograms
     (MSE-GAN) with its own optimizer state, phase 2 the separator with mask
@@ -299,7 +320,7 @@ def make_adversarial_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
         score_fake = apply_discriminator(model.discriminator, fake, cfg)
         d_loss = gan_d_loss(score_real, score_fake)
         _backward_and_update(discriminator_params(model), state.d_opt_state,
-                             d_opt, d_loss)
+                             d_opt, d_loss, mesh)
 
         # ---- phase 2: generator ----
         mask_l, aux = _separation_loss(model, feats, sep_cfg)
@@ -308,13 +329,13 @@ def make_adversarial_step(cfg: Config, steps_per_epoch: int = 1) -> Callable:
         sum_l = sum_to_one_loss(aux["out"].masks * live[..., None, None])
         g_loss = mask_l + sum_w * sum_l + gan_g_loss(score)
         _backward_and_update(generator_params(model), state.opt_state, g_opt,
-                             g_loss)
+                             g_loss, mesh)
         state.step += 1
-        return state, {
+        return state, mean_metrics({
             "d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
             "mask_loss": mask_l.detach(), "sum_loss": sum_l.detach(),
             "d_acc_real": (score_real > 0.5).float().mean(),
-            "d_acc_fake": (score_fake < 0.5).float().mean()}
+            "d_acc_fake": (score_fake < 0.5).float().mean()}, mesh)
 
     return step
 

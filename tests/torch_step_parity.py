@@ -11,16 +11,19 @@ difference; they may carry at most SIGN_HIDDEN of the leaf's gradient
 (L2). These are the bounds of the card-vs-CPU step checks in
 chip_smoke.py (`leaf_updates`)."""
 
-import jax
 import numpy as np
-import optax
 
 from dl4ss_tpu_torch.weights import export_jax_params, flatten_tree
 
 SIGN_NOISE, SIGN_HIDDEN = 3.0, 1e-2
 
 
+# JAX is imported where it is used: the ranks of tests/test_torch_parallel.py
+# run `torch_step` in processes that import no JAX
+
+
 def np_tree(tree):
+    import jax
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
@@ -32,6 +35,8 @@ def jax_step(trainer, make_step, state, feats):
     """Run `make_step()(state, feats)` of a JAX trainer module (its
     `make_optimizer` wrapped, a host callback reading the gradients):
     ((new state, metrics), gradients by leaf name)."""
+    import jax
+    import optax
     grads = {}
     real = trainer.make_optimizer
 
@@ -63,10 +68,10 @@ def torch_step(make_step, state, feats):
     names = {id(p): n for n, p in state.model.named_parameters()}
     update = state_mod.Optimizer.update
 
-    def recording(self, params, g, opt_state):
+    def recording(self, params, g, opt_state, **kwargs):
         for p, x in zip(params, g):
             grads[names[id(p)]] = x.detach().numpy().copy()
-        return update(self, params, g, opt_state)
+        return update(self, params, g, opt_state, **kwargs)
 
     state_mod.Optimizer.update = recording
     try:
