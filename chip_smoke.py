@@ -124,9 +124,21 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      on one rank: joint loss 1e-4 relative, every gradient after the
      all-reduce and every update 5e-2 relative L2; memory loss 1e-5,
      gradients and updates 1e-3, memory rows 1e-5, ages equal; every rank
-     launches the kernels; utils.StepTimer times the joint step (median of
-     10), profile_trace writes one step's Chrome trace, seed_everything
-     repeats its draws.
+     launches the kernels; the joint step at B=8 (four rows a rank)
+     against one rank, its worst gradient printed, not gated;
+     utils.StepTimer times the joint step (median of 10), profile_trace
+     writes one step's Chrome trace, seed_everything repeats its draws;
+ 15. the public surface: every module of dl4ss_tpu_torch imports
+     (pkgutil.walk_packages) with neither JAX nor dl4ss_tpu loaded;
+     tests/test_torch_surface.py's map of the JAX package's public names
+     resolves with nothing unmapped or stale; K2, K5, K7 and K8 with D = 1
+     (one-direction layers) at B=16, T=313, H=300, both bodies, against
+     their plain versions; a one-direction 2-layer GRU-300 and LSTM-300
+     stack through bidirectional_rnn(use_pallas=True), forward and
+     gradients, with the counts zeroed just before and read just after
+     (one K2 + K5 or K7 + K8 a layer, on the body the rule names), held to
+     the plain loop on the card; their kernel rows (name `*_d1`) join the
+     `kernels` line; native.resample_poly against scipy on 5 s of 16 kHz.
 
     python3 chip_smoke.py --learning STEPS
 
@@ -159,6 +171,11 @@ cards / 2 --mp 2 for PAR_STEPS steps against the run without --dp (their
 parameters' largest difference printed, not gated: Adam's first steps move
 an element whose gradient lies within the rounding by ~lr either way), and
 prints no `ok` line.
+
+    python3 chip_smoke.py --surface
+
+builds the kernels and runs phase 15 alone, prints its `kernels` rows and
+the card's line, and no `ok` line.
 
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
@@ -228,6 +245,7 @@ VIDEO_LEARN_STEPS = 500
 VIDEO_HELD_BATCHES = 16
 MEM_HELD_BATCHES = 16
 VIDEO_LEARN_SEEDS = tuple(range(8))
+SURFACE_LAYERS = 2          # depth of phase 15's one-direction stacks
 PAR_STEPS = 2               # steps of the run.train --dp auto check
 PAR_TIMINGS = 10            # StepTimer chains of one step each (median)
 
@@ -316,7 +334,12 @@ TOL = {"stft_features": 1e-4, "gru_fwd": 1e-4, "gru_fwd_bf16": 2e-2,
        # bars (the loss relative, each gradient and update relative L2),
        # the memory step is all f32 (as mem_step_* and memory above)
        "par_joint_loss": 1e-4, "par_joint_update": 5e-2,
-       "par_mem_loss": 1e-5, "par_mem_update": 1e-3, "par_memory": 1e-5}
+       "par_mem_loss": 1e-5, "par_mem_update": 1e-3, "par_memory": 1e-5,
+       # phase 15: the one-direction stacks on K2 / K7 and K5 / K8 (D = 1)
+       # against their plain loop on the card, at the recurrent kernels'
+       # bars (max abs of the output; relative L2 of each gradient), and
+       # the native resampler against scipy (tests/test_native.py's bar)
+       "uni_rnn_fwd": 2e-2, "uni_rnn_bwd": 5e-2, "resample": 5e-5}
 
 
 def cocktail_layout(corpus_root: str, out_root: str, holdout: int,
@@ -631,6 +654,50 @@ def print_profile(label, fn, wall, torch, top=10):
     for name, n, ms in rows:
         print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
     return names
+
+
+def check_bodies_on(torch, sms, label, name, cuda, plain, args, outs, tol,
+                 rel):
+    """K2, K5, K7 or K8: the body the shape rule names (it must be the
+    one a default call launches) and the other one where it can run,
+    each against the plain version (max abs error, or relative L2 where
+    `rel`); the resident body against the stepwise one and against a
+    second call of itself. Returns the rule's body's max abs error. `sms`:
+    the card's SM count, which the rule reads."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k2
+    hidden = args[1].shape[1]          # wh (D, H, NG * H)
+    rule = k2.rnn_body(hidden, args[0].shape[2], args[0].shape[1], sms=sms,
+                       backward=name.endswith("_bwd"))
+
+    def outputs(fn, **kw):          # K2 returns hs alone
+        res = fn(*args, **kw)
+        return (res,) if isinstance(res, torch.Tensor) else res
+
+    def gate(what, g, r):
+        return (check_rel(what, g, r, tol) if rel
+                else check(what, max_err(g, r), tol))
+    ref = outputs(plain)
+    before = k2.BODY_LAUNCHES[name, rule]
+    got = {rule: outputs(cuda)}
+    if k2.BODY_LAUNCHES[name, rule] != before + 1:
+        fail(f"{label}: the default call did not run the {rule} body")
+    if rule == k2.BODY_RESIDENT:
+        got[k2.BODY_STEPWISE] = outputs(cuda, body=k2.BODY_STEPWISE)
+    elif hidden <= k2.RESIDENT_MAX_HIDDEN:
+        got[k2.BODY_RESIDENT] = outputs(cuda, body=k2.BODY_RESIDENT)
+    worst = {body: max(gate(f"{label} {body} body {what}", g, r)
+                       for what, g, r in zip(outs, res, ref))
+             for body, res in got.items()}
+    if len(got) == 2:
+        res = got[k2.BODY_RESIDENT]
+        for what, g, r in zip(outs, res, got[k2.BODY_STEPWISE]):
+            gate(f"{label} resident against stepwise {what}", g, r)
+        for what, g, g2 in zip(outs, res,
+                               outputs(cuda, body=k2.BODY_RESIDENT)):
+            if not torch.equal(g, g2):
+                fail(f"{label}: two resident calls in a row differ in "
+                     f"{what}")
+    return worst[rule]
 
 
 def persistence_phase(torch, dev, rng, tmp):
@@ -1787,10 +1854,11 @@ def generations_phase(torch, dev, tmp):
         close_losses(label, met_g, met_c, ("grad_norm",), tol)
         worst = leaf_updates(label, before, leaves(state.model),
                              leaves(twin.model), tol, grads_g, grads_c)
+        has_memory = getattr(state, "memory", None) is not None
         mem_err = (max_err(state.memory.vectors.cpu(), twin.memory.vectors)
-                   if hasattr(state, "memory") else 0.0)
+                   if has_memory else 0.0)
         ages = (torch.equal(state.memory.age.cpu(), twin.memory.age)
-                if hasattr(state, "memory") else True)
+                if has_memory else True)
         print(f"{label}: {len(grads_c)} gradients and updates, worst update "
               f"rel L2 {worst:.3e} tol {tol:.0e}; memory after the write "
               f"max_abs_err {mem_err:.3e} tol {TOL['memory']:.0e}, ages "
@@ -2026,10 +2094,11 @@ def _leaves(model):
             for n, p in model.named_parameters()}
 
 
-def par_case(torch, dev, name, mesh, speakers=None):
+def par_case(torch, dev, name, mesh, speakers=None, batch=None):
     """Phase 14's two steps from SEED, the same on one rank (mesh None) and
     on each rank of a mesh: (state, run), run(state) -> (state, metrics);
-    `speakers` replaces the preset's speaker count. "joint": torch_multi's fused step, which draws the global
+    `speakers` replaces the preset's speaker count, `batch` its global
+    batch. "joint": torch_multi's fused step, which draws the global
     B=16 batch from the state's generator and trains on this rank's rows.
     "memory": a cocktail memory batch (drawn, featurized and then split,
     as memory_train_loop does) whose first target speaker is also the
@@ -2047,6 +2116,8 @@ def par_case(torch, dev, name, mesh, speakers=None):
     cfg = preset("torch_multi" if name == "joint" else "cocktail")
     if speakers is not None:
         cfg = cfg.replace(num_speakers=speakers)
+    if batch is not None:
+        cfg = cfg.replace(batch_size=batch)
     bank = torch.as_tensor(make_synthetic_bank(
         SEED, cfg.num_speakers, BANK_UTTS, N_SAMPLES), device=dev)
     if name == "joint":
@@ -2131,9 +2202,10 @@ def hold_to_one_rank(torch, label, refs, res):
 def parallel_rank():
     """One of phase 14's two ranks on cuda:0 (parallel.launch.run_ranks
     starts each in a process of its own, over gloo): the joint and the
-    memory step on a dp=2 mesh after rank 0's state is broadcast. Returns
-    the backend and, by step, rank 0's par_record with both ranks'
-    launches."""
+    memory step on a dp=2 mesh after rank 0's state is broadcast, then the
+    joint step at B=8 global (four rows a rank). Returns the backend and,
+    by step, rank 0's par_record with both ranks' launches (the B=8 step:
+    its metrics and gradients, under "joint_b8")."""
     import torch
     import torch.distributed as dist
     from dl4ss_tpu_torch import resolve_device
@@ -2148,6 +2220,9 @@ def parallel_rank():
         every = [None] * mesh.dp
         dist.all_gather_object(every, launches)
         out[name] = (*rec, every)
+    state, run = par_case(torch, dev, "joint", mesh, batch=BATCH // 2)
+    shard_state(state, mesh)
+    out["joint_b8"] = par_record(torch, state, run)[:2]
     return out
 
 
@@ -2233,6 +2308,25 @@ def parallel_phase(torch, dev, tmp):
     if res["backend"] != "gloo":
         fail(f"the ranks ran over {res['backend']}")
     total.update(hold_to_one_rank(torch, "dp=2", refs, res))
+    # the same joint step at four rows a rank (B=8 over two ranks) against
+    # one rank at B=8, printed and not gated: whether the gradient spread
+    # that four cards showed at four rows a rank follows the local batch
+    state, run = par_case(torch, dev, "joint", None, batch=BATCH // 2)
+    one_b8 = par_record(torch, state, run)[:2]
+    del state, run
+    pairs = {"B=16": (refs["joint"][1:3], res["joint"][:2], BATCH // 2),
+             "B=8": (one_b8, res["joint_b8"], BATCH // 4)}
+    for label, ((met_1, grads_1), (met_2, grads_2), rows) in pairs.items():
+        # the leaves the step moves (the classifier's gradient is zero)
+        rels = {n: rel_l2(torch.as_tensor(grads_2[n]),
+                          torch.as_tensor(grads_1[n]))
+                for n in grads_1 if np.any(grads_1[n])}
+        worst = max(rels, key=rels.get)
+        print(f"parallel: joint step {label}, dp=2 at {rows} rows a rank "
+              f"against one rank (not gated): loss {met_2['loss']:.6f} vs "
+              f"{met_1['loss']:.6f}, worst gradient rel L2 "
+              f"{rels[worst]:.3e} ({worst}), median "
+              f"{statistics.median(rels.values()):.3e}", flush=True)
     # ---- d. the utils -----------------------------------------------------
     state, run = par_case(torch, dev, "joint", None)
     timer = StepTimer(warmup=1)
@@ -2393,6 +2487,281 @@ def cards_only(torch) -> int:
     return 0
 
 
+def surface_phase(torch, dev, smi):
+    """15. The public surface. a: every module of dl4ss_tpu_torch imports
+    (pkgutil.walk_packages) and neither JAX nor dl4ss_tpu is loaded. b:
+    tests/test_torch_surface.py's walk of the JAX package's surface (its
+    source read as text by `ast`) finds no name unmapped and no map entry
+    stale, every counterpart resolved here. c: K2, K5, K7 and K8 with D = 1
+    at B=16, T=313, H=300, both bodies, as phase 2 holds D = 2. d: a
+    one-direction 2-layer GRU-300 and LSTM-300 stack (rnn_init(...,
+    bidirectional=False)) over torch_multi's 129 features through
+    `bidirectional_rnn(use_pallas=True)`, forward and gradients, with the
+    counts zeroed just before and read just after: one K2 + one K5 (GRU)
+    or K7 + K8 (LSTM) a layer, all on the body the rule names, held to the
+    plain loop on the card (TOL uni_rnn_*). e: native.resample_poly
+    against scipy on 5 s at 16 kHz -> 8 kHz. Returns (the D = 1 rows of
+    the `kernels` line, the launches of d)."""
+    import importlib.util
+    import pkgutil
+
+    import scipy.signal
+
+    import dl4ss_tpu_torch
+    from dl4ss_tpu_torch import native, preset
+    from dl4ss_tpu_torch.ops import rnn_kernels as k2
+    from dl4ss_tpu_torch.ops.rnn import bidirectional_rnn, rnn_init
+    t_phase = time.perf_counter()
+    print(f"surface: {smi}", flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    # ---- a. every module imports, without JAX -----------------------------
+    broken, names = {}, []
+    for info in pkgutil.walk_packages(dl4ss_tpu_torch.__path__,
+                                      "dl4ss_tpu_torch.",
+                                      onerror=lambda n: broken.setdefault(
+                                          n, "walk failed")):
+        names.append(info.name)
+        try:
+            importlib.import_module(info.name)
+        except Exception as e:          # every failure, then one verdict
+            broken[info.name] = f"{type(e).__name__}: {e}"
+    print(f"surface: {len(names)} modules of dl4ss_tpu_torch imported, "
+          f"{len(broken)} failed", flush=True)
+    if broken:
+        fail(f"modules that do not import: {broken}")
+
+    def leaked():
+        return sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "dl4ss_tpu"))
+    if leaked():
+        fail(f"the port loaded {leaked()}")
+
+    # ---- b. the surface map -------------------------------------------------
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "torch_surface", os.path.join(here, "tests", "test_torch_surface.py"))
+    surface = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(surface)
+    defs, exports = surface.jax_surface()
+    unmapped, stale = surface.surface_problems()
+    print(f"surface: {len(defs)} JAX definitions and {len(exports)} "
+          f"package exports walked, {len(surface.MAP)} map entries; "
+          f"unmapped {unmapped}, stale {stale}", flush=True)
+    if unmapped or stale or leaked():
+        fail(f"surface: unmapped {unmapped}, stale {stale}, loaded "
+             f"{leaked()}")
+
+    # ---- c. the recurrent kernels with D = 1 ------------------------------
+    cfg = preset("torch_multi")
+    H, F, T, B = cfg.hidden_units, cfg.freq_bins, cfg.num_frames, BATCH
+    rng = np.random.default_rng(SEED + 15)
+    sc = 1.0 / np.sqrt(H)
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev
+                               ).contiguous()
+
+    for backward in (False, True):
+        rule = k2.rnn_body(H, B, 1, sms=sms, backward=backward)
+        print(f"surface: rnn_body(H={H}, B={B}, directions=1) "
+              f"{'backward' if backward else 'forward'}: {rule}, "
+              f"{len(k2.resident_chunks(B, H, 1, sms))} launch(es) of "
+              f"{k2.resident_chunk_rows(H, 1, sms)} rows", flush=True)
+    xp2 = tensor(0.5 * rng.standard_normal((T, 1, B, 3 * H)))
+    wh2 = tensor(rng.uniform(-sc, sc, (1, H, 3 * H)))
+    bhn = tensor(rng.uniform(-sc, sc, (1, 1, H)))
+    xp7 = tensor(0.5 * rng.standard_normal((T, 1, B, 4 * H)))
+    wh7 = tensor(rng.uniform(-sc, sc, (1, H, 4 * H)))
+    dhs = tensor(rng.standard_normal((T, 1, B, H)))
+    errs = {"gru_fwd": check_bodies_on(
+        torch, sms, "K2 gru_fwd D=1", "gru_fwd", k2.gru_scan_cuda,
+        k2.gru_scan_plain, (xp2, wh2, bhn), ("hs",), TOL["gru_fwd"],
+        rel=False)}
+    hs = k2.gru_scan_cuda(xp2, wh2, bhn)
+    zeros = torch.zeros_like(hs[:1])
+    k5_args = (xp2, wh2, bhn, torch.cat([zeros, hs[:-1]]), dhs)
+    errs["gru_bwd"] = check_bodies_on(
+        torch, sms, "K5 gru_bwd D=1", "gru_bwd", k2.gru_scan_bwd_cuda,
+        k2.gru_scan_bwd_plain, k5_args, ("dxp", "dU", "db_n"),
+        TOL["gru_bwd"], rel=True)
+    errs["lstm_fwd"] = check_bodies_on(
+        torch, sms, "K7 lstm_fwd D=1", "lstm_fwd", k2.lstm_scan_cuda,
+        k2.lstm_scan_plain, (xp7, wh7), ("hs", "cs"), TOL["lstm_fwd"],
+        rel=False)
+    hs7, cs7 = k2.lstm_scan_cuda(xp7, wh7)
+    k8_args = (xp7, wh7, torch.cat([zeros, hs7[:-1]]),
+               torch.cat([zeros, cs7[:-1]]), cs7, dhs)
+    errs["lstm_bwd"] = check_bodies_on(
+        torch, sms, "K8 lstm_bwd D=1", "lstm_bwd", k2.lstm_scan_bwd_cuda,
+        k2.lstm_scan_bwd_plain, k8_args, ("dxp", "dU"), TOL["lstm_bwd"],
+        rel=True)
+
+    # ---- d. the one-direction stacks through the public entry point -------
+    x = tensor(np.abs(rng.standard_normal((B, T, F))))
+    cot = tensor(rng.standard_normal((B, T, H)))
+    stacks = {cell: rnn_init(cell, F, H, SURFACE_LAYERS,
+                             torch.Generator().manual_seed(SEED), device=dev,
+                             bidirectional=False)
+              for cell in ("gru", "lstm")}
+
+    def run(cell, kernels):
+        leaves = [x.clone().requires_grad_(), *stacks[cell].parameters()]
+        out = bidirectional_rnn(stacks[cell], leaves[0], cell,
+                                use_pallas=kernels)
+        grads = torch.autograd.grad((out * cot).sum(), leaves)
+        return out.detach(), grads
+
+    got = {}
+    zero_counts(torch)
+    t0 = time.perf_counter()
+    for cell in stacks:
+        got[cell] = run(cell, True)
+    torch.cuda.synchronize()
+    stack_ms = (time.perf_counter() - t0) * 1e3
+    launches, bodies = read_counts(torch)
+    print(f"surface: one-direction stacks, forward and backward, "
+          f"{stack_ms:.1f} ms (first call); launches {launches}, bodies "
+          f"{bodies}", flush=True)
+    want = {n: SURFACE_LAYERS for n in ("gru_fwd", "gru_bwd", "lstm_fwd",
+                                        "lstm_bwd")}
+    expect_counts("surface: one-direction stacks", launches,
+                  {**want, "stft_features": 0, "maskhead_fwd": 0,
+                   "masked_istft": 0})
+    for name in want:
+        rule = k2.rnn_body(H, B, 1, sms=sms, backward=name.endswith("_bwd"))
+        if bodies != {**bodies, (name, rule): SURFACE_LAYERS}:
+            fail(f"surface: {name} ran {bodies}, expected "
+                 f"{SURFACE_LAYERS} launches of the {rule} body")
+    for cell in stacks:
+        out_p, grads_p = run(cell, False)
+        out_k, grads_k = got[cell]
+        if tuple(out_k.shape) != (B, T, H) or not bool(
+                torch.isfinite(out_k).all()):
+            fail(f"surface: {cell} stack gave {tuple(out_k.shape)}, "
+                 f"finite {bool(torch.isfinite(out_k).all())}")
+        check(f"surface: one-direction {cell.upper()} stack on the kernels "
+              f"against the plain loop, output", max_err(out_k, out_p),
+              TOL["uni_rnn_fwd"])
+        names = ["input", *(n for n, _ in stacks[cell].named_parameters())]
+        rels = {n: rel_l2(g, r) for n, g, r in zip(names, grads_k, grads_p)}
+        worst = max(rels, key=rels.get)
+        print(f"surface: {cell} stack gradient rel L2 by leaf: "
+              + ", ".join(f"{n} {r:.2e}" for n, r in rels.items()),
+              flush=True)
+        for n, g, r in zip(names, grads_k, grads_p):
+            check_rel(f"surface: {cell} stack gradient of {n}", g, r,
+                      TOL["uni_rnn_bwd"])
+        print(f"surface: {cell} stack worst gradient {rels[worst]:.3e} "
+              f"({worst})", flush=True)
+
+    # ---- the D = 1 rows of the kernels line ---------------------------------
+    gru = torch.nn.GRU(H, H, batch_first=True).to(dev)
+    lstm = torch.nn.LSTM(H, H, batch_first=True).to(dev)
+    lib_x = torch.randn((B, T, H), device=dev, requires_grad=True)
+    lib = {}
+    for name, mod in (("gru", gru), ("lstm", lstm)):
+        out, _ = mod(lib_x)
+        lib[name] = (out, [lib_x, *mod.parameters()], torch.randn_like(out))
+    hp8, cp8 = k8_args[2], k8_args[3]
+    rows = {
+        "gru_fwd": dict(
+            source="dl4ss_tpu_torch/csrc/gru_fwd.cu",
+            replaces="dl4ss_tpu/ops/pallas_rnn.py:104",
+            kernel=lambda: k2.gru_scan_cuda(xp2, wh2, bhn),
+            plain=lambda: k2.gru_scan_plain(xp2, wh2, bhn),
+            library=lambda: gru(lib_x.detach()),
+            bytes=4 * (xp2.numel() + wh2.numel() + bhn.numel() + T * B * H),
+            t_ops=T * B * (2 * H * 3 * H + 12 * H) / F32_FLOPS, iters=(20, 3)),
+        "gru_bwd": dict(
+            source="dl4ss_tpu_torch/csrc/gru_bwd.cu",
+            replaces="dl4ss_tpu/ops/pallas_rnn.py:164",
+            kernel=lambda: k2.gru_scan_bwd_cuda(*k5_args),
+            plain=lambda: k2.gru_scan_bwd_plain(*k5_args),
+            library=lambda: torch.autograd.grad(
+                lib["gru"][0], lib["gru"][1], lib["gru"][2],
+                retain_graph=True),
+            bytes=4 * (2 * xp2.numel() + 2 * hs.numel() + 2 * wh2.numel()
+                       + 2 * bhn.numel()),
+            t_ops=T * B * (3 * 2 * H * 3 * H + 30 * H) / F32_FLOPS,
+            iters=(10, 2)),
+        "lstm_fwd": dict(
+            source="dl4ss_tpu_torch/csrc/lstm_fwd.cu",
+            replaces="dl4ss_tpu/ops/pallas_rnn.py:257",
+            kernel=lambda: k2.lstm_scan_cuda(xp7, wh7),
+            plain=lambda: k2.lstm_scan_plain(xp7, wh7),
+            library=lambda: lstm(lib_x.detach()),
+            bytes=4 * (xp7.numel() + wh7.numel() + 2 * T * B * H),
+            t_ops=T * B * (2 * H * 4 * H + 25 * H) / F32_FLOPS, iters=(20, 3)),
+        "lstm_bwd": dict(
+            source="dl4ss_tpu_torch/csrc/lstm_bwd.cu",
+            replaces="dl4ss_tpu/ops/pallas_rnn.py:316",
+            kernel=lambda: k2.lstm_scan_bwd_cuda(*k8_args),
+            plain=lambda: k2.lstm_scan_bwd_plain(*k8_args),
+            library=lambda: torch.autograd.grad(
+                lib["lstm"][0], lib["lstm"][1], lib["lstm"][2],
+                retain_graph=True),
+            bytes=4 * (2 * xp7.numel() + hp8.numel() + cp8.numel()
+                       + cs7.numel() + dhs.numel() + 2 * wh7.numel()),
+            t_ops=T * B * (3 * 2 * H * 4 * H + 45 * H) / F32_FLOPS,
+            iters=(10, 2)),
+    }
+    kernels = []
+    for name, r in rows.items():
+        k_iters, p_iters = r["iters"]
+        ms = device_ms(torch, r["kernel"], k_iters)
+        plain_ms = device_ms(torch, r["plain"], p_iters)
+        lib_ms = device_ms(torch, r["library"], 10)
+        bound_ms, bound_by = bound(r["bytes"], r["t_ops"])
+        kernels.append(dict(
+            name=f"{name}_d1", route="cuda", source=r["source"],
+            replaces=r["replaces"], launches=launches[name],
+            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+        print(f"time {name} D=1 B={B}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (one-direction "
+              f"nn.{'GRU' if 'gru' in name else 'LSTM'}), bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+
+    # ---- e. the native resampler against scipy ----------------------------
+    wav16 = rng.standard_normal(5 * 16000).astype(np.float32)
+    t0 = time.perf_counter()
+    ours = native.resample_poly(wav16, 1, 2)
+    res_ms = (time.perf_counter() - t0) * 1e3
+    ref = scipy.signal.resample_poly(
+        wav16.astype(np.float64), 1, 2,
+        window=("kaiser", native.KAISER_BETA)).astype(np.float32)
+    if ours.shape != ref.shape:
+        fail(f"native.resample_poly gave {ours.shape}, scipy {ref.shape}")
+    check(f"native.resample_poly 5 s 16 kHz -> 8 kHz ({ours.shape[0]} "
+          f"samples, {res_ms:.2f} ms on the host, first call after the "
+          f"build) against scipy", float(np.abs(ours - ref).max()),
+          TOL["resample"])
+    print(f"surface: phase 15 {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return kernels, launches
+
+
+def surface_only(torch) -> int:
+    """`chip_smoke.py --surface`: the kernels' build and phase 15 alone,
+    then its kernel rows and the card's line."""
+    from dl4ss_tpu_torch import resolve_device
+    from dl4ss_tpu_torch.ops import cuda_lib
+    dev = resolve_device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    t0 = time.perf_counter()
+    cuda_lib.library()
+    kernels, _ = surface_phase(torch, dev, smi)
+    print(f"surface: {time.perf_counter() - t0:.1f} s with the build",
+          flush=True)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    return 0
+
+
 def main(argv=None) -> int:
     import torch
     argv = sys.argv[1:] if argv is None else argv
@@ -2410,9 +2779,12 @@ def main(argv=None) -> int:
         return parallel_only(torch)
     if argv == ["--cards"]:
         return cards_only(torch)
+    if argv == ["--surface"]:
+        return surface_only(torch)
     if argv:
         print("usage: chip_smoke.py [--learning STEPS | --rehearsal | "
-              "--generations | --parallel | --cards]", file=sys.stderr)
+              "--generations | --parallel | --cards | --surface]",
+              file=sys.stderr)
         return 2
     from dl4ss_tpu_torch import preset, resolve_device
     from dl4ss_tpu_torch.models import init_separator
@@ -2507,45 +2879,8 @@ def main(argv=None) -> int:
     if k14.BODY_LAUNCHES["stft_features", k14.BODY_DIRECT] != before + 1:
         fail("L=96 did not run the direct body")
 
-    def check_bodies(label, name, cuda, plain, args, outs, tol, rel):
-        """K2, K5, K7 or K8: the body the shape rule names (it must be the
-        one a default call launches) and the other one where it can run,
-        each against the plain version (max abs error, or relative L2 where
-        `rel`); the resident body against the stepwise one and against a
-        second call of itself. Returns the rule's body's max abs error."""
-        hidden = args[1].shape[1]          # wh (D, H, NG * H)
-        rule = k2.rnn_body(hidden, args[0].shape[2], sms=SMS,
-                           backward=name.endswith("_bwd"))
-
-        def outputs(fn, **kw):          # K2 returns hs alone
-            res = fn(*args, **kw)
-            return (res,) if isinstance(res, torch.Tensor) else res
-
-        def gate(what, g, r):
-            return (check_rel(what, g, r, tol) if rel
-                    else check(what, max_err(g, r), tol))
-        ref = outputs(plain)
-        before = k2.BODY_LAUNCHES[name, rule]
-        got = {rule: outputs(cuda)}
-        if k2.BODY_LAUNCHES[name, rule] != before + 1:
-            fail(f"{label}: the default call did not run the {rule} body")
-        if rule == k2.BODY_RESIDENT:
-            got[k2.BODY_STEPWISE] = outputs(cuda, body=k2.BODY_STEPWISE)
-        elif hidden <= k2.RESIDENT_MAX_HIDDEN:
-            got[k2.BODY_RESIDENT] = outputs(cuda, body=k2.BODY_RESIDENT)
-        worst = {body: max(gate(f"{label} {body} body {what}", g, r)
-                           for what, g, r in zip(outs, res, ref))
-                 for body, res in got.items()}
-        if len(got) == 2:
-            res = got[k2.BODY_RESIDENT]
-            for what, g, r in zip(outs, res, got[k2.BODY_STEPWISE]):
-                gate(f"{label} resident against stepwise {what}", g, r)
-            for what, g, g2 in zip(outs, res,
-                                   outputs(cuda, body=k2.BODY_RESIDENT)):
-                if not torch.equal(g, g2):
-                    fail(f"{label}: two resident calls in a row differ in "
-                         f"{what}")
-        return worst[rule]
+    def check_bodies(*args, **kwargs):
+        return check_bodies_on(torch, SMS, *args, **kwargs)
 
     # K2 at the serving shapes (T=313, D=2, H=300): B=16 in f32 and bf16,
     # a B=1 request, and B=32, which the resident body takes in two
@@ -3657,6 +3992,8 @@ def main(argv=None) -> int:
         gen_launches = generations_phase(torch, dev, tmp)
         # ---- 14. parallel and utils --------------------------------------
         par_launches = parallel_phase(torch, dev, tmp)
+    # ---- 15. the public surface ---------------------------------------------
+    surface_kernels, _ = surface_phase(torch, dev, smi)
 
     for row in kernels:
         # the kernel's launches on the tdaa paths (phase 10), beside those
@@ -3670,6 +4007,9 @@ def main(argv=None) -> int:
         row["gen_launches"] = gen_launches.get(name, 0)
         # and on the parallel paths (phase 14: --dp auto, both dp=2 ranks)
         row["par_launches"] = par_launches.get(name, 0)
+    # the D = 1 rows (phase 15): their launches are the one-direction
+    # stacks' of phase 15 alone
+    kernels += surface_kernels
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

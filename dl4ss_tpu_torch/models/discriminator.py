@@ -29,9 +29,10 @@ def _out_hw(t: int, f: int) -> Tuple[int, int]:
 
 class Discriminator(nn.Module):
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None,
-                 device=None):
+                 device=None, num_frames: Optional[int] = None):
         super().__init__()
-        th, fw = _out_hw(cfg.num_frames, cfg.freq_bins)
+        t = num_frames if num_frames is not None else cfg.num_frames
+        th, fw = _out_hw(t, cfg.freq_bins)
         self.conv0 = conv_init(1, 64, 3, 3, generator, device=device)
         self.conv1 = conv_init(64, 64, 3, 3, generator, device=device)
         self.conv2 = conv_init(64, 64, 3, 3, generator, device=device)
@@ -41,9 +42,12 @@ class Discriminator(nn.Module):
 
 def init_discriminator(cfg: Config,
                        generator: Optional[torch.Generator] = None,
-                       device=None) -> Discriminator:
-    """On `device`: `cuda` unless the caller passes device='cpu'."""
-    return Discriminator(cfg, generator, device)
+                       device=None, num_frames: Optional[int] = None
+                       ) -> Discriminator:
+    """On `device`: `cuda` unless the caller passes device='cpu'. Its
+    output layer is sized for spectrograms of `num_frames` frames
+    (default cfg.num_frames)."""
+    return Discriminator(cfg, generator, device, num_frames)
 
 
 def apply_discriminator(params: Discriminator, specs: torch.Tensor,

@@ -112,6 +112,13 @@ def memory_write_slot(state: MemorySlots, spk_idx: torch.Tensor,
     return MemorySlots(_with_slot(state.vectors, slot, new), age)
 
 
+def memory_write(state: MemorySlots, spk_idx: torch.Tensor,
+                 vec: torch.Tensor, slot: int = SLOT_SPEECH,
+                 mode: str = "keras") -> MemorySlots:
+    """`memory_write_slot` on one device (JAX `memory_write`)."""
+    return memory_write_slot(state, spk_idx, vec, slot, mode)
+
+
 def memory_read(state: MemorySlots, spk_idx: torch.Tensor,
                 slot: int = SLOT_SPEECH) -> torch.Tensor:
     """SelectSpkMemory gather (extend_layers.py:188-216): (B,) -> (B, D)."""

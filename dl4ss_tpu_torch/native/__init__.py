@@ -6,6 +6,8 @@ At first use `loader.cc` compiles with `g++` into
 the flags, and loads with `ctypes`. Nothing builds at import. A failed build
 raises with the compiler's output: nothing falls back to the numpy loader
 (`data.dirtree._load_fixed`, the plain version the tests hold this one to).
+`available()` and `build_error()` report the build, as JAX's do; no caller
+in the port branches on them.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import numpy as np
 SOURCE = Path(__file__).resolve().parent / "loader.cc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+# resampy's kaiser_best beta, as loader.cc's loads use it
+KAISER_BETA = 14.769656459379492
 
 
 def _build(out_dir: Path, cxx: str) -> None:
@@ -63,6 +67,7 @@ def library() -> ctypes.CDLL:
     f, i, p = ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_char_p
     sigs = {
         "dl4ss_decode_wav": [p, f, i, ctypes.POINTER(ctypes.c_int)],
+        "dl4ss_resample_poly": [f, i, i, i, ctypes.c_double, f, i],
         "dl4ss_load_utterance": [p, i, i, i, f],
         "dl4ss_load_batch": [p, i, i, i, i, i, f],
     }
@@ -71,6 +76,21 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def build_error() -> Optional[str]:
+    """Why `library()` cannot build or load (the compiler's output, or the
+    loader's error), or None when it can."""
+    try:
+        library()
+    except (RuntimeError, OSError) as e:
+        return str(e)
+    return None
+
+
+def available() -> bool:
+    """Whether `library()` builds and loads."""
+    return build_error() is None
 
 
 def _fptr(a: np.ndarray):
@@ -92,6 +112,22 @@ def decode_wav(path) -> Tuple[np.ndarray, int]:
         n = lib.dl4ss_decode_wav(str(path).encode(), _fptr(out), n,
                                  ctypes.byref(rate))
     return out[:n].copy(), rate.value
+
+
+def resample_poly(x: np.ndarray, up: int, down: int,
+                  beta: float = KAISER_BETA) -> np.ndarray:
+    """Polyphase resample of a mono signal by up / down with a Kaiser
+    window of `beta` (scipy.signal.resample_poly's filter, summed in
+    float64): float32 of length ceil(len(x) * up / down). Raises
+    ValueError if the library reports its output buffer too small."""
+    x = np.ascontiguousarray(x, np.float32)
+    cap = int(len(x) * up / down) + 8
+    out = np.empty(cap, np.float32)
+    n = library().dl4ss_resample_poly(_fptr(x), len(x), up, down, beta,
+                                      _fptr(out), cap)
+    if n < 0:
+        raise ValueError("native resample buffer overflow")
+    return out[:n].copy()
 
 
 def load_utterance(path, target_rate: int, max_len: int,

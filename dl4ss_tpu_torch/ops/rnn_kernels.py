@@ -7,7 +7,13 @@ with their custom VJPs. `gru_scan` and `lstm_scan` are
 PyTorch loop and a CUDA tensor to the hand-written kernel (csrc/gru_fwd.cu,
 csrc/lstm_fwd.cu), the backward likewise to the plain reverse loop or to
 csrc/gru_bwd.cu, csrc/lstm_bwd.cu; there is no fallback between them.
-Unlike the TPU kernels, the hidden width needs no 128-lane padding.
+Unlike the TPU kernels, the hidden width needs no 128-lane padding. The
+direction count D is the operands' second axis: 2 for a bidirectional
+layer, 1 for a one-direction one (`rnn_init(..., bidirectional=False)`).
+The kernels take either: each direction is a barrier group of its own,
+and the time order is the caller's (the reverse direction is flipped
+outside), so D only sizes the grid, the tickets and the rows a resident
+launch holds.
 
 All four kernels have two bodies each. The resident one walks the whole
 chain of T steps in ONE persistent cooperative launch (per chunk of batch

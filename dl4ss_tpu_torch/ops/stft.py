@@ -159,29 +159,44 @@ def _trim(ola: torch.Tensor, t: int, frame_length: int, frame_shift: int,
 # ---------------------------------------------------------------------------
 
 
+def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b accumulated in f32 with an f32 result, for operands in any
+    float dtype (JAX's preferred_element_type=f32): a product of two bf16
+    values is exact in f32, so the upcast operands give the same sums."""
+    return torch.matmul(a.float(), b.float())
+
+
 def stft(x: torch.Tensor, frame_length: int = 256, frame_shift: int = 128,
-         window: str = "hann", center: bool = True) -> torch.Tensor:
-    """Batched STFT. (..., N) f32 -> complex64 (..., T, F)."""
+         window: str = "hann", center: bool = True,
+         dtype=torch.float32) -> torch.Tensor:
+    """Batched STFT. (..., N) -> complex64 (..., T, F). The frames, the
+    window and the DFT table are in `dtype` (their product rounded to it),
+    the DFT accumulated in f32."""
     tab = dsp_tables(frame_length, window, x.device)
-    frames = frame_signal(x.float(), frame_length, frame_shift, center)
-    ri = torch.matmul(frames * tab.win, tab.dft)
+    frames = frame_signal(x.to(dtype), frame_length, frame_shift, center)
+    ri = _f32_product(frames * tab.win.to(dtype), tab.dft.to(dtype))
     bins = frame_length // 2 + 1
     return torch.complex(ri[..., :bins], ri[..., bins:])
 
 
 def istft(spec: torch.Tensor, frame_length: int = 256, frame_shift: int = 128,
           window: str = "hann", center: bool = True,
-          length: Optional[int] = None) -> torch.Tensor:
+          length: Optional[int] = None, dtype=torch.float32) -> torch.Tensor:
     """Batched iSTFT with window-square normalisation (librosa semantics).
 
     complex (..., T, F) -> (..., length); length defaults to (T-1)*hop for
-    center=True (librosa's trimmed output).
+    center=True (librosa's trimmed output). The spectrum's halves, the
+    inverse DFT table and the window are in `dtype`, the inverse DFT
+    accumulated in f32 and the overlap-add in f32; the window-square sum
+    runs in `dtype`, as in JAX.
     """
     t = spec.shape[-2]
     tab = dsp_tables(frame_length, window, spec.device)
-    ri = torch.cat([spec.real, spec.imag], dim=-1).float()
-    ola = overlap_add(torch.matmul(ri, tab.idft) * tab.win, frame_shift)
-    wsum = overlap_add((tab.win ** 2).expand(t, frame_length), frame_shift)
+    win = tab.win.to(dtype)
+    ri = torch.cat([spec.real, spec.imag], dim=-1).to(dtype)
+    ola = overlap_add(_f32_product(ri, tab.idft.to(dtype)) * win,
+                      frame_shift)
+    wsum = overlap_add((win ** 2).expand(t, frame_length), frame_shift)
     ola = torch.where(wsum > 1e-10, ola / torch.clamp(wsum, min=1e-10), ola)
     return _trim(ola, t, frame_length, frame_shift, center, length)
 

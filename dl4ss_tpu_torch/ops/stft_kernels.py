@@ -89,6 +89,16 @@ def stft_features(x: torch.Tensor, frame_length: int = 256,
                                feat_dtype)
 
 
+def spectral_feature_kernel(wav: torch.Tensor, frame_length: int = 256,
+                            frame_shift: int = 128, window: str = "hann"
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, N) f32 -> (|STFT| (B, T, F), packed spectrum (B, T, F, 2) with
+    Re and Im on the last axis): `stft_features` (K1 on the card) with the
+    halves stacked, JAX's `pallas_spectral_feature`."""
+    mag, re, im = stft_features(wav, frame_length, frame_shift, window)
+    return mag, torch.stack([re, im], dim=-1)
+
+
 def stft_features_plain(xpad: torch.Tensor, frame_length: int,
                         frame_shift: int, window: str, feat_dtype):
     """K1's plain version on the padded signal (B, Np)."""

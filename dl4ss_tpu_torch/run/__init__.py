@@ -13,3 +13,6 @@
                                             wav directory (bss_test.cal)
   python -m dl4ss_tpu_torch.run.analyze   — PCA of the speaker embeddings
 """
+
+from dl4ss_tpu_torch.run.common import (  # noqa: F401
+    add_common_args, build_cfg, load_bank)

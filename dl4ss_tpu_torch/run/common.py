@@ -68,17 +68,18 @@ def build_cfg(args) -> Config:
     return apply_overrides(preset(args.preset), args).validate()
 
 
-def load_bank(cfg: Config, args, device: torch.device):
+def load_bank(cfg: Config, args, device: torch.device,
+              utts_per_speaker: int = 8):
     """(the (S, U, N) bank on `device`, `cfg` with the bank's speaker
     count, {row: speaker name}): the speaker tree under --data-root
     (--split, --utts utterances a speaker from --utts-from) or the
-    synthetic bank from --seed, with --utts utterances a speaker
-    (default 8)."""
-    utts = args.utts or 8
+    synthetic bank from --seed, with --utts utterances a speaker where the
+    arguments give it, else `utts_per_speaker`."""
+    utts = getattr(args, "utts", None) or utts_per_speaker
     if args.data_root:
         from dl4ss_tpu_torch.data.dirtree import DirTreeSampler
         sampler = DirTreeSampler(args.data_root, cfg, args.split, utts,
-                                 utts_offset=args.utts_from)
+                                 utts_offset=getattr(args, "utts_from", 0))
         cfg = cfg.replace(num_speakers=sampler.num_speakers)
         return (torch.as_tensor(sampler.bank, device=device), cfg,
                 sampler.idx2spk)

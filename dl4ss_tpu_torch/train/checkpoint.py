@@ -178,7 +178,7 @@ def restore_checkpoint(directory: str, template: TrainState,
     template.opt_state = adam(payload["opt_state"])
     if hasattr(template, "d_opt_state"):
         template.d_opt_state = adam(payload["d_opt_state"])
-    if hasattr(template, "memory"):
+    if getattr(template, "memory", None) is not None:
         template.memory = _memory(payload, template, directory)
     template.step = int(payload["step"])
     template.generator.set_state(payload["generator"].cpu())

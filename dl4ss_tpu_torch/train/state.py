@@ -18,6 +18,8 @@ from typing import Callable, List, Optional, Union
 import torch
 
 from dl4ss_tpu_torch.config import Config
+from dl4ss_tpu_torch.models.memory import (MemorySlots, init_memory,
+                                           memory_rows)
 from dl4ss_tpu_torch.models.separator import Separator, init_separator
 
 
@@ -33,13 +35,15 @@ class TrainState:
     """Everything a training step carries: the step counter, the model
     (its parameters are the f32 masters), the optimizer state of the
     generator's parameters (every subtree but the discriminator), the
-    generator that draws the batches (the JAX state's PRNG key) and, when
-    the model has a discriminator, its own optimizer state."""
+    generator that draws the batches (the JAX state's PRNG key), when the
+    model has a discriminator its own optimizer state, and the speaker
+    memory where the state was built with one."""
     step: int
     model: Separator
     opt_state: AdamState
     generator: torch.Generator
     d_opt_state: Optional[AdamState] = None
+    memory: Optional[MemorySlots] = None
 
 
 def generator_params(model: Separator) -> List[torch.Tensor]:
@@ -154,19 +158,26 @@ def make_optimizer(cfg: Config, steps_per_epoch: int = 1) -> Optimizer:
 
 
 def create_train_state(cfg: Config, seed: int = 1, steps_per_epoch: int = 1,
-                       device=None, model: Optional[Separator] = None
-                       ) -> TrainState:
-    """A fresh state: the separator from `seed` (or the given model), zero
-    moments for the generator's parameters (and for the discriminator's,
-    under cfg.use_discriminator), step 0, and the batch generator seeded
-    from seed + 1."""
+                       device=None, model: Optional[Separator] = None,
+                       num_frames: Optional[int] = None,
+                       with_memory: bool = False) -> TrainState:
+    """A fresh state: the separator from `seed` (or the given model), its
+    discriminator sized for `num_frames` frames (default cfg.num_frames),
+    zero moments for the generator's parameters (and for the
+    discriminator's, under cfg.use_discriminator), step 0, the batch
+    generator seeded from seed + 1 and, `with_memory`, an empty speaker
+    memory of memory_rows(cfg) rows of cfg.query_dim."""
     if model is None:
         model = init_separator(cfg, torch.Generator().manual_seed(seed),
-                               device)
+                               device, num_frames)
     opt = make_optimizer(cfg, steps_per_epoch)
     d_opt_state = (opt.init(discriminator_params(model))
                    if cfg.use_discriminator else None)
+    memory = None
+    if with_memory:
+        memory = init_memory(memory_rows(cfg), cfg.query_dim,
+                             next(model.parameters()).device)
     return TrainState(step=0, model=model,
                       opt_state=opt.init(generator_params(model)),
                       generator=torch.Generator().manual_seed(seed + 1),
-                      d_opt_state=d_opt_state)
+                      d_opt_state=d_opt_state, memory=memory)

@@ -338,7 +338,8 @@ def _check_bodies(k, name, cuda, plain, args, h, tol, body, outs,
     from dl4ss_tpu_torch.ops import cuda_lib
     rtol = tol if rtol is None else rtol
     sms = torch.cuda.get_device_properties(args[0].device)
-    rule = k.rnn_body(h, args[0].shape[2], sms=sms.multi_processor_count,
+    rule = k.rnn_body(h, args[0].shape[2], args[0].shape[1],
+                      sms=sms.multi_processor_count,
                       backward=name.endswith("_bwd"))
     if body == "resident" and h > k.RESIDENT_MAX_HIDDEN:
         assert rule == "stepwise"
@@ -409,6 +410,43 @@ def test_k7_lstm_fwd_bodies(dev, t, b, h, dtype, tol, body):
             _t(rng.uniform(-s, s, (2, h, 4 * h)), dev, dtype))
     _check_bodies(k, "lstm_fwd", k.lstm_scan_cuda, k.lstm_scan_plain, args,
                   h, tol, body, ("hs", "cs"), rtol=0)
+
+
+# one-direction layers (D = 1): at H=300 one launch of the resident body
+# takes 40 rows on 132 SMs (10 tiles of 13 blocks), so B=44 takes two
+@pytest.mark.parametrize("t,b,h", [(7, 1, 37), (5, 17, 300), (3, 44, 300)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("body", ["resident", "stepwise"])
+def test_one_direction_kernels(dev, t, b, h, cell, body):
+    """K2 and K5 (GRU) or K7 and K8 (LSTM) with D = 1, the layout of a
+    one-direction layer, both bodies, against the plain versions in f32
+    (summation order only: 1e-4), the backward on the forward's own
+    states."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    rng = np.random.default_rng(18)
+    s = 1 / np.sqrt(h)
+    gates = 3 if cell == "gru" else 4
+    xp = _t(0.5 * rng.standard_normal((t, 1, b, gates * h)), dev)
+    wh = _t(rng.uniform(-s, s, (1, h, gates * h)), dev)
+    dhs = _t(rng.standard_normal((t, 1, b, h)), dev)
+    zeros = torch.zeros((1, 1, b, h), device=dev)
+    if cell == "gru":
+        bhn = _t(rng.uniform(-s, s, (1, 1, h)), dev)
+        _check_bodies(k, "gru_fwd", k.gru_scan_cuda, k.gru_scan_plain,
+                      (xp, wh, bhn), h, 1e-4, body, ("hs",), rtol=0)
+        hs = k.gru_scan_plain(xp, wh, bhn)
+        _check_bodies(k, "gru_bwd", k.gru_scan_bwd_cuda,
+                      k.gru_scan_bwd_plain,
+                      (xp, wh, bhn, torch.cat([zeros, hs[:-1]]), dhs), h,
+                      1e-4, body, ("dxp", "dU", "db_n"))
+        return
+    _check_bodies(k, "lstm_fwd", k.lstm_scan_cuda, k.lstm_scan_plain,
+                  (xp, wh), h, 1e-4, body, ("hs", "cs"), rtol=0)
+    hs, cs = k.lstm_scan_plain(xp, wh)
+    _check_bodies(k, "lstm_bwd", k.lstm_scan_bwd_cuda, k.lstm_scan_bwd_plain,
+                  (xp, wh, torch.cat([zeros, hs[:-1]]),
+                   torch.cat([zeros, cs[:-1]]), cs, dhs), h, 1e-4, body,
+                  ("dxp", "dU"))
 
 
 def test_k2_k7_refuse_a_drifted_ticket_count(dev, monkeypatch):

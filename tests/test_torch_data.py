@@ -122,6 +122,63 @@ def test_native_loader_failures_raise(tmp_path, monkeypatch):
         native.library.cache_clear()
 
 
+@pytest.mark.parametrize("up,down,n", [(1, 2, 4000), (2, 1, 1000),
+                                       (2, 3, 1001)])
+def test_native_resample_poly_matches_jax_and_scipy(up, down, n):
+    """`native.resample_poly` (the port's binding of its loader.cc) against
+    the JAX package's binding of its own: bit-equal; against
+    scipy.signal.resample_poly with the same Kaiser window in float64:
+    5e-5 (tests/test_native.py's bar), the same output length."""
+    import scipy.signal
+    x = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    ours = native.resample_poly(x, up, down)
+    np.testing.assert_array_equal(ours, jax_native.resample_poly(x, up,
+                                                                 down))
+    ref = scipy.signal.resample_poly(
+        x.astype(np.float64), up, down,
+        window=("kaiser", native.KAISER_BETA)).astype(np.float32)
+    assert ours.dtype == np.float32 and ours.shape == ref.shape
+    np.testing.assert_allclose(ours, ref, atol=5e-5)
+
+
+def test_native_available_and_build_error_report_the_build(tmp_path,
+                                                           monkeypatch):
+    """`available()` / `build_error()` as JAX's: True and None where the
+    library builds; False and the compiler's output where it does not."""
+    assert native.available() and native.build_error() is None
+    bad = tmp_path / "loader.cc"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOURCE", bad)
+    monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "_build")
+    native.library.cache_clear()
+    try:
+        assert not native.available()
+        assert "native loader build failed" in native.build_error()
+    finally:
+        native.library.cache_clear()
+
+
+@pytest.mark.parametrize("utts,tree", [(None, False), (2, False),
+                                       (None, True)])
+def test_load_bank_utts_per_speaker_matches_jax(corpus, utts, tree):
+    """`run.common.load_bank(..., utts_per_speaker=3)` as JAX's: 3
+    utterances a speaker unless --utts gives a count, which wins; from the
+    synthetic bank or a speaker tree, the same bank, speaker count and
+    names."""
+    import argparse
+    from dl4ss_tpu.run.common import load_bank as jax_load_bank
+    from dl4ss_tpu_torch.run.common import load_bank
+    cfg_j, cfg_t = _cfgs()
+    args = argparse.Namespace(
+        seed=4, utts=utts, utts_from=0, split="si_tr_s",
+        data_root=os.path.join(corpus, "wsj0") if tree else None)
+    bank, cfg, names = load_bank(cfg_t, args, "cpu", utts_per_speaker=3)
+    ref, ref_cfg, ref_names = jax_load_bank(cfg_j, args, utts_per_speaker=3)
+    assert bank.shape[1] == (utts or 3)
+    np.testing.assert_array_equal(bank.numpy(), np.asarray(ref))
+    assert (cfg.num_speakers, names) == (ref_cfg.num_speakers, ref_names)
+
+
 def test_dirtree_bank_equals_jax_and_held_out_slice_refuses_to_wrap(corpus):
     cfg_j, cfg_t = _cfgs()
     root = os.path.join(corpus, "wsj0")

@@ -131,6 +131,50 @@ def test_memory_write_and_read_match_jax(mode):
         atol=1e-6, rtol=0)
 
 
+def test_memory_write_alias_matches_jax():
+    """`memory_write`, JAX's alias of `memory_write_slot` at the speech
+    slot in keras mode, with a duplicate speaker: 1e-6, ages equal."""
+    rng = np.random.default_rng(5)
+    vec, age = _random_memory(rng)
+    spk = np.array([0, 3, 0], np.int32)
+    incoming = rng.standard_normal((3, 4)).astype(np.float32)
+    ref = jmem.memory_write(jmem.MemorySlots(jnp.asarray(vec),
+                                             jnp.asarray(age)),
+                            jnp.asarray(spk), jnp.asarray(incoming))
+    ours = tmem.memory_write(tmem.MemorySlots(torch.as_tensor(vec),
+                                              torch.as_tensor(age)),
+                             torch.as_tensor(spk), torch.as_tensor(incoming))
+    np.testing.assert_allclose(ours.vectors.numpy(), np.asarray(ref.vectors),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(ours.age.numpy(), np.asarray(ref.age))
+
+
+def test_train_state_with_memory_matches_jax_and_checkpoints(tmp_path):
+    """`create_train_state(with_memory=True)` holds an empty speaker memory
+    of memory_rows(cfg) x 3 slots x cfg.query_dim (the unk row with
+    cfg.unk_spk), as JAX's state does; without it, none. A write into it
+    survives a checkpoint's save and restore."""
+    from dl4ss_tpu.train.state import create_train_state as jax_state
+    from dl4ss_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                  save_checkpoint)
+    from dl4ss_tpu_torch.train.state import create_train_state
+    cfg_j = jax_preset("cocktail_debug").replace(**SMALL)
+    cfg_t = preset("cocktail_debug").replace(**SMALL)
+    ref = jax_state(jax.random.PRNGKey(0), cfg_j, with_memory=True).memory
+    state = create_train_state(cfg_t, device="cpu", with_memory=True)
+    assert state.memory.vectors.shape == ref.vectors.shape == (7, 3, 8)
+    for ours, want in zip(state.memory, ref):
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(want))
+        assert ours.numpy().dtype == np.asarray(want).dtype
+    assert create_train_state(cfg_t, device="cpu").memory is None
+    state.memory = tmem.memory_write(state.memory, torch.tensor([2]),
+                                     torch.ones((1, 8)))
+    save_checkpoint(str(tmp_path), state)
+    back = restore_checkpoint(str(tmp_path), create_train_state(
+        cfg_t, seed=9, device="cpu", with_memory=True))
+    assert all(torch.equal(a, b) for a, b in zip(back.memory, state.memory))
+
+
 def test_memory_reset_extend_and_converter_match_jax():
     rng = np.random.default_rng(1)
     vec, age = _random_memory(rng)

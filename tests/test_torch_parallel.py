@@ -119,20 +119,20 @@ def test_loops_validate_the_layout(loop, dp, match):
                               epoch_size=1, device="cpu")
 
 
-def _with_ranks(rank_fn, args, jax_fn):
-    """(jax_fn(), rank 0's result of rank_fn(*args) on two gloo ranks): the
-    ranks run while JAX compiles and runs its step."""
+def _with_ranks(rank_fn, args, jax_fn, world=2):
+    """(jax_fn(), rank 0's result of rank_fn(*args) on `world` gloo ranks):
+    the ranks run while JAX compiles and runs its step."""
     with ThreadPoolExecutor(1) as pool:
-        ranks = pool.submit(run_ranks, rank_fn, 2, args,
+        ranks = pool.submit(run_ranks, rank_fn, world, args,
                             timeout=RANKS_TIMEOUT)
         ref = jax_fn()
         return ref, ranks.result()
 
 
-def _jax_on_mesh(step_module, make_step, state_j, feats):
-    """A JAX step on a dp=2 mesh of two of the CPU devices: the state
+def _jax_on_mesh(step_module, make_step, state_j, feats, dp=2):
+    """A JAX step on a dp-way mesh of the CPU devices: the state
     replicated, the batch sharded over `data`."""
-    mesh = jax_make_mesh(dp=2, mp=1)
+    mesh = jax_make_mesh(dp=dp, mp=1)
     state = jax.tree_util.tree_map(
         lambda x: jax.device_put(x, jax_replicated(mesh)), state_j)
     feats = jax_shard_batch({k: jnp.asarray(v) for k, v in feats.items()},
@@ -141,26 +141,41 @@ def _jax_on_mesh(step_module, make_step, state_j, feats):
         return jax_step(step_module, make_step, state, feats)
 
 
-def test_dp2_joint_step_matches_jax_dp2_mesh():
-    """One joint step (f32) on two ranks, each on its half of a B=4 batch,
-    against JAX's on a dp=2 mesh from the same parameters and batch:
-    loss and grad norm 1e-5 relative; every gradient after the
+def _joint_step_against_jax_mesh(dp, rows):
+    """One joint step (f32) on `dp` ranks, each on its `rows` rows of the
+    batch, against JAX's on a dp-way mesh from the same parameters and
+    batch: loss and grad norm 1e-5 relative; every gradient after the
     all-reduce and every update within torch_step_parity's gates."""
-    cfg_j = jax_preset("synth_tiny").replace(batch_size=4)
-    cfg_t = preset("synth_tiny").replace(batch_size=4)
+    cfg_j = jax_preset("synth_tiny").replace(batch_size=dp * rows)
+    cfg_t = preset("synth_tiny").replace(batch_size=dp * rows)
     state_j = jax_state(jax.random.PRNGKey(0), cfg_j)
     bank = jnp.asarray(jax_bank(0, cfg_j.num_speakers, 2, cfg_j.max_len))
     feats = {k: np.array(v) for k, v in jax_featurize(
         jax_sample(jax.random.PRNGKey(1), bank, cfg_j), cfg_j).items()}
     before = dict(flatten_tree(np_tree(state_j.params)))
     ((new_j, met_j), grads_j), (new_t, met_t, grads_t) = _with_ranks(
-        workers.joint_step, (cfg_t, np_tree(state_j.params), feats),
+        workers.joint_step, (cfg_t, np_tree(state_j.params), feats, dp),
         lambda: _jax_on_mesh(jsteps, lambda: jsteps.make_train_step(cfg_j),
-                             state_j, feats))
+                             state_j, feats, dp), world=dp)
     for key in ("loss", "mask_loss", "grad_norm"):
         assert abs(met_t[key] - float(met_j[key])) \
             <= 1e-5 * abs(float(met_j[key])), key
     assert_step_matches(before, new_j.params, new_t.model, grads_j, grads_t)
+
+
+def test_dp2_joint_step_matches_jax_dp2_mesh():
+    """Two ranks, each on its half of a B=4 batch, against JAX's dp=2 mesh
+    (`_joint_step_against_jax_mesh`'s gates)."""
+    _joint_step_against_jax_mesh(dp=2, rows=2)
+
+
+def test_dp4_joint_step_matches_jax_dp4_mesh():
+    """Four ranks at B=4 a rank (B=16), against JAX's dp=4 mesh of its CPU
+    devices: the local batch at which four H100s over NCCL moved the
+    joint step's gradients ~100x more than two ranks of eight rows did
+    (PERF.md). Here, where both sides are f32, the port must match JAX at
+    the dp=2 gates."""
+    _joint_step_against_jax_mesh(dp=4, rows=4)
 
 
 def test_dp2_memory_step_with_a_straddling_speaker_matches_jax():

@@ -3,6 +3,8 @@ JAX reference on the CPU, with the same weights (a JAX `rnn_init` tree
 converted to numpy) and the same numpy inputs. Forward tolerance 1e-5:
 both sides compute in f32 and differ only in summation order."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,17 +14,23 @@ import torch
 from dl4ss_tpu.ops.pallas_rnn import (_lstm_fwd, pallas_gru_scan,
                                       pallas_lstm_scan)
 from dl4ss_tpu.ops.rnn import bidirectional_rnn as jax_birnn
+from dl4ss_tpu.ops.rnn import gru_init as jax_gru_init
+from dl4ss_tpu.ops.rnn import lstm_init as jax_lstm_init
 from dl4ss_tpu.ops.rnn import rnn_init as jax_rnn_init
 from dl4ss_tpu_torch.ops import rnn_kernels
-from dl4ss_tpu_torch.ops.rnn import bidirectional_rnn, rnn_init
-from dl4ss_tpu_torch.weights import flatten_tree, load_jax_params
+from dl4ss_tpu_torch.ops.rnn import (bidirectional_rnn, gru_init, lstm_init,
+                                     rnn_init)
+from dl4ss_tpu_torch.weights import (export_jax_params, flatten_tree,
+                                     load_jax_params)
 
 ATOL = 1e-5
 
 
-def _stack(cell, d, h, layers, seed):
-    jl = jax_rnn_init(jax.random.PRNGKey(seed), cell, d, h, layers)
-    tl = rnn_init(cell, d, h, layers, device="cpu")
+def _stack(cell, d, h, layers, seed, bidirectional=True):
+    jl = jax_rnn_init(jax.random.PRNGKey(seed), cell, d, h, layers,
+                      bidirectional=bidirectional)
+    tl = rnn_init(cell, d, h, layers, device="cpu",
+                  bidirectional=bidirectional)
     load_jax_params(tl, jax.tree_util.tree_map(np.asarray, jl))
     return jl, tl
 
@@ -42,6 +50,101 @@ def test_birnn_matches_jax(cell, jax_pallas, port_kernel_route):
                              use_pallas=port_kernel_route)
     assert tuple(ours.shape) == ref.shape == (3, 11, 12)
     np.testing.assert_allclose(ours.detach().numpy(), np.asarray(ref), atol=ATOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_direction_jax(cell):
+    """JAX's 2-layer one-direction stack (`rnn_init(bidirectional=False)`:
+    each layer holds `fwd` alone, run as a `lax.scan`), an input, a
+    cotangent, and JAX's output and gradients (numpy)."""
+    jl = jax_rnn_init(jax.random.PRNGKey(21), cell, 9, 6, 2,
+                      bidirectional=False)
+    rng = np.random.default_rng(22)
+    x = rng.standard_normal((3, 11, 9)).astype(np.float32)
+    cot = rng.standard_normal((3, 11, 6)).astype(np.float32)
+
+    def loss(params, xx):
+        return jnp.sum(jax_birnn(params, xx, cell) * jnp.asarray(cot))
+
+    out = jax_birnn(jl, jnp.asarray(x), cell)
+    ref_p, ref_x = jax.grad(loss, argnums=(0, 1))(jl, jnp.asarray(x))
+    tree = dict(flatten_tree(jax.tree_util.tree_map(np.asarray, jl)))
+    grads = dict(flatten_tree(jax.tree_util.tree_map(np.asarray, ref_p)))
+    return jl, x, cot, np.asarray(out), np.asarray(ref_x), tree, grads
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("port_kernel_route", [False, True])
+def test_one_direction_stack_matches_jax(cell, port_kernel_route):
+    """A one-direction stack on the port's plain loop and on its kernel
+    route (gru_scan / lstm_scan with D = 1: K2 / K7 and K5 / K8's plain
+    versions here) against JAX's: (B, T, H) out within 1e-5, the gradients
+    of the input and of every parameter within 1e-4 (f32 both sides:
+    summation order only). The weights go both ways: the port's export is
+    the JAX tree, leaf for leaf."""
+    jl, x, cot, ref, ref_x, tree, ref_grads = _one_direction_jax(cell)
+    tl = rnn_init(cell, 9, 6, 2, device="cpu", bidirectional=False)
+    load_jax_params(tl, jax.tree_util.tree_map(np.asarray, jl))
+    exported = dict(flatten_tree(export_jax_params(tl)))
+    assert set(exported) == set(tree)
+    assert all(k.split(".")[1] == "fwd" for k in exported)
+    for name, want in tree.items():
+        np.testing.assert_array_equal(exported[name], want, err_msg=name)
+    xt = torch.as_tensor(x).requires_grad_()
+    out = bidirectional_rnn(tl, xt, cell, use_pallas=port_kernel_route)
+    assert tuple(out.shape) == ref.shape == (3, 11, 6)
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=ATOL)
+    (out * torch.as_tensor(cot)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), ref_x, atol=1e-4)
+    grads = {n: p.grad for n, p in tl.named_parameters()}
+    assert set(grads) == set(ref_grads)
+    for name, want in ref_grads.items():
+        np.testing.assert_allclose(grads[name].numpy(), want, atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_one_direction_remat_is_bit_equal(cell):
+    """`remat` on a one-direction stack (each layer recomputed in the
+    backward from its input alone, on the kernel route) gives the same
+    output and gradients bit for bit as the stack without it."""
+    tl = rnn_init(cell, 5, 4, 2, torch.Generator().manual_seed(6),
+                  device="cpu", bidirectional=False)
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (2, 6, 5)).astype(np.float32))
+    runs = []
+    for remat in (False, True):
+        xt = x.clone().requires_grad_()
+        out = bidirectional_rnn(tl, xt, cell, use_pallas=True, remat=remat)
+        runs.append((out, *torch.autograd.grad(
+            out.square().sum(), [xt, *tl.parameters()])))
+    assert tuple(runs[0][0].shape) == (2, 6, 4)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cell,port_init,jax_init", [
+    ("gru", gru_init, jax_gru_init), ("lstm", lstm_init, jax_lstm_init)])
+def test_single_cell_init_matches_jax_layout(cell, port_init, jax_init):
+    """`gru_init` / `lstm_init` build one cell with JAX's leaves and
+    shapes, drawn from U(-1/sqrt(H), 1/sqrt(H)); a JAX cell loads into it
+    leaf for leaf and runs as a one-direction layer."""
+    ref = jax.tree_util.tree_map(
+        np.asarray, jax_init(jax.random.PRNGKey(3), 7, 5))
+    ours = port_init(7, 5, torch.Generator().manual_seed(3), device="cpu")
+    shapes = {n: tuple(p.shape) for n, p in ours.named_parameters()}
+    assert shapes == {k: v.shape for k, v in ref.items()}
+    assert all(float(p.detach().abs().max()) <= 1 / np.sqrt(5)
+               for p in ours.parameters())
+    load_jax_params(ours, ref)
+    x = np.random.default_rng(4).standard_normal((2, 6, 7)).astype(
+        np.float32)
+    want = jax_birnn([{"fwd": ref}], jnp.asarray(x), cell)
+    layer = torch.nn.Module()
+    layer.fwd = ours
+    got = bidirectional_rnn([layer], torch.as_tensor(x), cell)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL)
 
 
 def test_gru_scan_plain_matches_pallas_gru_scan():

@@ -13,15 +13,16 @@ import torch
 
 from dl4ss_tpu.ops import windows as jwin
 from dl4ss_tpu.ops.pallas_stft import (pallas_istft, pallas_istft_ri,
-                                       pallas_masked_istft, pallas_stft,
+                                       pallas_masked_istft,
+                                       pallas_spectral_feature, pallas_stft,
                                        pallas_stft_features, pallas_stft_ri)
 from dl4ss_tpu_torch import preset
-from dl4ss_tpu_torch.ops import stft as tstft
 from dl4ss_tpu_torch.ops import stft_kernels as tk
 from dl4ss_tpu_torch.ops import windows as twin
 
-# dl4ss_tpu.ops re-exports a function `stft` that shadows the submodule
+# both packages' `ops` re-export a function `stft` that shadows the submodule
 jstft = importlib.import_module("dl4ss_tpu.ops.stft")
+tstft = importlib.import_module("dl4ss_tpu_torch.ops.stft")
 
 ATOL = 1e-4
 
@@ -420,12 +421,69 @@ def test_every_preset_takes_the_fft_body():
 
 def test_ops_exports_the_kernel_wrappers():
     """`dl4ss_tpu_torch.ops` exports the kernel wrappers by name, as the JAX
-    package exports its pallas_* functions, and keeps `ops.stft` a module."""
+    package exports its pallas_* functions, and, as in JAX, `ops.stft`,
+    `ops.istft` and `ops.xcorr` are the functions, not their modules:
+    `from dl4ss_tpu_torch.ops import stft` is callable and equals
+    `dl4ss_tpu.ops.stft` on the same input (1e-4)."""
+    import dl4ss_tpu.ops as jops
     from dl4ss_tpu_torch import ops
+    from dl4ss_tpu_torch.ops import istft, stft, xcorr
     for name in ("stft_features", "masked_istft", "stft_ri", "stft_kernel",
-                 "istft_ri", "istft_kernel", "gru_scan", "lstm_scan"):
+                 "istft_ri", "istft_kernel", "spectral_feature_kernel",
+                 "gru_scan", "lstm_scan"):
         assert callable(getattr(ops, name)), name
-    assert ops.stft is tstft
+    assert (stft, istft) == (tstft.stft, tstft.istft) == (ops.stft, ops.istft)
+    assert xcorr is importlib.import_module("dl4ss_tpu_torch.ops.xcorr").xcorr
+    x = _wav(4, (2, 1000))
+    ours, ref = stft(_t(x)), jops.stft(jnp.asarray(x))
+    np.testing.assert_allclose(ours.real.numpy(), _np(ref.real), atol=ATOL)
+    np.testing.assert_allclose(ours.imag.numpy(), _np(ref.imag), atol=ATOL)
+    np.testing.assert_allclose(istft(ours).numpy(), _np(jops.istft(ref)),
+                               atol=ATOL)
+
+
+def test_spectral_feature_kernel_matches_pallas_spectral_feature():
+    """The port's counterpart of `pallas_spectral_feature` (K1's plain
+    version here) against the Pallas kernel in interpret mode: |STFT| and
+    the (B, T, F, 2) packed spectrum, 1e-4."""
+    x = _wav(5, (2, 1000))
+    mag, ri = tk.spectral_feature_kernel(_t(x))
+    ref_mag, ref_ri = pallas_spectral_feature(jnp.asarray(x))
+    assert tuple(ri.shape) == ref_ri.shape == (2, 8, 129, 2)
+    np.testing.assert_allclose(mag.numpy(), _np(ref_mag), atol=ATOL)
+    np.testing.assert_allclose(ri.numpy(), _np(ref_ri), atol=ATOL)
+
+
+@pytest.mark.parametrize("window", ["hann", "sqrt_hann"])
+def test_bf16_stft_and_istft_match_jax(window):
+    """`stft(dtype=bfloat16)` and `istft(dtype=bfloat16)`: frames, window
+    and DFT tables in bf16 (each product rounded to bf16 where JAX rounds
+    it), the DFTs accumulated in f32. Against JAX's bf16 output on the same
+    input the bf16 operands are the same values, so only the f32 summation
+    order differs: 2e-5 on the spectrum (peak |X| ~ 35 here; 9.5e-6 seen)
+    and 2e-6 on the waveform (9.5e-7 seen). bf16's own error, against the
+    f32 transform and against the input, stays within 1e-2 relative L2
+    (0.3-0.4% seen)."""
+    x = _wav(6, (2, 2000))
+    ref = jstft.stft(jnp.asarray(x), window=window, dtype=jnp.bfloat16)
+    ours = tstft.stft(_t(x), window=window, dtype=torch.bfloat16)
+    assert ours.dtype == torch.complex64
+    for part in ("real", "imag"):
+        np.testing.assert_allclose(getattr(ours, part).numpy(),
+                                   _np(getattr(ref, part)), atol=2e-5)
+    f32 = tstft.stft(_t(x), window=window)
+    assert float((ours - f32).abs().norm() / f32.abs().norm()) < 1e-2
+    wav_ref = jstft.istft(ref, window=window, dtype=jnp.bfloat16)
+    wav = tstft.istft(ours, window=window, dtype=torch.bfloat16)
+    assert wav.dtype == torch.float32
+    np.testing.assert_allclose(wav.numpy(), _np(wav_ref), atol=2e-6)
+    x_cut = _t(x[:, :wav.shape[-1]])
+    assert float((wav - x_cut).norm() / x_cut.norm()) < 1e-2
+    wav_ref = jstft.istft(ref, window=window, dtype=jnp.bfloat16)
+    wav = tstft.istft(ours, window=window, dtype=torch.bfloat16)
+    assert wav.dtype == torch.float32
+    np.testing.assert_allclose(wav.numpy(), _np(wav_ref), atol=2e-5)
+    np.testing.assert_allclose(wav.numpy(), x[:, :wav.shape[-1]], atol=5e-2)
 
 
 # ---------------------------------------------------------------------------

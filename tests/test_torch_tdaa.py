@@ -36,7 +36,7 @@ from dl4ss_tpu.train.steps import make_eval_step as jax_eval_step
 from dl4ss_tpu.train.steps import make_train_step as jax_train_step
 from dl4ss_tpu_torch import preset
 from dl4ss_tpu_torch.data.synth import MixtureBatch, same_speaker_real_specs
-from dl4ss_tpu_torch.models import Separator, separate
+from dl4ss_tpu_torch.models import Separator, init_separator, separate
 from dl4ss_tpu_torch.models.adjust import apply_adjust, init_adjust
 from dl4ss_tpu_torch.models.attention import apply_mask_head, init_mask_head
 from dl4ss_tpu_torch.models.discriminator import (apply_discriminator,
@@ -106,6 +106,46 @@ def test_apply_adjust_matches_jax():
     ref = jax_adjust(jp, jnp.asarray(hidden), jnp.asarray(q))
     with torch.no_grad():
         ours = apply_adjust(tp, _t(hidden), _t(q))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("build", ["init_discriminator", "init_separator",
+                                   "create_train_state"])
+def test_discriminator_for_another_frame_count_matches_jax(build):
+    """`num_frames` != cfg.num_frames (40 frames at 0.5 s, whose cfg says
+    32) through each function that takes it, as JAX's: the discriminator's
+    output layer sized for 40 frames, every leaf of the tree JAX's shape,
+    the state's discriminator moments that size too, and its scores on
+    (2, 2, 40, F) spectra within 1e-5 of JAX's from the same weights."""
+    over = dict(use_discriminator=True, max_len_seconds=0.5)
+    cfg_j = jax_preset("synth_tiny").replace(**over)
+    cfg_t = preset("synth_tiny").replace(**over)
+    assert cfg_t.num_frames == 32
+    key = jax.random.PRNGKey(4)
+    if build == "init_discriminator":
+        jp = jax_init_discriminator(key, cfg_j, num_frames=40)
+        tm = init_discriminator(cfg_t, device="cpu", num_frames=40)
+    elif build == "init_separator":
+        jp = jax_init_separator(key, cfg_j, num_frames=40)
+        tm = init_separator(cfg_t, device="cpu", num_frames=40)
+    else:
+        state_j = jax_state(key, cfg_j, num_frames=40)
+        jp = state_j.params
+        state_t = create_train_state(cfg_t, device="cpu", num_frames=40)
+        tm = state_t.model
+        assert [tuple(m.shape) for m in state_t.d_opt_state.mu] == [
+            tuple(p.shape) for p in tm.discriminator.parameters()]
+    want = {k: np.asarray(v).shape for k, v in flatten_tree(jp)}
+    assert {n: tuple(p.shape) for n, p in tm.named_parameters()} == want
+    load_jax_params(tm, _np(jp))
+    if build != "init_discriminator":
+        jp, tm = jp["discriminator"], tm.discriminator
+    assert tuple(tm.out.w.shape) == (4 * 15 * 64, 1)   # cfg: 3 * 15 * 64
+    specs = np.abs(np.random.default_rng(40).standard_normal(
+        (2, 2, 40, cfg_t.freq_bins))).astype(np.float32)
+    ref = jax_discriminator(jp, jnp.asarray(specs), cfg_j)
+    with torch.no_grad():
+        ours = apply_discriminator(tm, _t(specs), cfg_t)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
 
 
