@@ -1,0 +1,8 @@
+"""The share of the traced train slices in which no operation runs on the
+device."""
+
+from benchmark.harness import readers
+
+
+def read(r):
+    return readers.idle(r, "train")

@@ -1,0 +1,7 @@
+"""Every CUDA kernel in the traced train slices, per unit."""
+
+from benchmark.harness import readers
+
+
+def read(r):
+    return readers.launches(r, "train")
