@@ -19,6 +19,7 @@ import torch
 
 from dl4ss_tpu_torch.config import Config
 from dl4ss_tpu_torch.ops.stft import spectral_feature_cfg, stft_cfg
+from dl4ss_tpu_torch.utils.profiling import span
 
 
 class MixtureBatch(NamedTuple):
@@ -97,52 +98,55 @@ def sample_mixtures(generator: torch.Generator, bank: torch.Tensor,
     street-noise add (cfg.add_bgd_noise with a noise bank) goes into the
     mixture only.
     """
-    b = batch_size or cfg.batch_size
-    k = cfg.max_mix
-    s, u, n = bank.shape
-    dev = bank.device
-    g = generator
+    with span("sample"):
+        b = batch_size or cfg.batch_size
+        k = cfg.max_mix
+        s, u, n = bank.shape
+        dev = bank.device
+        g = generator
 
-    def ints(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=g).to(dev)
+        def ints(lo, hi, shape):
+            return torch.randint(lo, hi, shape, generator=g).to(dev)
 
-    spk_idx = torch.rand((b, s), generator=g).argsort(dim=1)[:, :k].to(dev)
-    utt_idx = ints(0, u, (b, k))
-    wavs = normalize_utterance(bank[spk_idx, utt_idx])          # (B, K, N)
-    if train and cfg.augment_data:
-        wavs = _roll_rows(wavs, ints(0, n, (b, k)))
+        spk_idx = torch.rand((b, s), generator=g).argsort(dim=1)[:, :k].to(dev)
+        utt_idx = ints(0, u, (b, k))
+        wavs = normalize_utterance(bank[spk_idx, utt_idx])          # (B, K, N)
+        if train and cfg.augment_data:
+            wavs = _roll_rows(wavs, ints(0, n, (b, k)))
 
-    if cfg.min_mix < cfg.max_mix:
-        live = ints(cfg.min_mix, cfg.max_mix + 1, (b,))
-    else:
-        live = torch.full((b,), cfg.max_mix, device=dev)
+        if cfg.min_mix < cfg.max_mix:
+            live = ints(cfg.min_mix, cfg.max_mix + 1, (b,))
+        else:
+            live = torch.full((b,), cfg.max_mix, device=dev)
 
-    gains = torch.ones((b, k), device=dev)
-    if cfg.db_range > 0 and train and cfg.augment_data:
-        scale = cfg.db_range / 20.0
-        r_db = torch.rand((b, 3), generator=g).to(dev)
-        chan = ints(0, min(k, 2), (b,))
-        gains2 = gains.clone()
-        gains2[torch.arange(b, device=dev), chan] = 10.0 ** (scale * r_db[:, 0])
-        if k >= 3:
-            gains3 = gains.clone()
-            gains3[:, 0] = 10.0 ** (scale * 0.5)                    # normal
-            gains3[:, 1] = 10.0 ** (scale * (0.5 + 0.5 * r_db[:, 1]))  # large
-            gains3[:, 2] = 10.0 ** (scale * (0.5 * r_db[:, 2]))     # small
-            gains = torch.where((live == 3)[:, None], gains3, gains)
-        gains = torch.where((live == 2)[:, None], gains2, gains)
-    lane = torch.arange(k, device=dev)[None, :] < live[:, None]
-    gains = gains * lane.to(gains.dtype)
+        gains = torch.ones((b, k), device=dev)
+        if cfg.db_range > 0 and train and cfg.augment_data:
+            scale = cfg.db_range / 20.0
+            r_db = torch.rand((b, 3), generator=g).to(dev)
+            chan = ints(0, min(k, 2), (b,))
+            gains2 = gains.clone()
+            gains2[torch.arange(b, device=dev), chan] = 10.0 ** (
+                scale * r_db[:, 0])
+            if k >= 3:
+                gains3 = gains.clone()
+                # the normal, large and small channels
+                gains3[:, 0] = 10.0 ** (scale * 0.5)
+                gains3[:, 1] = 10.0 ** (scale * (0.5 + 0.5 * r_db[:, 1]))
+                gains3[:, 2] = 10.0 ** (scale * (0.5 * r_db[:, 2]))
+                gains = torch.where((live == 3)[:, None], gains3, gains)
+            gains = torch.where((live == 2)[:, None], gains2, gains)
+        lane = torch.arange(k, device=dev)[None, :] < live[:, None]
+        gains = gains * lane.to(gains.dtype)
 
-    sources = wavs * gains[..., None]
-    mix = sources.sum(dim=1)
-    if cfg.add_bgd_noise and noise_bank is not None:
-        nidx = ints(0, noise_bank.shape[0], (b,))
-        nshift = ints(0, noise_bank.shape[1], (b,))
-        mix = mix + cfg.bgd_noise_ratio * _roll_rows(
-            noise_bank[nidx][:, :n], nshift)
-    return MixtureBatch(mix_wav=mix, source_wavs=sources, spk_idx=spk_idx,
-                        gains=gains, utt_idx=utt_idx)
+        sources = wavs * gains[..., None]
+        mix = sources.sum(dim=1)
+        if cfg.add_bgd_noise and noise_bank is not None:
+            nidx = ints(0, noise_bank.shape[0], (b,))
+            nshift = ints(0, noise_bank.shape[1], (b,))
+            mix = mix + cfg.bgd_noise_ratio * _roll_rows(
+                noise_bank[nidx][:, :n], nshift)
+        return MixtureBatch(mix_wav=mix, source_wavs=sources, spk_idx=spk_idx,
+                            gains=gains, utt_idx=utt_idx)
 
 
 def add_noise_to_mix(generator: torch.Generator, batch: MixtureBatch,
@@ -170,37 +174,38 @@ def featurize(batch: MixtureBatch, cfg: Config) -> dict:
     the STFT feature kernel (K1) runs on the mixture and on the B*K
     sources, as in JAX; otherwise the plain STFT.
     """
-    b, k, n = batch.source_wavs.shape
-    if (cfg.use_pallas_stft and not cfg.log_spectral
-            and cfg.window == "hann" and cfg.center
-            and cfg.frame_length % cfg.frame_shift == 0):
-        from dl4ss_tpu_torch.ops.stft_kernels import stft_features
-        mix_feat, re, im = stft_features(batch.mix_wav, cfg.frame_length,
-                                         cfg.frame_shift)
-        mix_ri = torch.stack([re, im], dim=-1)
-        src_feat, sre, sim = stft_features(
-            batch.source_wavs.reshape(b * k, n), cfg.frame_length,
-            cfg.frame_shift)
-        src_feat = src_feat.reshape(b, k, *src_feat.shape[1:])
-        src_re, src_im = (x.reshape(src_feat.shape) for x in (sre, sim))
-    else:
-        mix_feat, mix_spec = spectral_feature_cfg(batch.mix_wav, cfg)
-        mix_ri = torch.stack([mix_spec.real, mix_spec.imag], dim=-1)
-        src_spec = stft_cfg(batch.source_wavs, cfg)
-        src_feat = src_spec.abs()
-        src_re, src_im = src_spec.real, src_spec.imag
-    out = {
-        "mix_wav": batch.mix_wav,
-        "mix_feas": mix_feat,                       # (B, T, F)
-        "mix_ri": mix_ri,                           # (B, T, F, 2)
-        "spk_idx": batch.spk_idx,                   # (B, K)
-        "channel_live": batch.gains > 0,            # (B, K)
-        "source_wavs": batch.source_wavs,           # (B, K, N)
-    }
-    if cfg.is_complex_mask:
-        out["src_ri"] = torch.stack([src_re, src_im], dim=-1)  # (B,K,T,F,2)
-    out["src_feas"] = src_feat                      # (B, K, T, F)
-    return out
+    with span("featurize"):
+        b, k, n = batch.source_wavs.shape
+        if (cfg.use_pallas_stft and not cfg.log_spectral
+                and cfg.window == "hann" and cfg.center
+                and cfg.frame_length % cfg.frame_shift == 0):
+            from dl4ss_tpu_torch.ops.stft_kernels import stft_features
+            mix_feat, re, im = stft_features(batch.mix_wav, cfg.frame_length,
+                                             cfg.frame_shift)
+            mix_ri = torch.stack([re, im], dim=-1)
+            src_feat, sre, sim = stft_features(
+                batch.source_wavs.reshape(b * k, n), cfg.frame_length,
+                cfg.frame_shift)
+            src_feat = src_feat.reshape(b, k, *src_feat.shape[1:])
+            src_re, src_im = (x.reshape(src_feat.shape) for x in (sre, sim))
+        else:
+            mix_feat, mix_spec = spectral_feature_cfg(batch.mix_wav, cfg)
+            mix_ri = torch.stack([mix_spec.real, mix_spec.imag], dim=-1)
+            src_spec = stft_cfg(batch.source_wavs, cfg)
+            src_feat = src_spec.abs()
+            src_re, src_im = src_spec.real, src_spec.imag
+        out = {
+            "mix_wav": batch.mix_wav,
+            "mix_feas": mix_feat,                       # (B, T, F)
+            "mix_ri": mix_ri,                           # (B, T, F, 2)
+            "spk_idx": batch.spk_idx,                   # (B, K)
+            "channel_live": batch.gains > 0,            # (B, K)
+            "source_wavs": batch.source_wavs,           # (B, K, N)
+        }
+        if cfg.is_complex_mask:
+            out["src_ri"] = torch.stack([src_re, src_im], dim=-1)  # B,K,T,F,2
+        out["src_feas"] = src_feat                      # (B, K, T, F)
+        return out
 
 
 def same_speaker_real_specs(generator: torch.Generator, batch: MixtureBatch,

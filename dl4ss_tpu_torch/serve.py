@@ -8,7 +8,8 @@ classifier picks its top-k (its BiLSTM on K7 per layer). A cRM model
 resynthesises, as in JAX. The recursive program peels one
 classifier-chosen speaker per step and resynthesises each peeled spectrum
 with the mixture phase. With the config's kernel flags off, the same
-programs run the plain PyTorch path.
+programs run the plain PyTorch path. Each marks its phases for the
+profiler (`utils.profiling.span`): `features`, `separate`, `resynthesis`.
 """
 
 from __future__ import annotations
@@ -24,28 +25,33 @@ from dl4ss_tpu_torch.objectives.select import top_k_indices
 from dl4ss_tpu_torch.ops.crm import unpack_ri
 from dl4ss_tpu_torch.ops.stft import (istft_cfg, masked_resynthesis,
                                       spectral_feature_cfg)
+from dl4ss_tpu_torch.utils.profiling import span
 
 
 def _features(model: Separator, wav: torch.Tensor, cfg: Config):
     """wav (B, N) -> (feat (B, T, F) in the model's dtype, re, im f32)."""
-    feat_dtype = model.encoder.proj.w.dtype
-    if cfg.use_pallas_stft and not cfg.log_spectral:
-        from dl4ss_tpu_torch.ops.stft_kernels import stft_features
-        return stft_features(
-            wav, cfg.frame_length, cfg.frame_shift, window=cfg.window,
-            center=cfg.center, feat_dtype=feat_dtype)
-    feat, spec = spectral_feature_cfg(wav, cfg)
-    return feat.to(feat_dtype), spec.real, spec.imag
+    with span("features"):
+        feat_dtype = model.encoder.proj.w.dtype
+        if cfg.use_pallas_stft and not cfg.log_spectral:
+            from dl4ss_tpu_torch.ops.stft_kernels import stft_features
+            return stft_features(
+                wav, cfg.frame_length, cfg.frame_shift, window=cfg.window,
+                center=cfg.center, feat_dtype=feat_dtype)
+        feat, spec = spectral_feature_cfg(wav, cfg)
+        return feat.to(feat_dtype), spec.real, spec.imag
 
 
 def _separate(model, wav, cfg, spk_idx, length):
     feat, re, im = _features(model, wav, cfg)
-    mix_ri = (torch.stack([re, im], dim=-1)
-              if cfg.log_spectral or cfg.is_complex_mask else None)
-    out = separate(model, feat, cfg, spk_idx=spk_idx, mix_ri=mix_ri)
-    if cfg.is_complex_mask:
-        return istft_cfg(unpack_ri(out.pred.float()), cfg, length=length), out
-    return masked_resynthesis(re, im, out.masks, cfg, length=length), out
+    with span("separate"):
+        mix_ri = (torch.stack([re, im], dim=-1)
+                  if cfg.log_spectral or cfg.is_complex_mask else None)
+        out = separate(model, feat, cfg, spk_idx=spk_idx, mix_ri=mix_ri)
+    with span("resynthesis"):
+        if cfg.is_complex_mask:
+            return istft_cfg(unpack_ri(out.pred.float()), cfg,
+                             length=length), out
+        return masked_resynthesis(re, im, out.masks, cfg, length=length), out
 
 
 def separate_waveforms(model: Separator, wav: torch.Tensor, cfg: Config,
@@ -83,9 +89,11 @@ def recursive_waveforms(model: Separator, wav: torch.Tensor, cfg: Config,
     plain iSTFT, as in JAX."""
     with torch.inference_mode():
         feat, re, im = _features(model, wav, cfg)
-        extracted, spks = recursive_separate(model, feat, cfg)
-        mix = torch.complex(re, im)
-        phasor = mix / torch.clamp(mix.abs(), min=1e-8)
-        wavs = istft_cfg(extracted.float() * phasor[:, None], cfg,
-                         length=length)
+        with span("separate"):
+            extracted, spks = recursive_separate(model, feat, cfg)
+        with span("resynthesis"):
+            mix = torch.complex(re, im)
+            phasor = mix / torch.clamp(mix.abs(), min=1e-8)
+            wavs = istft_cfg(extracted.float() * phasor[:, None], cfg,
+                             length=length)
         return wavs, spks

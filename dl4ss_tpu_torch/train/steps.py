@@ -23,6 +23,10 @@ Given a `mesh` (parallel/mesh.py), a train step runs on this rank's share
 of the global batch: its gradients are averaged over the data group
 before the clip, which sees their global norm, and its metrics are the
 global batch's means.
+
+Every trainer marks its phases for the profiler (`utils.profiling.span`):
+`forward` from the step's inputs to its loss tensors (twice in the
+adversarial step, once a phase), then `backward` and `optimizer`.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from dl4ss_tpu_torch.parallel.mesh import (Mesh, mean_metrics,
                                            reduce_gradients, shard_batch)
 from dl4ss_tpu_torch.train.state import (TrainState, discriminator_params,
                                          generator_params, make_optimizer)
+from dl4ss_tpu_torch.utils.profiling import span
 
 
 def _compute_cast(model: Separator, feats: dict, cfg: Config):
@@ -140,14 +145,16 @@ def _backward_and_update(params, opt_state, opt, loss: torch.Tensor,
     jax.grad gives them; nothing outside `params` gets a gradient. With a
     `mesh` the gradients are averaged over its data group first (where
     XLA inserts the all-reduce in JAX), and the clip takes the mesh's
-    global norm."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)]
-    norm = None
-    if mesh is not None:
-        grads, norm = reduce_gradients(params, grads, mesh)
-    return opt.update(params, grads, opt_state, norm=norm)
+    global norm; the average is the tail of the `backward` span."""
+    with span("backward"):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        norm = None
+        if mesh is not None:
+            grads, norm = reduce_gradients(params, grads, mesh)
+    with span("optimizer"):
+        return opt.update(params, grads, opt_state, norm=norm)
 
 
 def make_train_step(cfg: Config, steps_per_epoch: int = 1,
@@ -163,7 +170,8 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1,
     opt = make_optimizer(cfg, steps_per_epoch)
 
     def step(state: TrainState, feats: dict):
-        loss, aux = _separation_loss(state.model, feats, cfg)
+        with span("forward"):
+            loss, aux = _separation_loss(state.model, feats, cfg)
         grad_norm = _backward_and_update(generator_params(state.model),
                                          state.opt_state, opt, loss, mesh)
         metrics = {"loss": loss.detach(),
@@ -207,24 +215,25 @@ def make_classifier_step(cfg: Config, steps_per_epoch: int = 1,
     opt = make_optimizer(cfg, steps_per_epoch)
 
     def step(state: TrainState, feats: dict):
-        b = feats["mix_feas"].shape[0]
-        dev = feats["mix_feas"].device
-        live = feats["channel_live"].to(torch.bool)
-        target = torch.zeros((b, cfg.num_speakers), device=dev)
-        rows = torch.arange(b, device=dev)[:, None].expand_as(live)
-        target[rows[live], feats["spk_idx"][live]] = 1.0
-        params, cfeats = _compute_cast(state.model, feats, cfg)
-        clf = state.model.classifier
-        args, kwargs = (cfeats["mix_feas"], cfg), dict(logits=True)
-        if params is None:
-            logits = clf(*args, **kwargs)
-        else:
-            prefix = "classifier."
-            logits = functional_call(
-                clf, {n[len(prefix):]: p for n, p in params.items()
-                      if n.startswith(prefix)}, args, kwargs)
-        logits = logits.float()                   # f32 loss math
-        loss = multilabel_softmargin_loss(logits, target)
+        with span("forward"):
+            b = feats["mix_feas"].shape[0]
+            dev = feats["mix_feas"].device
+            live = feats["channel_live"].to(torch.bool)
+            target = torch.zeros((b, cfg.num_speakers), device=dev)
+            rows = torch.arange(b, device=dev)[:, None].expand_as(live)
+            target[rows[live], feats["spk_idx"][live]] = 1.0
+            params, cfeats = _compute_cast(state.model, feats, cfg)
+            clf = state.model.classifier
+            args, kwargs = (cfeats["mix_feas"], cfg), dict(logits=True)
+            if params is None:
+                logits = clf(*args, **kwargs)
+            else:
+                prefix = "classifier."
+                logits = functional_call(
+                    clf, {n[len(prefix):]: p for n, p in params.items()
+                          if n.startswith(prefix)}, args, kwargs)
+            logits = logits.float()                   # f32 loss math
+            loss = multilabel_softmargin_loss(logits, target)
         _backward_and_update(generator_params(state.model), state.opt_state,
                              opt, loss, mesh)
         with torch.no_grad():
@@ -247,34 +256,36 @@ def make_dense_train_step(cfg: Config, steps_per_epoch: int = 1,
     opt = make_optimizer(cfg, steps_per_epoch)
 
     def step(state: TrainState, feats: dict):
-        b, t, f = feats["mix_feas"].shape
-        dev = feats["mix_feas"].device
-        live = feats["channel_live"].float()
-        spk_idx = feats["spk_idx"]
-        rows = torch.arange(b, device=dev)[:, None].expand_as(spk_idx)
-        gate = torch.zeros((b, cfg.num_speakers), device=dev)
-        gate = gate.scatter_reduce(1, spk_idx, live, reduce="amax")
-        if cfg.is_complex_mask:
-            target = torch.zeros((b, cfg.num_speakers, t, f, 2), device=dev)
-            src = feats["src_ri"] * live[..., None, None, None]
-        else:
-            target = torch.zeros((b, cfg.num_speakers, t, f), device=dev)
-            src = feats["src_feas"] * live[..., None, None]
-        target = target.index_put((rows, spk_idx), src.float(),
-                                  accumulate=True)
-        out = _separate(state.model, feats, cfg, None, channel_gate=gate)
-        if cfg.is_complex_mask:
-            mask_l = complex_mse_loss(out.pred, target)
-        else:
-            mask_l = mask_mse_loss(out.pred, target)
-        metrics = {"mask_loss": mask_l.detach()}
-        loss = mask_l
-        if cfg.sum_loss_weight > 0 and not cfg.is_complex_mask:
-            # the masks are already zero-gated, so the channel sum is the
-            # reference's gated sum (:508-513)
-            sl = sum_to_one_loss(out.masks)
-            loss = loss + cfg.sum_loss_weight * sl
-            metrics["sum_loss"] = sl.detach()
+        with span("forward"):
+            b, t, f = feats["mix_feas"].shape
+            dev = feats["mix_feas"].device
+            live = feats["channel_live"].float()
+            spk_idx = feats["spk_idx"]
+            rows = torch.arange(b, device=dev)[:, None].expand_as(spk_idx)
+            gate = torch.zeros((b, cfg.num_speakers), device=dev)
+            gate = gate.scatter_reduce(1, spk_idx, live, reduce="amax")
+            if cfg.is_complex_mask:
+                target = torch.zeros((b, cfg.num_speakers, t, f, 2),
+                                     device=dev)
+                src = feats["src_ri"] * live[..., None, None, None]
+            else:
+                target = torch.zeros((b, cfg.num_speakers, t, f), device=dev)
+                src = feats["src_feas"] * live[..., None, None]
+            target = target.index_put((rows, spk_idx), src.float(),
+                                      accumulate=True)
+            out = _separate(state.model, feats, cfg, None, channel_gate=gate)
+            if cfg.is_complex_mask:
+                mask_l = complex_mse_loss(out.pred, target)
+            else:
+                mask_l = mask_mse_loss(out.pred, target)
+            metrics = {"mask_loss": mask_l.detach()}
+            loss = mask_l
+            if cfg.sum_loss_weight > 0 and not cfg.is_complex_mask:
+                # the masks are already zero-gated, so the channel sum is the
+                # reference's gated sum (:508-513)
+                sl = sum_to_one_loss(out.masks)
+                loss = loss + cfg.sum_loss_weight * sl
+                metrics["sum_loss"] = sl.detach()
         _backward_and_update(generator_params(state.model), state.opt_state,
                              opt, loss, mesh)
         state.step += 1
@@ -309,25 +320,27 @@ def make_adversarial_step(cfg: Config, steps_per_epoch: int = 1,
 
     def step(state: TrainState, feats: dict):
         model = state.model
-        live = feats["channel_live"].float()
-        real = feats.get("real_specs", feats["src_feas"])
 
         # ---- phase 1: discriminator ----
-        with torch.no_grad():
-            out = _separate(model, feats, cfg, feats["spk_idx"])
-            fake = (out.pred * live[..., None, None]).float()
-        score_real = apply_discriminator(model.discriminator, real, cfg)
-        score_fake = apply_discriminator(model.discriminator, fake, cfg)
-        d_loss = gan_d_loss(score_real, score_fake)
+        with span("forward"):
+            live = feats["channel_live"].float()
+            real = feats.get("real_specs", feats["src_feas"])
+            with torch.no_grad():
+                out = _separate(model, feats, cfg, feats["spk_idx"])
+                fake = (out.pred * live[..., None, None]).float()
+            score_real = apply_discriminator(model.discriminator, real, cfg)
+            score_fake = apply_discriminator(model.discriminator, fake, cfg)
+            d_loss = gan_d_loss(score_real, score_fake)
         _backward_and_update(discriminator_params(model), state.d_opt_state,
                              d_opt, d_loss, mesh)
 
         # ---- phase 2: generator ----
-        mask_l, aux = _separation_loss(model, feats, sep_cfg)
-        pred = aux["out"].pred * live[..., None, None]
-        score = apply_discriminator(model.discriminator, pred, cfg)
-        sum_l = sum_to_one_loss(aux["out"].masks * live[..., None, None])
-        g_loss = mask_l + sum_w * sum_l + gan_g_loss(score)
+        with span("forward"):
+            mask_l, aux = _separation_loss(model, feats, sep_cfg)
+            pred = aux["out"].pred * live[..., None, None]
+            score = apply_discriminator(model.discriminator, pred, cfg)
+            sum_l = sum_to_one_loss(aux["out"].masks * live[..., None, None])
+            g_loss = mask_l + sum_w * sum_l + gan_g_loss(score)
         _backward_and_update(generator_params(model), state.opt_state, g_opt,
                              g_loss, mesh)
         state.step += 1

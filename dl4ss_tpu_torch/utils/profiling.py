@@ -5,7 +5,10 @@
     a Chrome trace, `<dir>/trace.json` (chrome://tracing, Perfetto);
   * `StepTimer` measures the steady-state time of a chained step: the
     iterations feed each other and the clock stops once the last one is
-    done, `torch.cuda.synchronize()` on the card, the fetch on the CPU.
+    done, `torch.cuda.synchronize()` on the card, the fetch on the CPU;
+  * `span(name)` marks a phase of a step or a request (`dl4ss.<name>`) in
+    whatever trace the profiler is collecting, and costs an attribute
+    read when it is not.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.autograd import profiler as _autograd_profiler
 
 TRACE_FILE = "trace.json"
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -38,6 +43,20 @@ def profile_trace(log_dir: Optional[str] = None,
                                 record_shapes=host_tracer_level >= 2) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+def span(name: str):
+    """The phase `name` of a step or a request, as the host op
+    `dl4ss.<name>` of the profiler's trace, which shares its clock with
+    the card's activity there. It is an op and not a user annotation
+    (`record_function`): the profiler mirrors an annotation onto the
+    card's timeline, where a reader of device time would count it as work
+    and as a kernel. Outside a profiler it is one shared no-op context;
+    the flag is read at each call, because the profiler sets it when it
+    starts."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast("dl4ss." + name)
+    return _NO_SPAN
 
 
 def _first_tensor(x):
