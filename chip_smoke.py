@@ -18,11 +18,11 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      K7 and K8 run both their bodies (the resident one, which the shape
      rule names at width 300 for B=1, 16 and 32, and K5/K8's also at 128,
      in chunked launches past 20 rows; the stepwise one, which it names at
-     600), each against the plain
-     version and the resident against the stepwise and against a second
-     call of itself; the build log's registers and spills of the resident
-     chain kernels and of the wgmma mask-head kernels K3 and K6 are
-     printed; K3 also at B=1 and with bf16 masks, its W pack against the
+     600 for K8) and K7 its wide one (which the rule names at 600), each
+     against the plain version and the resident or wide body against the
+     stepwise and against a second call of itself; the build log's
+     registers and spills of the resident chain kernels and of the wgmma
+     mask-head kernels K3 and K6 are printed; K3 also at B=1 and with bf16 masks, its W pack against the
      plain mirror (bit-equal), K3 and K6 each against a second call of
      itself (bit-equal), K6's db (from its partials) and the bf16-operand
      dW and dh products (f32 output) against the f32 products;
@@ -63,9 +63,12 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      what an empty launch costs; for K4 and K10 both bodies at B=16 and
      B=1 (K4 also with bf16 masks) beside torch.istft; for K2 and K7 both
      bodies at B=1, 16, 32, 48, 64, 96 and 128 (the numbers the shape rule
-     follows); for K5 and K8 also the stepwise body re-measured at B=16,
-     32 and 128, the resident body's three phases (coefficients, chain, dU
-     and db_n) by kernel name, bf16, and K8 at width 600; every profile
+     follows), and K7 at width 600 in its wide and stepwise bodies at B=1,
+     16, 32 and 48 (the numbers WIDE_MAX_BATCH follows; B=1 and 16 also on
+     the `kernels` line, `h600_ms`); for K5 and K8 also the stepwise body
+     re-measured at B=16, 32 and 128, the resident body's three phases
+     (coefficients, chain, dU and db_n) by kernel name, bf16, and K8 at
+     width 600; every profile
      counts the kernel launches of the call; K3 at B=1 beside its bound;
      the dW + dh products both ways (bf16 operands with f32 output, and the
      f32 products) as a yardstick row; and the profiler's K3 / K6 kernel names
@@ -659,15 +662,17 @@ def print_profile(label, fn, wall, torch, top=10):
 def check_bodies_on(torch, sms, label, name, cuda, plain, args, outs, tol,
                  rel):
     """K2, K5, K7 or K8: the body the shape rule names (it must be the
-    one a default call launches) and the other one where it can run,
-    each against the plain version (max abs error, or relative L2 where
-    `rel`); the resident body against the stepwise one and against a
+    one a default call launches) and the stepwise one, or the resident one
+    where the rule names the stepwise one and it can run, each against the
+    plain version (max abs error, or relative L2 where `rel`); the resident
+    or wide body (K7 past H=304) against the stepwise one and against a
     second call of itself. Returns the rule's body's max abs error. `sms`:
     the card's SM count, which the rule reads."""
     from dl4ss_tpu_torch.ops import rnn_kernels as k2
     hidden = args[1].shape[1]          # wh (D, H, NG * H)
     rule = k2.rnn_body(hidden, args[0].shape[2], args[0].shape[1], sms=sms,
-                       backward=name.endswith("_bwd"))
+                       backward=name.endswith("_bwd"),
+                       gates=args[1].shape[2] // hidden)
 
     def outputs(fn, **kw):          # K2 returns hs alone
         res = fn(*args, **kw)
@@ -681,7 +686,7 @@ def check_bodies_on(torch, sms, label, name, cuda, plain, args, outs, tol,
     got = {rule: outputs(cuda)}
     if k2.BODY_LAUNCHES[name, rule] != before + 1:
         fail(f"{label}: the default call did not run the {rule} body")
-    if rule == k2.BODY_RESIDENT:
+    if rule != k2.BODY_STEPWISE:
         got[k2.BODY_STEPWISE] = outputs(cuda, body=k2.BODY_STEPWISE)
     elif hidden <= k2.RESIDENT_MAX_HIDDEN:
         got[k2.BODY_RESIDENT] = outputs(cuda, body=k2.BODY_RESIDENT)
@@ -689,14 +694,12 @@ def check_bodies_on(torch, sms, label, name, cuda, plain, args, outs, tol,
                        for what, g, r in zip(outs, res, ref))
              for body, res in got.items()}
     if len(got) == 2:
-        res = got[k2.BODY_RESIDENT]
-        for what, g, r in zip(outs, res, got[k2.BODY_STEPWISE]):
-            gate(f"{label} resident against stepwise {what}", g, r)
-        for what, g, g2 in zip(outs, res,
-                               outputs(cuda, body=k2.BODY_RESIDENT)):
+        held = next(b for b in got if b != k2.BODY_STEPWISE)
+        for what, g, r in zip(outs, got[held], got[k2.BODY_STEPWISE]):
+            gate(f"{label} {held} against stepwise {what}", g, r)
+        for what, g, g2 in zip(outs, got[held], outputs(cuda, body=held)):
             if not torch.equal(g, g2):
-                fail(f"{label}: two resident calls in a row differ in "
-                     f"{what}")
+                fail(f"{label}: two {held} calls in a row differ in {what}")
     return worst[rule]
 
 
@@ -843,7 +846,7 @@ def tdaa_phase(torch, dev, rng, wav, reqs):
                      use_pallas_maskhead=False)
     plain = cfg.replace(**flags_off)
     K, layers, clayers = cfg.top_k, cfg.encoder_layers, cfg.classifier_layers
-    res, step_ = k2.BODY_RESIDENT, k2.BODY_STEPWISE
+    res, step_, wide = k2.BODY_RESIDENT, k2.BODY_STEPWISE, k2.BODY_WIDE
     model = init_separator(cfg, torch.Generator().manual_seed(SEED), dev)
     total = collections.Counter()
     n_params = sum(p.numel() for p in model.parameters())
@@ -882,9 +885,10 @@ def tdaa_phase(torch, dev, rng, wav, reqs):
     compare("tdaa given B=1", out1, separate_waveforms(
         model, w1, plain, s1, length=N_SAMPLES))
 
-    # classifier-selected: the classifier's BiLSTM-600 on K7's stepwise
-    # body. Rows whose plain top-k is clear must pick the same speakers;
-    # the waveforms are compared with the plain path's speakers forced
+    # classifier-selected: the classifier's BiLSTM-600 on K7's wide body,
+    # one launch a layer (2 a selected call). Rows whose plain top-k is
+    # clear must pick the same speakers; the waveforms are compared with
+    # the plain path's speakers forced
     zero_counts(torch)
     sel16, spk16 = select_and_separate(model, wav, cfg, length=N_SAMPLES)
     sel1, spk1 = select_and_separate(model, w1, cfg, length=N_SAMPLES)
@@ -895,7 +899,7 @@ def tdaa_phase(torch, dev, rng, wav, reqs):
         "stft_features": 2, "lstm_fwd": 2 * (layers + clayers),
         "maskhead_fwd": 2, "masked_istft": 2})
     if bodies != {("lstm_fwd", res): 2 * layers,
-                  ("lstm_fwd", step_): 2 * clayers}:
+                  ("lstm_fwd", wide): 2 * clayers}:
         fail(f"tdaa classifier-selected serving ran the bodies {bodies}")
     for label, mix, got_wav, got_spk in ((f"B={BATCH}", wav, sel16, spk16),
                                          ("B=1", w1, sel1, spk1)):
@@ -963,13 +967,13 @@ def tdaa_phase(torch, dev, rng, wav, reqs):
               f"worst update rel L2 {worst:.3e} tol "
               f"{TOL['train_update_rel']:.0e}", flush=True)
 
-    # the classifier trainer on tdaa: K7 and K8 at H=600, stepwise
+    # the classifier trainer on tdaa: K7 at H=600 wide, K8 stepwise
     zero_counts(torch)
     make_classifier_step(cfg)(create_train_state(cfg, model=model), feats)
     launches, bodies = read_counts(torch, total)
     print(f"tdaa classifier step: launches {launches}, bodies {bodies}",
           flush=True)
-    if bodies != {("lstm_fwd", step_): clayers, ("lstm_bwd", step_): clayers}:
+    if bodies != {("lstm_fwd", wide): clayers, ("lstm_bwd", step_): clayers}:
         fail(f"tdaa classifier step ran the bodies {bodies}")
 
     # remat: the same gradients, bit for bit, from a recompute of each
@@ -3011,8 +3015,8 @@ def main(argv=None) -> int:
 
     # K7 and K8 at the classifier's shapes (T=313, D=2, H=300): B=16 in
     # f32 and bf16, a B=1 request, B=32 (two resident launches) and, for
-    # K8, B=128 (seven), and B=16 at H=600 (the TDAA classifier width,
-    # stepwise): the backward runs on the forward's own hs and cs
+    # K8, B=128 (seven), and B=16 at H=600 (the TDAA classifier width: K7
+    # wide, K8 stepwise): the backward runs on the forward's own hs and cs
     def lstm_case(hidden, dt, batch=BATCH):
         sc = 1.0 / np.sqrt(hidden)
         x7 = tensor(0.5 * rng.standard_normal((T, 2, batch, 4 * hidden)), dt)
@@ -3914,8 +3918,10 @@ def main(argv=None) -> int:
     def fwd_sweep():
         """K2 and K7 per layer, both bodies, by batch at H=300 (f32; bf16
         at B=1 and 16), beside the body the rule names: the numbers the
-        forward's RESIDENT_MAX_CHUNKS follows. K7 also at H=600, where only
-        the stepwise body runs."""
+        forward's RESIDENT_MAX_CHUNKS follows. K7 also at H=600 in its wide
+        and stepwise bodies at B=1, 16, 32 and 48, the numbers
+        WIDE_MAX_BATCH follows; B=1 and 16 go on K7's row of the `kernels`
+        line as `h600_ms`."""
         sc = 1.0 / np.sqrt(H)
         for name, gates in (("gru_fwd", 3), ("lstm_fwd", 4)):
             w = tensor(rng.uniform(-sc, sc, (2, H, gates * H)))
@@ -3940,10 +3946,22 @@ def main(argv=None) -> int:
                     print(f"time {name} B={batch} {label} per layer ms: "
                           + ", ".join(parts) + f" (rule: {rule})", flush=True)
                 del x
-        wide = k7_args[f"f32 H={WIDE}"]
-        print(f"time lstm_fwd f32 H={WIDE} B={BATCH} per layer ms: stepwise "
-              f"{device_ms(torch, lambda: k2.lstm_scan_cuda(*wide), 5):.4f}",
-              flush=True)
+        sc = 1.0 / np.sqrt(WIDE)
+        w = tensor(rng.uniform(-sc, sc, (2, WIDE, 4 * WIDE)))
+        row = next(r for r in kernels if r["name"] == "lstm_fwd")
+        row["h600_ms"] = {}
+        for batch in (1, BATCH, 2 * BATCH, 3 * BATCH):
+            x = tensor(0.5 * rng.standard_normal((T, 2, batch, 4 * WIDE)))
+            ms = {body: device_ms(torch, lambda: k2.lstm_scan_cuda(
+                      x, w, body=body), 5 if batch <= BATCH else 3)
+                  for body in (k2.BODY_WIDE, k2.BODY_STEPWISE)}
+            if batch in (1, BATCH):
+                row["h600_ms"][f"B={batch}"] = ms
+            print(f"time lstm_fwd f32 H={WIDE} B={batch} per layer ms: "
+                  + ", ".join(f"{b} {v:.4f}" for b, v in ms.items())
+                  + f" (rule: {k2.rnn_body(WIDE, batch, sms=SMS)})",
+                  flush=True)
+            del x
 
     with torch.inference_mode():
         fwd_sweep()

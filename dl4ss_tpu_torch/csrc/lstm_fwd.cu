@@ -18,14 +18,16 @@
 // per layer, ~0.11 ms at the f32 CUDA-core rate. As for K2 (gru_fwd.cu) the
 // real limit is the 313 dependent steps.
 //
-// Design, after K2: two bodies, named to the entry point by the caller
+// Design, after K2: three bodies, named to the entry point by the caller
 // (ops/rnn_kernels.py::rnn_body, by shape alone). The resident body is
 // rnn_fwd_common.cuh's chain with LstmFwdCell below: c stays in the owner
-// thread's register for all steps. The stepwise body stays for the widths
-// the registers cannot hold (H > 304, the TDAA classifier's H=600 among
-// them): one kernel per step from a C loop (one ctypes call per layer),
-// each costing a launch and one pass over U (1.44 MB per direction in f32
-// at H=300, L2-resident).
+// thread's register for all steps. The wide body (rnn_fwd_wide.cuh, the same
+// cell) is one persistent launch for the widths the registers cannot hold
+// (H > 304, the TDAA classifier's H=600 among them), with each direction's
+// U held once in the blocks' shared memory. The stepwise body takes every
+// other shape: one kernel per step from a C loop (one ctypes call per
+// layer), each costing a launch and one pass over U (1.44 MB per direction
+// in f32 at H=300, L2-resident).
 //
 // Design of one step of the stepwise body: a block owns K7_JT hidden units
 // j of one direction for a tile of up to K7_BT batch rows, whose h_prev (=
@@ -40,6 +42,7 @@
 // KB at H=1024. Past H=5216 the block exceeds the 227 KB limit: the opt-in
 // then fails, the entry point returns its error and the wrapper raises.
 #include "rnn_fwd_common.cuh"
+#include "rnn_fwd_wide.cuh"
 
 namespace {
 
@@ -185,6 +188,11 @@ cudaError_t run(const void* xp, const void* wh, void* hs, void* cs, void* c,
         {xp, wh, nullptr, hs, cs, static_cast<unsigned int*>(tickets), steps,
          D, B, H, 0, 0, 0},
         groups, chunk, stream);
+  if (body == dl4ss::BODY_WIDE)
+    return dl4ss::wide::fwd_chain<T, LstmFwdCell>(
+        {xp, wh, hs, cs, static_cast<unsigned int*>(tickets), steps, D, B, H,
+         0, 0, 0, 0},
+        groups, stream);
   if (body == dl4ss::BODY_STEPWISE)
     return run_stepwise<T>(xp, wh, hs, cs, c, steps, D, B, H, stream);
   return cudaErrorInvalidValue;
@@ -193,13 +201,14 @@ cudaError_t run(const void* xp, const void* wh, void* hs, void* cs, void* c,
 }  // namespace
 
 // xp (T, D, B, 4H) and wh (D, H, 4H) in f32, or both in bf16 (bf16 != 0);
-// hs, cs (T, D, B, H) in the input dtype. body: 1 resident, 2 stepwise; the
-// resident body returns an error for a shape it cannot hold. Resident:
-// tickets = `groups` zeroed 32-bit counters, one per direction and 4 batch
-// rows (any other count is refused), and the batch runs in chunks of
-// `chunk` rows (a multiple of 4), one launch each. Stepwise: c (D, B, H) f32
-// scratch (the cell carry; it need not be initialised). What a body does not
-// use may be null.
+// hs, cs (T, D, B, H) in the input dtype. body: 1 resident, 2 stepwise, 3
+// wide; the resident and wide bodies return an error for a shape they
+// cannot hold. Resident: tickets = `groups` zeroed 32-bit counters, one per
+// direction and 4 batch rows (any other count is refused), and the batch
+// runs in chunks of `chunk` rows (a multiple of 4), one launch each. Wide:
+// tickets = `groups` = D zeroed counters, one launch; `chunk` is not read.
+// Stepwise: c (D, B, H) f32 scratch (the cell carry; it need not be
+// initialised). What a body does not use may be null.
 extern "C" int dl4ss_lstm_fwd(const void* xp, const void* wh, void* hs,
                               void* cs, void* c, void* tickets, int groups,
                               int chunk, int steps, int D, int B, int H,

@@ -15,18 +15,22 @@ and the time order is the caller's (the reverse direction is flipped
 outside), so D only sizes the grid, the tickets and the rows a resident
 launch holds.
 
-All four kernels have two bodies each. The resident one walks the whole
-chain of T steps in ONE persistent cooperative launch (per chunk of batch
-rows) with each block's slice of U in registers: the forward's
-(csrc/rnn_fwd_common.cuh) holds the gate columns of its units, the
-backward's (csrc/rnn_bwd_common.cuh) their rows, after the gate recompute
-for all steps at once and before a split dU reduction. The stepwise one
-launches a kernel per step. `rnn_body` is the only rule that picks between
-them, from the shape alone, for both passes; the launch names the body to
-the library, which refuses the resident body where it cannot run. The
-backward's resident arithmetic, which runs only on the card, has plain-torch
-mirrors here (`gru_bwd_resident_mirror`, `lstm_bwd_resident_mirror`) for the
-CPU tests; the forward's is the plain loop's, summed in another order.
+All four kernels have two bodies each, and K7 a third. The resident one
+walks the whole chain of T steps in ONE persistent cooperative launch (per
+chunk of batch rows) with each block's slice of U in registers: the
+forward's (csrc/rnn_fwd_common.cuh) holds the gate columns of its units,
+the backward's (csrc/rnn_bwd_common.cuh) their rows, after the gate
+recompute for all steps at once and before a split dU reduction. The
+stepwise one launches a kernel per step. K7's wide body
+(csrc/rnn_fwd_wide.cuh) is one persistent launch for the widths past the
+registers, with each direction's U held once in the blocks' shared memory
+for all batch rows. `rnn_body` is the only rule that picks between them,
+from the shape alone, for both passes; the launch names the body to the
+library, which refuses the resident and wide bodies where they cannot
+run. The backward's resident arithmetic, which runs only on the card, has
+plain-torch mirrors here (`gru_bwd_resident_mirror`,
+`lstm_bwd_resident_mirror`) for the CPU tests; the forward's is the plain
+loop's, summed in another order.
 """
 
 from __future__ import annotations
@@ -51,8 +55,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # csrc/rnn_resident.cuh the launch is refused, nothing is overrun.
 # RESIDENT_ROWS and DU_SPLIT size scratch, so the launch passes the sizes it
 # allocated and the library refuses any but its own.
-BODY_RESIDENT, BODY_STEPWISE = "resident", "stepwise"
-_BODY_CODES = {BODY_RESIDENT: 1, BODY_STEPWISE: 2}
+BODY_RESIDENT, BODY_STEPWISE, BODY_WIDE = "resident", "stepwise", "wide"
+_BODY_CODES = {BODY_RESIDENT: 1, BODY_STEPWISE: 2, BODY_WIDE: 3}
 RESIDENT_MAX_HIDDEN = 304
 RESIDENT_UNITS = 24
 RESIDENT_ROWS = 4
@@ -66,6 +70,18 @@ H100_SMS = 132
 # 12-14 ms against 22-24), the most measured.
 RESIDENT_MAX_CHUNKS = {"forward": 2, "backward": 7}
 DU_SPLIT = 16       # slices of the (t, b) axis in the dU reduction
+# K7's wide body (csrc/rnn_fwd_wide.cuh) for H > RESIDENT_MAX_HIDDEN: a
+# block holds the 4 gate columns of WIDE_UNITS hidden units of one direction
+# for every batch row, in shared memory, so D * ceil(H / WIDE_UNITS) blocks
+# must fit the card's SMs at once and `wide_smem_bytes` a block's limit,
+# SMEM_PER_BLOCK. Like RESIDENT_UNITS these only steer the rule: the library
+# computes its own and refuses what does not fit. WIDE_MAX_BATCH is the
+# most rows at which the wide body was measured to beat the stepwise one.
+WIDE_UNITS = 10
+WIDE_TILE_ROWS = 4
+WIDE_THREADS = 256
+SMEM_PER_BLOCK = 232448
+WIDE_MAX_BATCH = 48
 # Launches of K2, K5, K7 and K8 by the body that ran, keyed (kernel name,
 # body); cuda_lib.LAUNCHES counts both bodies under the kernel's name.
 BODY_LAUNCHES: collections.Counter = collections.Counter()
@@ -102,21 +118,42 @@ def resident_chunks(batch: int, hidden: int, directions: int = 2,
     return [(r, min(step, batch - r)) for r in range(0, batch, step)]
 
 
+def wide_smem_bytes(hidden: int, batch: int) -> int:
+    """Shared memory of a block of K7's wide body, as the library sizes it
+    (csrc/rnn_fwd_wide.cuh, `smem_bytes`): the block's U, 4 * WIDE_UNITS
+    f32 columns over H rows rounded up to 4, and the larger of the staged
+    rows (B rounded up to WIDE_TILE_ROWS, each ceil(H / 4) float4 made odd)
+    and the partial sums (2 * WIDE_TILE_ROWS float4 a thread)."""
+    kq, tr = _ceil_div(hidden, 4), WIDE_TILE_ROWS
+    return 16 * (4 * kq * WIDE_UNITS + max(
+        tr * _ceil_div(batch, tr) * (kq | 1), 2 * tr * WIDE_THREADS))
+
+
 def rnn_body(hidden: int, batch: int, directions: int = 2,
-             sms: int = H100_SMS, backward: bool = False) -> str:
+             sms: int = H100_SMS, backward: bool = False,
+             gates: int = 4) -> str:
     """The shape rule of K2 and K7 (forward) and K5 and K8 (`backward`) on
     the card: the resident body where a block's slice of U fits its
     registers (H <= 304) and the batch takes at most the pass's
     RESIDENT_MAX_CHUNKS launches of the grid that fits the card's `sms` SMs
     at once (at H=300 on 132 SMs 20 rows a launch: the forward's resident
-    body up to B=40, the backward's up to B=140); the stepwise body for
-    every other shape. The dtype does not enter: the slice is held in f32
-    either way. The launch is told the body by name; the library only
-    refuses the resident body on a shape it cannot take."""
-    chunks = resident_chunks(batch, hidden, directions, sms)
-    most = RESIDENT_MAX_CHUNKS["backward" if backward else "forward"]
-    if hidden <= RESIDENT_MAX_HIDDEN and 0 < len(chunks) <= most:
-        return BODY_RESIDENT
+    body up to B=40, the backward's up to B=140). Past H=304, K7's forward
+    (`gates` 4; K2 passes 3) takes the wide body where its D *
+    ceil(H / WIDE_UNITS) blocks fit the `sms` SMs (H <= 660 for both
+    directions on 132), a block fits SMEM_PER_BLOCK (at H=660 up to B=48)
+    and B <= WIDE_MAX_BATCH. Every other shape, every backward
+    past H=304 among them, takes the stepwise body. The dtype does not
+    enter: U is held in f32 either way. The launch is told the body by
+    name; the library only refuses the resident or wide body on a shape it
+    cannot take."""
+    if hidden <= RESIDENT_MAX_HIDDEN:
+        chunks = resident_chunks(batch, hidden, directions, sms)
+        most = RESIDENT_MAX_CHUNKS["backward" if backward else "forward"]
+        return BODY_RESIDENT if 0 < len(chunks) <= most else BODY_STEPWISE
+    if (not backward and gates == 4 and batch <= WIDE_MAX_BATCH
+            and directions * _ceil_div(hidden, WIDE_UNITS) <= sms
+            and wide_smem_bytes(hidden, batch) <= SMEM_PER_BLOCK):
+        return BODY_WIDE
     return BODY_STEPWISE
 
 
@@ -197,7 +234,7 @@ def gru_scan_cuda(xp: torch.Tensor, wh: torch.Tensor, bh_n: torch.Tensor,
     cuda_lib.check(wh, "wh", (xp.dtype,), (d, hidden, g3))
     cuda_lib.check(bh_n, "bh_n", (torch.float32,), (d, 1, hidden))
     dev = xp.device
-    chosen = body or rnn_body(hidden, b, d, _sms(dev))
+    chosen = body or rnn_body(hidden, b, d, _sms(dev), gates=3)
     hs = torch.empty((t, d, b, hidden), dtype=xp.dtype, device=dev)
     tickets = groups = chunk = 0
     if chosen != BODY_STEPWISE:
@@ -429,9 +466,9 @@ def lstm_scan_cuda(xp: torch.Tensor, wh: torch.Tensor,
                    body: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7 on the card: csrc/lstm_fwd.cu, one ctypes call per layer, with
-    the two bodies of `gru_scan_cuda` (`body` forces one; by default
-    `rnn_body` names it from the shape). Returns (hs, cs) as
-    `lstm_scan_plain`."""
+    the two bodies of `gru_scan_cuda` and the wide one, one launch with a
+    ticket per direction (`body` forces one; by default `rnn_body` names it
+    from the shape). Returns (hs, cs) as `lstm_scan_plain`."""
     t, d, b, hidden = _lstm_shape(xp)
     cuda_lib.check(xp, "xp", _DTYPES)
     cuda_lib.check(wh, "wh", (xp.dtype,), (d, hidden, 4 * hidden))
@@ -440,7 +477,9 @@ def lstm_scan_cuda(xp: torch.Tensor, wh: torch.Tensor,
     hs = torch.empty((t, d, b, hidden), dtype=xp.dtype, device=dev)
     cs = torch.empty_like(hs)
     carry = tickets = groups = chunk = 0
-    if chosen != BODY_STEPWISE:
+    if chosen == BODY_WIDE:
+        tickets, groups = torch.zeros(d, dtype=torch.int32, device=dev), d
+    elif chosen != BODY_STEPWISE:
         tickets, groups, chunk = _resident_scratch(dev, hidden, b, d)
     else:
         carry = torch.empty((d, b, hidden), dtype=torch.float32, device=dev)

@@ -328,21 +328,26 @@ def _rel(a, b):
 def _check_bodies(k, name, cuda, plain, args, h, tol, body, outs,
                   rtol=None):
     """One body of K2, K5, K7 or K8 against the plain version. The resident
-    body must refuse a width its registers cannot hold (H > 304), and
-    nothing may fall back: no launch is counted; a batch past one launch's
-    grid it walks in chunks. The stepwise body takes every shape that fits
-    its shared memory. The resident body is also held to the stepwise one,
-    and two back-to-back calls on one stream must agree bit for bit: that
-    guards the barrier's tickets, which each call gets zeroed. `rtol`
+    body must refuse a width its registers cannot hold (H > 304), the wide
+    body every kernel but K7, and nothing may fall back: no launch is
+    counted; a batch past one launch's grid the resident body walks in
+    chunks. The stepwise body takes every shape that fits its shared
+    memory, the wide body every K7 shape the card holds (forced below
+    H=305 too). The resident and wide bodies are also held to the stepwise
+    one, and two back-to-back calls on one stream must agree bit for bit:
+    that guards the barrier's tickets, which each call gets zeroed. `rtol`
     defaults to `tol`."""
     from dl4ss_tpu_torch.ops import cuda_lib
     rtol = tol if rtol is None else rtol
     sms = torch.cuda.get_device_properties(args[0].device)
     rule = k.rnn_body(h, args[0].shape[2], args[0].shape[1],
                       sms=sms.multi_processor_count,
-                      backward=name.endswith("_bwd"))
-    if body == "resident" and h > k.RESIDENT_MAX_HIDDEN:
-        assert rule == "stepwise"
+                      backward=name.endswith("_bwd"),
+                      gates=3 if name.startswith("gru") else 4)
+    if ((body == "resident" and h > k.RESIDENT_MAX_HIDDEN)
+            or (body == "wide" and name != "lstm_fwd")):
+        if h > k.RESIDENT_MAX_HIDDEN:
+            assert rule == ("wide" if name == "lstm_fwd" else "stepwise")
         before = dict(k.BODY_LAUNCHES), dict(cuda_lib.LAUNCHES)
         with pytest.raises(RuntimeError, match=f"{name} failed"):
             cuda(*args, body=body)
@@ -362,7 +367,7 @@ def _check_bodies(k, name, cuda, plain, args, h, tol, body, outs,
         assert g.shape == r.shape and g.dtype == r.dtype, what
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=rtol,
                                    msg=what)
-    if body == "resident":
+    if body in ("resident", "wide"):
         for what, g, g2, r in zip(outs, got, outputs(cuda, body=body),
                                   outputs(cuda, body="stepwise")):
             assert torch.equal(g, g2), what
@@ -396,13 +401,21 @@ def test_k2_gru_fwd_bodies(dev, t, b, h, dtype, tol, body):
                   tol, body, ("hs",), rtol=0)
 
 
-@pytest.mark.parametrize("t,b,h", FWD_SHAPES + [(3, 5, 600)])
+# K7's wide body: B=1, a ragged B=5, B=16 and the rule's largest batch at
+# H=600 (the TDAA classifier width) and at H=660, the widest whose blocks
+# (2 * 66) fit the 132 SMs
+WIDE_SHAPES = [(3, 1, 600), (3, 5, 600), (3, 16, 600), (2, 48, 600),
+               (2, 1, 660), (2, 48, 660)]
+
+
+@pytest.mark.parametrize("t,b,h", FWD_SHAPES + WIDE_SHAPES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("body", ["resident", "stepwise"])
+@pytest.mark.parametrize("body", ["resident", "stepwise", "wide"])
 def test_k7_lstm_fwd_bodies(dev, t, b, h, dtype, tol, body):
-    """K7, both bodies, hs and cs against its plain version; tolerances as
-    for K2. H=600 (the TDAA classifier width) is past the resident body."""
+    """K7, all three bodies, hs and cs against its plain version;
+    tolerances as for K2. Past H=304 the resident body refuses and the rule
+    names the wide one; below it the wide body runs when forced."""
     from dl4ss_tpu_torch.ops import rnn_kernels as k
     rng = np.random.default_rng(17)
     s = 1 / np.sqrt(h)
@@ -413,13 +426,17 @@ def test_k7_lstm_fwd_bodies(dev, t, b, h, dtype, tol, body):
 
 
 # one-direction layers (D = 1): at H=300 one launch of the resident body
-# takes 40 rows on 132 SMs (10 tiles of 13 blocks), so B=44 takes two
-@pytest.mark.parametrize("t,b,h", [(7, 1, 37), (5, 17, 300), (3, 44, 300)])
-@pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("body", ["resident", "stepwise"])
+# takes 40 rows on 132 SMs (10 tiles of 13 blocks), so B=44 takes two; the
+# LSTM at H=600 (the classifier's width, which no GRU has) takes the wide
+# body forward (60 blocks)
+@pytest.mark.parametrize("cell,t,b,h", [
+    (cell, *shape) for cell in ("gru", "lstm")
+    for shape in ((7, 1, 37), (5, 17, 300), (3, 44, 300))]
+    + [("lstm", 3, 16, 600)])
+@pytest.mark.parametrize("body", ["resident", "stepwise", "wide"])
 def test_one_direction_kernels(dev, t, b, h, cell, body):
     """K2 and K5 (GRU) or K7 and K8 (LSTM) with D = 1, the layout of a
-    one-direction layer, both bodies, against the plain versions in f32
+    one-direction layer, every body, against the plain versions in f32
     (summation order only: 1e-4), the backward on the forward's own
     states."""
     from dl4ss_tpu_torch.ops import rnn_kernels as k
@@ -864,8 +881,8 @@ def test_selected_and_recursive_serving_launch_k7(dev):
 
 def test_k7_k8_stepwise_at_the_tdaa_classifier_width(dev):
     """The tdaa classifier's BiLSTM at 2H = 600, past the resident body's
-    width: K7 and K8 run the stepwise body and match their plain versions
-    (forward max abs, backward relative L2, f32)."""
+    width: K7 runs the wide body and K8 the stepwise one, and both match
+    their plain versions (forward max abs, backward relative L2, f32)."""
     from dl4ss_tpu_torch.ops import rnn_kernels as k
     t, b, h = 40, 16, 600
     rng = np.random.default_rng(60)
@@ -873,7 +890,8 @@ def test_k7_k8_stepwise_at_the_tdaa_classifier_width(dev):
     xp = _t(0.5 * rng.standard_normal((t, 2, b, 4 * h)), dev)
     wh = _t(rng.uniform(-sc, sc, (2, h, 4 * h)), dev)
     dhs = _t(rng.standard_normal((t, 2, b, h)), dev)
-    assert k.rnn_body(h, b) == k.rnn_body(h, b, backward=True) == "stepwise"
+    assert k.rnn_body(h, b) == "wide"
+    assert k.rnn_body(h, b, backward=True) == "stepwise"
     before = dict(k.BODY_LAUNCHES)
     hs, cs = k.lstm_scan_cuda(xp, wh)
     ref_hs, ref_cs = k.lstm_scan_plain(xp, wh)
@@ -886,9 +904,50 @@ def test_k7_k8_stepwise_at_the_tdaa_classifier_width(dev):
     ref = k.lstm_scan_bwd_plain(*args)
     for g, r in zip(got, ref):
         assert float((g - r).norm() / r.norm()) < 1e-4
-    for name in ("lstm_fwd", "lstm_bwd"):
-        assert (k.BODY_LAUNCHES[name, "stepwise"]
-                == before.get((name, "stepwise"), 0) + 1)
+    for name, body in (("lstm_fwd", "wide"), ("lstm_bwd", "stepwise")):
+        assert (k.BODY_LAUNCHES[name, body]
+                == before.get((name, body), 0) + 1)
+
+
+def test_k7_wide_body_at_its_edges(dev):
+    """The wide body at the edges of the rule on this card: the widest H
+    whose D * ceil(H / 10) blocks fit its SMs, both directions at the rule's
+    most rows there (48 at H=660 on 132 SMs, where a block's shared memory
+    ends too), and one direction at B=1 at the widest H that fits a block
+    (1248), each named by the rule and matching the plain version (f32,
+    1e-4); one width and one row past what the library holds are refused,
+    no launch counted."""
+    from dl4ss_tpu_torch.ops import cuda_lib
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    widest = k.WIDE_UNITS * (sms // 2)
+    rows = max(b for b in range(1, 200)
+               if k.wide_smem_bytes(widest, b) <= k.SMEM_PER_BLOCK)
+    lone = max(h for h in range(305, 2000)
+               if k.wide_smem_bytes(h, 1) <= k.SMEM_PER_BLOCK
+               and -(-h // k.WIDE_UNITS) <= sms)
+    rng = np.random.default_rng(61)
+
+    def args(t, d, b, h):
+        sc = 1.0 / np.sqrt(h)
+        return (_t(0.5 * rng.standard_normal((t, d, b, 4 * h)), dev),
+                _t(rng.uniform(-sc, sc, (d, h, 4 * h)), dev))
+
+    for t, d, b, h in ((2, 2, min(rows, k.WIDE_MAX_BATCH), widest),
+                       (2, 1, 1, lone)):
+        assert k.rnn_body(h, b, d, sms=sms) == "wide"
+        xp, wh = args(t, d, b, h)
+        for g, r in zip(k.lstm_scan_cuda(xp, wh), k.lstm_scan_plain(xp, wh)):
+            torch.testing.assert_close(g, r, atol=1e-4, rtol=0)
+    for t, d, b, h in ((2, 2, 1, widest + 1), (2, 2, rows + 1, widest),
+                       (2, 1, 1, lone + 1)):
+        assert k.rnn_body(h, b, d, sms=sms) == "stepwise"
+        xp, wh = args(t, d, b, h)
+        before = dict(k.BODY_LAUNCHES), dict(cuda_lib.LAUNCHES)
+        with pytest.raises(RuntimeError, match="lstm_fwd failed"):
+            k.lstm_scan_cuda(xp, wh, body="wide")
+        torch.cuda.synchronize()
+        assert (dict(k.BODY_LAUNCHES), dict(cuda_lib.LAUNCHES)) == before
 
 
 def _tdaa_small(**over):

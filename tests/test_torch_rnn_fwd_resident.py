@@ -76,18 +76,28 @@ def test_lstm_scan_matches_pallas_lstm_scan(dtype, tol, t, b, h):
 
 # the shapes of the main paths (torch_multi: H=300 at B=16 a step or a
 # batch, B=1 a request), the edge of one launch (B=20), the card tests'
-# batches past it, and widths past the registers (H=600, the TDAA
-# classifier)
+# batches past it, and widths past the registers: K7's wide body from
+# H=305 to H=660 (the TDAA classifier's H=600 among them) up to
+# WIDE_MAX_BATCH rows, and one row and one width past it
+WIDE = {(305, 1), (600, 1), (600, 5), (600, 16), (600, 48), (660, 1),
+        (660, 48)}
+
+
 @pytest.mark.parametrize("hidden,batch", [
     (300, 1), (300, 16), (300, 20), (300, 21), (300, 32), (300, 40),
     (300, 41), (300, 128),
-    (37, 32), (8, 512), (304, 16), (305, 1), (600, 5), (600, 16)])
+    (37, 32), (8, 512), (304, 16), (305, 1), (600, 5), (600, 16),
+    (600, 1), (600, 48), (600, 49), (660, 1), (660, 48), (660, 49),
+    (661, 1)])
 def test_rnn_body_and_its_chunks(hidden, batch):
     """Resident where H <= 304 and the batch needs at most the forward's
     RESIDENT_MAX_CHUNKS launches (2: the measurements at B=32 and B=48 on
     the card) of the grid that fits the 132 SMs, each
     launch 2 * ceil(rows / 4) * ceil(H / 24) blocks; the chunks cover every
-    row once, in order."""
+    row once, in order. Past H=304 K7's forward takes the wide body where
+    its 2 * ceil(H / 10) blocks fit the SMs (H <= 660) and B <= 48 (at
+    H=660 also the last row a block's shared memory holds); K2's forward
+    and every backward take the stepwise one."""
     rows = k.resident_chunk_rows(hidden)
     chunks = k.resident_chunks(batch, hidden)
     assert [r for r0, n in chunks for r in range(r0, r0 + n)] == list(
@@ -98,12 +108,20 @@ def test_rnn_body_and_its_chunks(hidden, batch):
     want = ("resident" if hidden <= 304
             and len(chunks) <= k.RESIDENT_MAX_CHUNKS["forward"]
             else "stepwise")
-    assert k.rnn_body(hidden, batch) == want
+    assert k.rnn_body(hidden, batch, gates=3) == want
+    if hidden <= 304:
+        assert k.rnn_body(hidden, batch) == want
     if hidden == 300:
         assert rows == 20
         assert want == ("resident" if batch <= 40 else "stepwise")
     if hidden > 304:
         assert want == "stepwise"
+        assert k.rnn_body(hidden, batch) == (
+            "wide" if (hidden, batch) in WIDE else "stepwise")
+        assert k.rnn_body(hidden, batch, gates=3) == "stepwise"
+        assert k.rnn_body(hidden, batch, backward=True) == "stepwise"
+        fits = k.wide_smem_bytes(hidden, batch) <= k.SMEM_PER_BLOCK
+        assert fits == ((hidden, batch) not in {(660, 49)})
 
 
 def test_rnn_body_takes_the_sm_count_from_its_argument():
@@ -115,3 +133,22 @@ def test_rnn_body_takes_the_sm_count_from_its_argument():
     assert k.resident_chunk_rows(300, sms=25) == 0
     assert k.rnn_body(300, 1, sms=25) == "stepwise"
     assert k.rnn_body(300, 16, sms=10_000) == "resident"
+
+
+def test_wide_body_takes_the_sm_count_and_directions():
+    """K7's wide body at H=600 needs 60 blocks a direction: both
+    directions fit 120 SMs and not 119, one direction 60 and not 59; no SM
+    count makes it take a backward, and a block that misses its shared
+    memory (D = 1 past H=1248 at B=1, 4 * 10 f32 columns of U a row) is
+    stepwise however many SMs there are."""
+    assert k.rnn_body(600, 16, sms=120) == "wide"
+    assert k.rnn_body(600, 16, sms=119) == "stepwise"
+    assert k.rnn_body(600, 16, directions=1, sms=60) == "wide"
+    assert k.rnn_body(600, 16, directions=1, sms=59) == "stepwise"
+    assert k.rnn_body(600, 16, sms=10_000, backward=True) == "stepwise"
+    assert k.rnn_body(1248, 1, directions=1) == "wide"
+    assert k.rnn_body(1249, 1, directions=1, sms=10_000) == "stepwise"
+    # U 96,000 bytes, the larger of 16 staged rows of 151 float4 and the
+    # 2,048 float4 of partial sums
+    assert k.wide_smem_bytes(600, 16) == 16 * (6000 + 16 * 151) == 134656
+    assert k.wide_smem_bytes(600, 1) == 16 * (6000 + 2048)
