@@ -5,7 +5,8 @@ Rebuilds the reference's video path (Torch_multi/predata.py:37-51,161-184):
 frames are extracted from `.mpg`/`.mp4` clips with an ffmpeg subprocess at a
 fixed fps, then read back as resized RGB arrays. Machines without ffmpeg can
 point `load_frame_dir` at pre-extracted frame directories instead — the
-on-device side only ever sees (B, T_frames, H, W, 3) float arrays.
+on-device side sees (B, T_frames, H, W, 3) float arrays, or uint8 pixel
+values that the trunk normalizes where it reads them.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ _VIDEO_EXTS = (".mpg", ".mpeg", ".mp4", ".avi", ".mov")
 def speaker_frame_bank(root, total_frames: int,
                        size: Tuple[int, int] = (48, 48),
                        clips_per_speaker: Optional[int] = None,
-                       fps: int = 25):
+                       fps: int = 25, dtype=np.float32):
     """GRID-style speaker tree -> per-speaker clip bank.
 
     Layout (the reference pairs each speaker's lip videos with their audio,
@@ -82,10 +83,13 @@ def speaker_frame_bank(root, total_frames: int,
         root/<speaker>/<clip>.mpg|.mp4|...   (extracted via ffmpeg into
                                               root/.frames_cache/)
 
-    Returns (bank (S, C, T, H, W, 3) float32, idx2spk dict). Every speaker
+    Returns (bank (S, C, T, H, W, 3), idx2spk dict). Every speaker
     contributes the same static clip count C (min across speakers, or
     `clips_per_speaker`); speakers with fewer clips cycle their existing
-    ones — static shapes keep the downstream gather simple.
+    ones — static shapes keep the downstream gather simple. The bank is
+    float32 in [-1, 1], or with dtype=np.uint8 the frames' pixel values,
+    which `models.query.normalize_frames` maps to the float bank's values
+    exactly, at a quarter of its size.
     """
     speakers = sorted(d for d in os.listdir(root)
                       if os.path.isdir(os.path.join(root, d))
@@ -114,8 +118,10 @@ def speaker_frame_bank(root, total_frames: int,
             raise FileNotFoundError(f"speaker {spk!r} has no clips")
         per_spk.append(clip_dirs)
     n_clips = clips_per_speaker or min(len(c) for c in per_spk)
+    raw = np.dtype(dtype) == np.uint8
     bank = np.stack([
-        np.stack([load_frame_dir(clips[c % len(clips)], total_frames, size)
+        np.stack([load_frame_dir(clips[c % len(clips)], total_frames, size,
+                                 normalize=not raw).astype(dtype)
                   for c in range(n_clips)])
         for clips in per_spk])
     return bank, {i: s for i, s in enumerate(speakers)}
@@ -124,12 +130,14 @@ def speaker_frame_bank(root, total_frames: int,
 def synthetic_frame_bank(num_speakers: int, clips_per_speaker: int = 2,
                          total_frames: int = 4,
                          size: Tuple[int, int] = (48, 48),
-                         seed: int = 0) -> np.ndarray:
+                         seed: int = 0, dtype=np.float32) -> np.ndarray:
     """Deterministic speaker-identifiable 'lip video' stand-in
     (S, C, T, H, W, 3): a speaker-keyed spatial pattern with per-clip phase
     jitter and per-frame motion, so the video-query pipeline can be trained
     and tested with no GRID download — the counterpart of the MNIST glyph
-    fallback (data/mnist.py synthetic_digits)."""
+    fallback (data/mnist.py synthetic_digits). float32 values lie in
+    [0, 1]; dtype=np.uint8 gives them as pixel values, round(255 v), which
+    the trunk reads as an image's (`models.query.normalize_frames`)."""
     rng = np.random.default_rng(seed)
     h, w = size
     yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
@@ -146,4 +154,6 @@ def synthetic_frame_bank(num_speakers: int, clips_per_speaker: int = 2,
                              + phase + motion)
                 frame = 0.5 + 0.4 * pat + 0.05 * rng.standard_normal((h, w))
                 bank[s, c, t] = np.clip(frame, 0, 1)[..., None]
+    if np.dtype(dtype) == np.uint8:
+        return np.round(bank * 255.0).astype(np.uint8)
     return bank

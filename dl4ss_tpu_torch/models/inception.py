@@ -132,7 +132,13 @@ def init_inception_v3(num_classes: int = 1000, generator=None, device=None
 def _basic_conv(p: BasicConv2d, x: torch.Tensor, stride=(1, 1),
                 padding: str = "VALID") -> torch.Tensor:
     y = conv2d_nchw(x, p.w, stride, padding)
-    return F.relu(y * p.scale[:, None, None] + p.shift[:, None, None])
+    scale, shift = p.scale[:, None, None], p.shift[:, None, None]
+    if torch.is_grad_enabled():
+        return F.relu(y * scale + shift)
+    # the frozen trunk: the same arithmetic in place, so that a layer holds
+    # its input and its output and no temporaries (thousands of 299x299
+    # frames a step)
+    return y.mul_(scale).add_(shift).relu_()
 
 
 def _avg_pool(x: torch.Tensor) -> torch.Tensor:

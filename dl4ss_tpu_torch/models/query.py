@@ -32,6 +32,7 @@ from dl4ss_tpu_torch.device import resolve_device
 from dl4ss_tpu_torch.models.common import (conv2d, conv_init, linear,
                                            linear_init)
 from dl4ss_tpu_torch.ops.rnn import bidirectional_rnn, rnn_init
+from dl4ss_tpu_torch.utils.profiling import span
 
 
 def masked_mean_pool(x: torch.Tensor, mask: Optional[torch.Tensor] = None
@@ -151,32 +152,48 @@ def init_video_query(cfg: Config, num_speakers: Optional[int] = None,
                       generator, device)
 
 
+def normalize_frames(frames: torch.Tensor) -> torch.Tensor:
+    """uint8 pixel values -> float32 in [-1, 1] as `load_frame_dir`
+    (data/video.py) normalizes them: x / 127.5 - 1, the same two roundings,
+    so the result is bit-equal to the float bank's. Float frames pass
+    through unchanged. A bank held as uint8 takes a quarter of the float
+    bank's memory and is normalized where the trunk reads the frames."""
+    if frames.dtype == torch.uint8:
+        return frames.float() / 127.5 - 1.0
+    return frames
+
+
 def video_features(params: VideoQuery, frames: torch.Tensor) -> torch.Tensor:
-    """frames (N, H, W, 3) -> per-frame features (N, D) of the trunk. The
-    Inception trunk is FROZEN, as the reference keeps its pretrained
-    Inception-v3 fixed (main_run.py:232-243) and JAX stop-gradients its
-    parameters: it runs without autograd, so its parameters get zero
-    gradients (and zero Adam updates)."""
-    if hasattr(params, "inception"):
-        from dl4ss_tpu_torch.models.inception import apply_inception_v3
-        with torch.no_grad():
-            return apply_inception_v3(params.inception, frames)[2]
-    # SAME padding keeps small lip crops (16x16 up) from collapsing to zero
-    # spatial size before the global pool
-    x = F.relu(conv2d(params.conv0, frames, stride=(4, 4), padding="SAME"))
-    x = F.relu(conv2d(params.conv1, x, stride=(3, 3), padding="SAME"))
-    x = F.relu(conv2d(params.conv2, x, stride=(2, 2), padding="SAME"))
-    return x.mean(dim=(1, 2))                         # global average pool
+    """frames (N, H, W, 3), float or uint8 (`normalize_frames`) -> per-frame
+    features (N, D) of the trunk. The Inception trunk is FROZEN, as the
+    reference keeps its pretrained Inception-v3 fixed (main_run.py:232-243)
+    and JAX stop-gradients its parameters: it runs without autograd, so its
+    parameters get zero gradients (and zero Adam updates)."""
+    with span("video_trunk"):
+        frames = normalize_frames(frames)
+        if hasattr(params, "inception"):
+            from dl4ss_tpu_torch.models.inception import apply_inception_v3
+            with torch.no_grad():
+                return apply_inception_v3(params.inception, frames)[2]
+        # SAME padding keeps small lip crops (16x16 up) from collapsing to
+        # zero spatial size before the global pool
+        x = F.relu(conv2d(params.conv0, frames, stride=(4, 4),
+                          padding="SAME"))
+        x = F.relu(conv2d(params.conv1, x, stride=(3, 3), padding="SAME"))
+        x = F.relu(conv2d(params.conv2, x, stride=(2, 2), padding="SAME"))
+        return x.mean(dim=(1, 2))                     # global average pool
 
 
 def apply_video_query(params: VideoQuery, frames: torch.Tensor,
                       kernels: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """frames (B, T, H, W, 3) -> (speaker logits (B, S), query (B, E)):
-    frame features -> BiLSTM -> last timestep -> Dense(E) -> (logits,
-    hidden query) (VIDEO_QUERY.forward, main_run.py:246-256)."""
-    b, t = frames.shape[:2]
-    x = video_features(params, frames.reshape((b * t,) + frames.shape[2:]))
-    h = query_rnn(params.rnn, x.reshape(b, t, -1), kernels)
-    query = linear(params.dense, h[:, -1])
-    return linear(params.logits, query), query
+    """frames (B, T, H, W, 3), float or uint8 -> (speaker logits (B, S),
+    query (B, E)): frame features -> BiLSTM -> last timestep -> Dense(E) ->
+    (logits, hidden query) (VIDEO_QUERY.forward, main_run.py:246-256)."""
+    with span("query"):
+        b, t = frames.shape[:2]
+        x = video_features(params,
+                           frames.reshape((b * t,) + frames.shape[2:]))
+        h = query_rnn(params.rnn, x.reshape(b, t, -1), kernels)
+        query = linear(params.dense, h[:, -1])
+        return linear(params.logits, query), query

@@ -10,6 +10,7 @@ import json
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from dl4ss_tpu_torch.config import Config, preset, preset_names
@@ -183,10 +184,14 @@ def frame_hw(args) -> tuple:
 def load_frame_bank(cfg: Config, args, hw, seed: int):
     """(S, C, T, H, W, 3) lip-frame bank (numpy): a GRID-style tree
     (--video-root, paired speaker-for-speaker with the audio bank,
-    Torch_multi/predata.py:161-184) or the synthetic per-speaker bank."""
+    Torch_multi/predata.py:161-184) or the synthetic per-speaker bank; in
+    float32, or as uint8 pixel values under --frame-dtype uint8, which the
+    trunk normalizes on the card."""
+    dtype = np.dtype(getattr(args, "frame_dtype", "float32"))
     if args.video_root:
         from dl4ss_tpu_torch.data.video import speaker_frame_bank
-        frames, _ = speaker_frame_bank(args.video_root, args.frames, size=hw)
+        frames, _ = speaker_frame_bank(args.video_root, args.frames, size=hw,
+                                       dtype=dtype)
         if frames.shape[0] != cfg.num_speakers:
             raise SystemExit(
                 f"--video-root has {frames.shape[0]} speakers but the audio "
@@ -195,4 +200,4 @@ def load_frame_bank(cfg: Config, args, hw, seed: int):
         return frames
     from dl4ss_tpu_torch.data.video import synthetic_frame_bank
     return synthetic_frame_bank(cfg.num_speakers, 2, args.frames, hw,
-                                seed=seed)
+                                seed=seed, dtype=dtype)

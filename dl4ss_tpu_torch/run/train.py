@@ -106,6 +106,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="video queries: frames per clip")
     p.add_argument("--frame-size", type=int, default=48,
                    help="video queries: square frame edge in pixels")
+    p.add_argument("--frame-dtype", default="float32",
+                   choices=["float32", "uint8"],
+                   help="video queries: hold the lip-frame bank on the "
+                        "device as float32, or as uint8 pixel values (a "
+                        "quarter of the memory) normalized where the trunk "
+                        "reads them")
     p.add_argument("--video-trunk", default="conv",
                    choices=["conv", "inception"],
                    help="video queries: per-frame feature trunk; "

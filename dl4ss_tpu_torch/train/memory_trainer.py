@@ -52,6 +52,7 @@ from dl4ss_tpu_torch.models.query import (apply_image_query,
 from dl4ss_tpu_torch.train.metrics import MetricsWriter
 from dl4ss_tpu_torch.train.state import AdamState, make_optimizer
 from dl4ss_tpu_torch.train.steps import _backward_and_update
+from dl4ss_tpu_torch.utils.profiling import span
 
 # the log-spectral silence floor, MaskingGt(log(spacing(1) * 2))
 # (nnet.py:43-47, extend_layers.py:231-251)
@@ -193,13 +194,17 @@ def make_memory_train_step(cfg: Config, query_source: str = "speech",
     slot = _slot(query_source)
 
     def step(state: MemoryTrainState, feats: dict):
-        spk_id = feats["spk_id"]
-        vp = _voiceprint(state.model, feats, cfg, query_source)
-        # the differentiable in-graph write + select (the Keras graph path)
-        old = MemorySlots(state.memory.vectors.detach(), state.memory.age)
-        mem = memory_write_slot(old, spk_id, vp, slot, mesh=mesh)
-        masks, pred = _extract(state.model, mem, feats, cfg, slot, spk_id)
-        loss = _memory_loss(pred, masks, feats, cfg)
+        with span("forward"):
+            spk_id = feats["spk_id"]
+            vp = _voiceprint(state.model, feats, cfg, query_source)
+            # the differentiable in-graph write + select (the Keras graph
+            # path)
+            old = MemorySlots(state.memory.vectors.detach(),
+                              state.memory.age)
+            mem = memory_write_slot(old, spk_id, vp, slot, mesh=mesh)
+            masks, pred = _extract(state.model, mem, feats, cfg, slot,
+                                   spk_id)
+            loss = _memory_loss(pred, masks, feats, cfg)
         grad_norm = _backward_and_update(list(state.model.parameters()),
                                          state.opt_state, opt, loss, mesh)
         # the out-of-graph persistent update (update_memory semantics)

@@ -47,6 +47,7 @@ from dl4ss_tpu_torch.train.state import (TrainState, create_train_state,
                                          generator_params, make_optimizer)
 from dl4ss_tpu_torch.train.steps import (_backward_and_update,
                                          _mixture_phasor)
+from dl4ss_tpu_torch.utils.profiling import span
 
 
 def init_query_separator(cfg: Config, query_source: str = "video",
@@ -109,34 +110,37 @@ def make_query_train_step(cfg: Config, query_source: str = "video",
     opt = make_optimizer(cfg, steps_per_epoch)
 
     def step(state: TrainState, feats: dict):
-        model = state.model
-        live = feats["channel_live"].float()
-        queries, logits = _queries_and_logits(model, feats, cfg,
-                                              query_source)
-        out = model(feats["mix_feas"], cfg, queries=queries,
-                    mix_ri=feats.get("mix_ri"))
-        pred = out.pred * live[..., None, None]
-        if cfg.loss_mode == "si_sdr":
-            # time-domain fine-tune through the mixture-phase iSTFT;
-            # channels are query-designated, so the assignment is identity
-            wavs = istft_cfg(pred.float() * _mixture_phasor(
-                feats["mix_ri"])[:, None], cfg, length=cfg.max_len)
-            scores = si_sdr(wavs, feats["source_wavs"])
-            mask_l = -(scores * live).sum() / torch.clamp(live.sum(),
-                                                          min=1.0)
-        elif cfg.loss_mode == "pit":
-            mask_l, _ = pit_loss(pred, feats["src_feas"])
-        else:
-            mask_l = mask_mse_loss(pred, feats["src_feas"], live)
-        total = mask_l
-        metrics = {"mask_loss": mask_l.detach()}
-        if logits is not None and aux_class_weight > 0:
-            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
-                                 feats["spk_idx"].reshape(-1).long(),
-                                 reduction="none").reshape(live.shape)
-            ce = (ce * live).mean()
-            total = total + aux_class_weight * ce
-            metrics["query_ce"] = ce.detach()
+        with span("forward"):
+            model = state.model
+            live = feats["channel_live"].float()
+            queries, logits = _queries_and_logits(model, feats, cfg,
+                                                  query_source)
+            out = model(feats["mix_feas"], cfg, queries=queries,
+                        mix_ri=feats.get("mix_ri"))
+            pred = out.pred * live[..., None, None]
+            if cfg.loss_mode == "si_sdr":
+                # time-domain fine-tune through the mixture-phase iSTFT;
+                # channels are query-designated, so the assignment is
+                # identity
+                wavs = istft_cfg(pred.float() * _mixture_phasor(
+                    feats["mix_ri"])[:, None], cfg, length=cfg.max_len)
+                scores = si_sdr(wavs, feats["source_wavs"])
+                mask_l = -(scores * live).sum() / torch.clamp(live.sum(),
+                                                              min=1.0)
+            elif cfg.loss_mode == "pit":
+                mask_l, _ = pit_loss(pred, feats["src_feas"])
+            else:
+                mask_l = mask_mse_loss(pred, feats["src_feas"], live)
+            total = mask_l
+            metrics = {"mask_loss": mask_l.detach()}
+            if logits is not None and aux_class_weight > 0:
+                ce = F.cross_entropy(
+                    logits.reshape(-1, logits.shape[-1]).float(),
+                    feats["spk_idx"].reshape(-1).long(),
+                    reduction="none").reshape(live.shape)
+                ce = (ce * live).mean()
+                total = total + aux_class_weight * ce
+                metrics["query_ce"] = ce.detach()
         grad_norm = _backward_and_update(generator_params(model),
                                          state.opt_state, opt, total, mesh)
         state.step += 1

@@ -298,6 +298,21 @@ def test_memory_train_step_matches_jax(query_source, over):
                                   np.asarray(new_j.memory.age))
 
 
+def test_memory_step_opens_forward_backward_optimizer():
+    """The memory step's phases under the profiler: its forward (the
+    voiceprint, the in-graph write and the extraction), backward and
+    optimizer, each once."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg_j, _, cfg_t, state_t = _state()
+    feats = _t(_feats(cfg_j))
+    step = tmt.make_memory_train_step(cfg_t)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state_t, feats)
+    names = [e.name for e in prof.events() if e.name.startswith("dl4ss.")]
+    assert sorted(names) == ["dl4ss.backward", "dl4ss.forward",
+                             "dl4ss.optimizer"]
+
+
 def test_memory_eval_step_and_enroll_match_jax():
     """After one train step (a non-empty memory): the eval step's masks,
     predictions and loss, and `enroll` of two clean utterances into the

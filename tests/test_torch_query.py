@@ -276,11 +276,14 @@ CLI = ["--device", "cpu", "--seed", "0", "--utts", "2", "--set",
 
 @pytest.mark.parametrize("argv", [
     ["--preset", "grid_video", "--mode", "video", "--frame-size", "24"],
+    ["--preset", "grid_video", "--mode", "video", "--frame-size", "24",
+     "--frame-dtype", "uint8"],
     ["--preset", "multimodal_image", "--mode", "image-query"]],
-    ids=["video", "image-query"])
+    ids=["video", "video-uint8", "image-query"])
 def test_query_mode_clis(tmp_path, argv):
-    """run.train --mode video (synthetic lips) and --mode image-query (the
-    glyphs): two steps, a finite dev SI-SDR, a checkpoint that restores."""
+    """run.train --mode video (synthetic lips, the bank float32 or uint8)
+    and --mode image-query (the glyphs): two steps, a finite dev SI-SDR, a
+    checkpoint that restores."""
     import json
 
     from dl4ss_tpu_torch.run import train

@@ -10,6 +10,7 @@ from __future__ import annotations
 import collections
 import contextlib
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -122,9 +123,34 @@ def test_serving_opens_each_phase_once(program, flags):
         "features": 1, "separate": 1, "resynthesis": 1}
 
 
+@pytest.mark.parametrize("trunk", ["conv", "inception"])
+def test_query_step_opens_forward_query_and_trunk(trunk):
+    """The video-query step: its forward, the video query inside it and
+    the frame trunk inside that, then backward and optimizer, each once;
+    uint8 frames (normalized inside the trunk's span)."""
+    from dl4ss_tpu_torch.data.video import synthetic_frame_bank
+    from dl4ss_tpu_torch.train.query_trainer import (create_query_state,
+                                                     make_query_train_step,
+                                                     query_batch)
+    cfg = preset("grid_video").replace(
+        num_speakers=4, batch_size=2, max_len_seconds=0.25, hidden_units=8,
+        embedding_size=4, num_layers=1, encoder_layers=1)
+    hw = (75, 75)
+    state = create_query_state(cfg, 0, "video", video_trunk=trunk,
+                               frame_hw=hw, device="cpu")
+    frames = torch.as_tensor(synthetic_frame_bank(4, 2, 2, hw,
+                                                  dtype=np.uint8))
+    feats = query_batch(torch.Generator().manual_seed(0), _bank(cfg), cfg,
+                        "query_video", frames)
+    step = make_query_train_step(cfg, "video")
+    assert _spans(lambda: step(state, feats)) == {
+        "forward": 1, "query": 1, "video_trunk": 1, "backward": 1,
+        "optimizer": 1}
+
+
 def test_only_the_eight_phases_exist():
-    """Every span the port opens in a step and a request is one of the
-    eight phases."""
+    """Every span the separator's steps and requests open is one of the
+    eight phases (the video query adds `query` and `video_trunk`)."""
     cfg = preset("synth_tiny").replace(**TDAA)
     state = create_train_state(cfg, seed=0, device="cpu")
     bank = _bank(cfg)
