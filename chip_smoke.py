@@ -141,7 +141,18 @@ Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
      gradients, with the counts zeroed just before and read just after
      (one K2 + K5 or K7 + K8 a layer, on the body the rule names), held to
      the plain loop on the card; their kernel rows (name `*_d1`) join the
-     `kernels` line; native.resample_poly against scipy on 5 s of 16 kHz.
+     `kernels` line; native.resample_poly against scipy on 5 s of 16 kHz;
+ 16. the joint step's CUDA graph: GRAPH_EQ_STEPS torch_multi steps at
+     full width by make_fused_step (one eager call, one capture, then
+     replays) against the eager step from the same seed and bank: every
+     parameter and Adam moment and every loss bit for bit (each leaf's
+     rel L2 printed where not), the same kernel launches, the graph's
+     counts; then ms a step both ways (the median of CUDA events around
+     each step, and the host clock over GRAPH_TIMED_STEPS steps).
+
+    python3 chip_smoke.py --graph
+
+builds the kernels and runs phase 16 alone, and prints no `ok` line;
 
     python3 chip_smoke.py --learning STEPS
 
@@ -249,6 +260,8 @@ VIDEO_HELD_BATCHES = 16
 MEM_HELD_BATCHES = 16
 VIDEO_LEARN_SEEDS = tuple(range(8))
 SURFACE_LAYERS = 2          # depth of phase 15's one-direction stacks
+GRAPH_EQ_STEPS = 6          # phase 16: steps held to the eager path
+GRAPH_TIMED_STEPS = 50      # and steps timed each way
 PAR_STEPS = 2               # steps of the run.train --dp auto check
 PAR_TIMINGS = 10            # StepTimer chains of one step each (median)
 
@@ -2766,6 +2779,112 @@ def surface_only(torch) -> int:
     return 0
 
 
+def graph_phase(torch, dev):
+    """16. The joint step's CUDA graph against the eager step at full
+    width: equality, launches, counts, then ms a step both ways."""
+    from dl4ss_tpu_torch import preset
+    from dl4ss_tpu_torch.data.synth import featurize, sample_mixtures
+    from dl4ss_tpu_torch.ops import cuda_lib
+    from dl4ss_tpu_torch.train import steps
+    from dl4ss_tpu_torch.train.state import create_train_state
+    cfg = preset("torch_multi")
+    bank = torch.as_tensor(np.random.default_rng(SEED).uniform(
+        -1, 1, (cfg.num_speakers, BANK_UTTS, N_SAMPLES)).astype(np.float32),
+        device=dev)
+
+    def eager_step():
+        inner = steps.make_train_step(cfg)
+
+        def run(state):
+            batch = sample_mixtures(state.generator, bank, cfg)
+            return inner(state, featurize(batch, cfg))
+        return run
+
+    def graphed_step():
+        fused = steps.make_fused_step(cfg)
+        return lambda state: fused(state, bank)
+
+    def run(make, n):
+        zero_counts(torch)
+        steps.GRAPH_COUNTS.clear()
+        state, step, losses = create_train_state(cfg, SEED, device=dev), \
+            make(), []
+        for _ in range(n):
+            state, m = step(state)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        leaves = ([p.detach().clone() for p in state.model.parameters()]
+                  + [t.clone() for t in state.opt_state.mu
+                     + state.opt_state.nu])
+        return (torch.stack(losses), leaves, dict(cuda_lib.LAUNCHES),
+                dict(steps.GRAPH_COUNTS), state, step)
+
+    t_phase = time.perf_counter()
+    e_loss, e_leaves, e_launch, _, _, _ = run(eager_step, GRAPH_EQ_STEPS)
+    g_loss, g_leaves, g_launch, counts, _, _ = run(graphed_step,
+                                                   GRAPH_EQ_STEPS)
+    rels = [0.0 if torch.equal(a, b) else rel_l2(a, b)
+            for a, b in zip(g_leaves, e_leaves)]
+    bit = not any(rels)
+    print(f"graph: {GRAPH_EQ_STEPS} torch_multi steps graphed against "
+          f"eager: losses bit-equal {torch.equal(g_loss, e_loss)}, "
+          f"{len(g_leaves)} parameters and moments bit-equal {bit}, worst "
+          f"rel L2 {max(rels):.3e}; counts {counts}; launches equal "
+          f"{g_launch == e_launch}: {g_launch}", flush=True)
+    if not bit:
+        print("graph: rel L2 by leaf " + ", ".join(
+            f"{i}:{r:.2e}" for i, r in enumerate(rels) if r), flush=True)
+        fail("the graphed joint step differs from the eager one")
+    if not torch.equal(g_loss, e_loss):
+        fail(f"graphed losses {g_loss.tolist()} against {e_loss.tolist()}")
+    if counts != {"eager": 1, "captures": 1,
+                  "replays": GRAPH_EQ_STEPS - 1}:
+        fail(f"the graphed run counted {counts}")
+    if g_launch != e_launch:
+        fail(f"graphed launches {g_launch} against eager {e_launch}")
+
+    timing = {}
+    for label, make in (("eager", eager_step), ("graphed", graphed_step)):
+        _, _, _, _, state, step = run(make, 3)
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(GRAPH_TIMED_STEPS)]
+        for start, end in events:
+            start.record()
+            state, _ = step(state)
+            end.record()
+        torch.cuda.synchronize()
+        ev_ms = statistics.median(a.elapsed_time(b) for a, b in events)
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_TIMED_STEPS):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / GRAPH_TIMED_STEPS * 1e3
+        timing[label] = (ev_ms, host)
+        print(f"graph: {label} joint step {ev_ms:.3f} ms (median CUDA "
+              f"events of {GRAPH_TIMED_STEPS}), {host:.3f} ms (host clock "
+              f"over {GRAPH_TIMED_STEPS}), "
+              f"{cfg.batch_size / host * 1e3:.1f} mixtures/s; counts "
+              f"{dict(steps.GRAPH_COUNTS)}", flush=True)
+    print(f"graph: host clock {timing['eager'][1]:.3f} -> "
+          f"{timing['graphed'][1]:.3f} ms a step "
+          f"({timing['eager'][1] / timing['graphed'][1]:.3f}x); phase 16 "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def graph_only(torch) -> int:
+    """`chip_smoke.py --graph`: the kernels' build and phase 16 alone."""
+    from dl4ss_tpu_torch import resolve_device
+    from dl4ss_tpu_torch.ops import cuda_lib
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    cuda_lib.library()
+    graph_phase(torch, resolve_device("cuda"))
+    return 0
+
+
 def main(argv=None) -> int:
     import torch
     argv = sys.argv[1:] if argv is None else argv
@@ -2785,10 +2904,12 @@ def main(argv=None) -> int:
         return cards_only(torch)
     if argv == ["--surface"]:
         return surface_only(torch)
+    if argv == ["--graph"]:
+        return graph_only(torch)
     if argv:
         print("usage: chip_smoke.py [--learning STEPS | --rehearsal | "
-              "--generations | --parallel | --cards | --surface]",
-              file=sys.stderr)
+              "--generations | --parallel | --cards | --surface | "
+              "--graph]", file=sys.stderr)
         return 2
     from dl4ss_tpu_torch import preset, resolve_device
     from dl4ss_tpu_torch.models import init_separator
@@ -3998,6 +4119,8 @@ def main(argv=None) -> int:
           f"batch", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
+        # ---- 16. the joint step's CUDA graph ----------------------------
+        graph_phase(torch, dev)
         # ---- 9. persistence ----------------------------------------------
         persistence_phase(torch, dev, rng, tmp)
         # ---- 10. TDAA at full width ----------------------------------------

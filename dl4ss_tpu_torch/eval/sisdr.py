@@ -6,10 +6,11 @@ epoch with; it runs on the model's device.
 
 from __future__ import annotations
 
-import itertools
 from typing import Optional, Tuple
 
 import torch
+
+from dl4ss_tpu_torch.objectives.pit import permutation_table
 
 
 def si_sdr(est: torch.Tensor, ref: torch.Tensor, zero_mean: bool = True,
@@ -45,8 +46,7 @@ def si_sdr_pit(est: torch.Tensor, ref: torch.Tensor,
     variable-k mixtures) out of the mean.
     """
     k = est.shape[1]
-    perms = torch.tensor(list(itertools.permutations(range(k))),
-                         device=est.device)                    # (P, K)
+    perms = permutation_table(k, est.device)                   # (P, K)
     pair = si_sdr(est[:, :, None], ref[:, None, :, :])         # (B, K, K)
     gathered = pair[:, torch.arange(k, device=est.device)[None, :], perms]
     if live is not None:

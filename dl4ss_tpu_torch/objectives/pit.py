@@ -1,9 +1,10 @@
 """Utterance-level permutation-invariant training (the port of
 `dl4ss_tpu/objectives/pit.py`).
 
-All K! permutations are enumerated (K <= 4 in every reference config); the
-per-(pred, target) pair losses are computed once as a (B, K, K) matrix and
-each permutation's score is a gather-mean over it.
+All K! permutations are enumerated (K <= 4 in every reference config), in
+a table built once per (K, device); the per-(pred, target) pair losses are
+computed once as a (B, K, K) matrix and each permutation's score is a
+gather-mean over it.
 """
 
 from __future__ import annotations
@@ -12,6 +13,16 @@ import itertools
 from typing import Callable, Tuple
 
 import torch
+
+from dl4ss_tpu_torch.ops.stft import table_cache
+
+
+@table_cache
+def permutation_table(k: int, device: torch.device) -> torch.Tensor:
+    """(K!, K) int64: the permutations of range(K) in `itertools` order, on
+    `device`. Built once: a copy from the host at each call would make the
+    host wait for the device, and a CUDA graph cannot capture it."""
+    return torch.tensor(list(itertools.permutations(range(k))), device=device)
 
 
 def _pair_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -30,8 +41,7 @@ def pit_loss(pred: torch.Tensor, target: torch.Tensor,
     loss = mean over batch of min_perm mean_k pair_loss(pred_k, target_perm(k)).
     """
     k = pred.shape[1]
-    perms = torch.tensor(list(itertools.permutations(range(k))),
-                         device=pred.device)                    # (P, K)
+    perms = permutation_table(k, pred.device)                   # (P, K)
     pairs = pair_loss(pred, target)                             # (B, K, K)
     gathered = pairs[:, torch.arange(k, device=pred.device)[None, :], perms]
     scores = gathered.mean(dim=-1)                              # (B, P)

@@ -10,12 +10,16 @@ GPU or `nvcc`, and only a launch on a CUDA tensor builds.
 Every C entry point takes its tensors as `void*` (`Tensor.data_ptr()`), its
 sizes as `int`, and PyTorch's current stream last; it returns the
 `cudaGetLastError()` of its launches, which `launch` turns into an
-exception. `LAUNCHES` counts, per kernel, the wrapper calls that launched it.
+exception. `LAUNCHES` counts, per kernel, the wrapper calls that launched it;
+a CUDA graph's capture records launches that run at each replay, so the
+graph's owner takes them out with `uncounted` and adds them per replay with
+`count`.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -25,7 +29,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import torch
 
@@ -70,6 +74,9 @@ CLASSIFIER_KERNELS = ("stft_features", "lstm_fwd", "lstm_bwd")
 QUERIES = {"maskhead_packed_size": "iii", "maskhead_bwd_partials": "iiiiii"}
 
 LAUNCHES: collections.Counter = collections.Counter()
+# Every launch counter: LAUNCHES and the BODY_LAUNCHES of the kernel modules
+# (each appends its own), which `uncounted` and `count` keep together.
+COUNTERS: List[collections.Counter] = [LAUNCHES]
 
 
 class KernelLibrary(NamedTuple):
@@ -173,6 +180,29 @@ def launch(name: str, device: torch.device, *args) -> None:
         msg = lib.dll.dl4ss_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} (error {err})")
     LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Leave every counter of COUNTERS as it was before the block. Yields a
+    list that, once the block ends, holds what the block counted, a Counter
+    per counter: the launches a CUDA graph's capture records, which
+    `count` adds at each replay."""
+    saved = [collections.Counter(c) for c in COUNTERS]
+    launched: list = []
+    try:
+        yield launched
+    finally:
+        for counter, before in zip(COUNTERS, saved):
+            launched.append(counter - before)
+            counter.clear()
+            counter.update(before)
+
+
+def count(launched: list) -> None:
+    """Add what `uncounted` yielded to the counters."""
+    for counter, more in zip(COUNTERS, launched):
+        counter.update(more)
 
 
 def query(name: str, *args: int) -> int:

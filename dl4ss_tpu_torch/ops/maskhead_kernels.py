@@ -11,7 +11,7 @@ versions round at the same points. `fused_dot_masks` is a
 tensors to csrc/maskhead_fwd.cu (K3) and csrc/maskhead_bwd.cu (K6); there
 is no fallback between them. On the card W is packed into the kernels'
 tile layout once per version of W and the packed copy is kept while W
-lives, so a training step's forward and backward share one pack.
+lives; a training step's backward takes the pack its forward used.
 
 Both kernels run one wgmma main loop (csrc/maskhead_tile.cuh) whose order
 of work cannot run off the card, so `pack_w_mirror`,
@@ -62,8 +62,12 @@ class _FusedDotMasks(torch.autograd.Function):
         args = (hidden.to(torch.bfloat16).contiguous(), w.contiguous(),
                 b.float().contiguous(), queries.to(torch.bfloat16).contiguous(),
                 freq_bins, emb)
-        fwd = fused_dot_masks_cuda if hidden.is_cuda else fused_dot_masks_plain
-        masks = fwd(*args, hidden.dtype)
+        ctx.wt = None
+        if hidden.is_cuda:
+            ctx.wt = _packed(args[1], freq_bins, emb)
+            masks = fused_dot_masks_cuda(*args, hidden.dtype, wt=ctx.wt)
+        else:
+            masks = fused_dot_masks_plain(*args, hidden.dtype)
         ctx.save_for_backward(hidden, w, b, queries, masks)
         ctx.dims = (freq_bins, emb)
         return masks
@@ -73,13 +77,14 @@ class _FusedDotMasks(torch.autograd.Function):
         hidden, w, b, queries, masks = ctx.saved_tensors
         freq_bins, emb = ctx.dims
         h16 = hidden.to(torch.bfloat16).contiguous()
-        bwd = (fused_dot_masks_bwd_cuda if hidden.is_cuda
-               else fused_dot_masks_bwd_plain)
-        dacc, dq, db = bwd(h16, w.contiguous(), b.float().contiguous(),
-                           queries.to(torch.bfloat16).contiguous(),
-                           masks.to(torch.bfloat16).contiguous(),
-                           dout.to(torch.bfloat16).contiguous(), freq_bins,
-                           emb)
+        args = (h16, w.contiguous(), b.float().contiguous(),
+                queries.to(torch.bfloat16).contiguous(),
+                masks.to(torch.bfloat16).contiguous(),
+                dout.to(torch.bfloat16).contiguous(), freq_bins, emb)
+        if hidden.is_cuda:
+            dacc, dq, db = fused_dot_masks_bwd_cuda(*args, wt=ctx.wt)
+        else:
+            dacc, dq, db = fused_dot_masks_bwd_plain(*args)
         dh, dw = dacc_products(h16, w, dacc)
         return (dh.to(hidden.dtype), dw.to(w.dtype), db.to(b.dtype),
                 dq.to(queries.dtype), None, None)
@@ -166,8 +171,11 @@ def pack_w(w: torch.Tensor, freq_bins: int, emb: int) -> torch.Tensor:
 
 def _packed(w: torch.Tensor, freq_bins: int, emb: int) -> torch.Tensor:
     """`pack_w(w)`, built once per version of W (an in-place update of W
-    repacks it). Inference tensors keep no version: they pack every call."""
-    if w.is_inference():
+    repacks it). Inference tensors keep no version, and a CUDA graph
+    replays its capture on every later version of W: both pack every call
+    and leave the cache alone (a capture only records the pack, which runs
+    at each replay)."""
+    if w.is_inference() or torch.cuda.is_current_stream_capturing():
         return pack_w(w, freq_bins, emb)
     key = (w._version, w.data_ptr(), freq_bins, emb)
     hit = _PACKED.get(w)
@@ -200,16 +208,17 @@ def _check_common(h, w, b, q, freq_bins, emb):
                          f"queries per utterance, got {k}")
 
 
-def fused_dot_masks_cuda(h, w, b, q, freq_bins: int, emb: int, out_dtype
-                         ) -> torch.Tensor:
+def fused_dot_masks_cuda(h, w, b, q, freq_bins: int, emb: int, out_dtype,
+                         wt=None) -> torch.Tensor:
     """K3 on the card: csrc/maskhead_fwd.cu, on h (B, T, D) in its own
-    layout (`_kernel_rows`) and W packed once per version (`_packed`)."""
+    layout (`_kernel_rows`) and W packed once per version (`_packed`), or
+    the pack `wt` of this W."""
     _check_common(h, w, b, q, freq_bins, emb)
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"out_dtype must be one of {_OUT_DTYPES}")
     bsz, t, _ = h.shape
     k = q.shape[1]
-    wt = _packed(w, freq_bins, emb)
+    wt = _packed(w, freq_bins, emb) if wt is None else wt
     hk = _kernel_rows(h)
     out = torch.empty((bsz, k, t, freq_bins), dtype=out_dtype,
                       device=h.device)
@@ -249,18 +258,18 @@ def fused_dot_masks_bwd_plain(h, w, b, q, masks, dout, freq_bins: int,
 
 
 def fused_dot_masks_bwd_cuda(h, w, b, q, masks, dout, freq_bins: int,
-                             emb: int) -> Tuple[torch.Tensor, ...]:
+                             emb: int, wt=None) -> Tuple[torch.Tensor, ...]:
     """K6 on the card: csrc/maskhead_bwd.cu on h (B, T, D) in its own
-    layout and the W that K3 packed for this version (`_packed`). Same
-    contract as `fused_dot_masks_bwd_plain`; db comes from the kernel's
-    per-unit partials."""
+    layout and the W that K3 packed for this version (`_packed`), or the
+    pack `wt` of this W. Same contract as `fused_dot_masks_bwd_plain`; db
+    comes from the kernel's per-unit partials."""
     _check_common(h, w, b, q, freq_bins, emb)
     bsz, t, _ = h.shape
     k = q.shape[1]
     fe = freq_bins * emb
     cuda_lib.check(masks, "masks", (torch.bfloat16,), (bsz, k, t, freq_bins))
     cuda_lib.check(dout, "dout", (torch.bfloat16,), (bsz, k, t, freq_bins))
-    wt = _packed(w, freq_bins, emb)
+    wt = _packed(w, freq_bins, emb) if wt is None else wt
     hk = _kernel_rows(h)
     n = cuda_lib.query("maskhead_bwd_partials", bsz, t, hk.shape[-1],
                        freq_bins, emb, k)

@@ -85,6 +85,7 @@ WIDE_MAX_BATCH = 48
 # Launches of K2, K5, K7 and K8 by the body that ran, keyed (kernel name,
 # body); cuda_lib.LAUNCHES counts both bodies under the kernel's name.
 BODY_LAUNCHES: collections.Counter = collections.Counter()
+cuda_lib.COUNTERS.append(BODY_LAUNCHES)
 
 
 def _ceil_div(a: int, b: int) -> int:

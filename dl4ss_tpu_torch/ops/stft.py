@@ -64,8 +64,9 @@ def table_cache(fn):
     """`lru_cache` for constant tensors. It builds them with inference mode
     off: a table first made inside a serving call (`torch.inference_mode`)
     would otherwise be an inference tensor, which a later training step in
-    the same process could not save for its backward."""
-    @functools.lru_cache(maxsize=16)
+    the same process could not save for its backward. A table lives as
+    long as the process: a captured CUDA graph reads it by its address."""
+    @functools.lru_cache(maxsize=None)
     @functools.wraps(fn)
     def cached(*args):
         with torch.inference_mode(False):

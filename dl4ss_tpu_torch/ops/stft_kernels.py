@@ -131,6 +131,7 @@ ISTFT_FFT_MAX_RATIO = 8
 # Launches of K1, K4, K9 and K10 by the body that ran, keyed (kernel name,
 # body); cuda_lib.LAUNCHES counts both bodies under the kernel's name.
 BODY_LAUNCHES: collections.Counter = collections.Counter()
+cuda_lib.COUNTERS.append(BODY_LAUNCHES)
 
 
 def _fft_length(frame_length: int) -> bool:

@@ -27,18 +27,29 @@ global batch's means.
 Every trainer marks its phases for the profiler (`utils.profiling.span`):
 `forward` from the step's inputs to its loss tensors (twice in the
 adversarial step, once a phase), then `backward` and `optimizer`.
+
+On a CUDA device and without a mesh, the fused step replays its featurize
+-> forward -> backward as a CUDA graph, one per key (the batch's shapes
+and dtypes, the model's tensors' addresses), with the optimizer eager
+after each replay (`_GraphedJointStep`); `GRAPH_COUNTS` counts its calls.
+A replay runs the same kernels on the same data as the eager step, in the
+same order: only the host's work per launch leaves the step.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import collections
+import itertools
+import warnings
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
 from dl4ss_tpu_torch.config import Config
-from dl4ss_tpu_torch.data.synth import featurize, sample_mixtures
+from dl4ss_tpu_torch.data.synth import (MixtureBatch, featurize,
+                                        sample_mixtures)
 from dl4ss_tpu_torch.eval.sisdr import si_sdr_pit
 from dl4ss_tpu_torch.models.discriminator import apply_discriminator
 from dl4ss_tpu_torch.models.separator import (Separator, SeparatorOutput,
@@ -48,6 +59,7 @@ from dl4ss_tpu_torch.objectives.losses import (complex_mse_loss, gan_d_loss,
                                                multilabel_softmargin_loss,
                                                sum_to_one_loss)
 from dl4ss_tpu_torch.objectives.pit import pit_loss
+from dl4ss_tpu_torch.ops import cuda_lib
 from dl4ss_tpu_torch.ops.crm import unpack_ri
 from dl4ss_tpu_torch.ops.stft import istft_cfg
 from dl4ss_tpu_torch.parallel.mesh import (Mesh, mean_metrics,
@@ -137,19 +149,25 @@ def _separation_loss(model: Separator, feats: dict, cfg: Config):
     return loss, aux
 
 
+def _gradients(loss: torch.Tensor, params) -> List[torch.Tensor]:
+    """d loss / d params alone. Parameters the loss does not reach get
+    zeros, as jax.grad gives them; nothing outside `params` gets a
+    gradient."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
 def _backward_and_update(params, opt_state, opt, loss: torch.Tensor,
                          mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Differentiate `loss` with respect to `params` alone, apply one
-    optimizer update to them and `opt_state` in place and return the
-    global grad norm. Parameters the loss does not reach get zeros, as
-    jax.grad gives them; nothing outside `params` gets a gradient. With a
-    `mesh` the gradients are averaged over its data group first (where
-    XLA inserts the all-reduce in JAX), and the clip takes the mesh's
-    global norm; the average is the tail of the `backward` span."""
+    """Differentiate `loss` with respect to `params` (`_gradients`), apply
+    one optimizer update to them and `opt_state` in place and return the
+    global grad norm. With a `mesh` the gradients are averaged over its
+    data group first (where XLA inserts the all-reduce in JAX), and the
+    clip takes the mesh's global norm; the average is the tail of the
+    `backward` span."""
     with span("backward"):
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+        grads = _gradients(loss, params)
         norm = None
         if mesh is not None:
             grads, norm = reduce_gradients(params, grads, mesh)
@@ -170,19 +188,127 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1,
     opt = make_optimizer(cfg, steps_per_epoch)
 
     def step(state: TrainState, feats: dict):
-        with span("forward"):
-            loss, aux = _separation_loss(state.model, feats, cfg)
+        loss, losses = _joint_loss(state.model, feats, cfg)
         grad_norm = _backward_and_update(generator_params(state.model),
                                          state.opt_state, opt, loss, mesh)
-        metrics = {"loss": loss.detach(),
-                   "mask_loss": aux["mask_loss"].detach(),
-                   "grad_norm": grad_norm}
-        if "sum_loss" in aux:
-            metrics["sum_loss"] = aux["sum_loss"].detach()
         state.step += 1
-        return state, mean_metrics(metrics, mesh)
+        return state, mean_metrics({**losses, "grad_norm": grad_norm}, mesh)
 
     return step
+
+
+def _joint_loss(model: Separator, feats: dict, cfg: Config):
+    """The joint trainer's forward: (the loss to differentiate, the step's
+    loss metrics)."""
+    with span("forward"):
+        loss, aux = _separation_loss(model, feats, cfg)
+    losses = {"loss": loss.detach(), "mask_loss": aux["mask_loss"].detach()}
+    if "sum_loss" in aux:
+        losses["sum_loss"] = aux["sum_loss"].detach()
+    return loss, losses
+
+
+# The fused step's calls by how they ran: `eager`, or on a CUDA graph, which
+# a call first `captures` (and replays once) and later calls `replays`.
+GRAPH_COUNTS: collections.Counter = collections.Counter()
+MAX_GRAPHS = 4      # graphs a fused step keeps; a call past them runs eagerly
+
+
+class _StepGraph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    batch: MixtureBatch          # the inputs a replay reads
+    losses: Dict[str, torch.Tensor]
+    grads: List[torch.Tensor]    # what a replay writes
+    launched: list               # the kernels a replay runs (`uncounted`)
+
+
+def _graph_key(batch: MixtureBatch, model: Separator) -> tuple:
+    """What a captured graph holds fixed: the batch's shapes, dtypes and
+    device, and the addresses of the model's parameters and buffers."""
+    return (tuple((x.device, x.shape, x.dtype) for x in batch
+                  if x is not None),
+            tuple((t.data_ptr(), t.shape, t.dtype) for t in
+                  itertools.chain(model.parameters(), model.buffers())))
+
+
+class _GraphedJointStep:
+    """The device part of the fused joint step, featurize -> forward ->
+    backward, as CUDA graphs. The first call on a key runs eagerly; the
+    second warms the region up on a side stream on its own batch (which
+    changes no state), captures it and replays it; later calls copy their
+    batch into the graph's inputs and replay. Each replay adds the launches
+    its capture recorded to the launch counters (`cuda_lib.count`); the
+    warm-up and the capture count none. The optimizer runs eagerly on the
+    graph's gradients after each replay: its learning rate and bias
+    corrections are Python numbers that change every step. A call returns
+    None where the step has to run eagerly: on a new key, past MAX_GRAPHS
+    keys, while a parameter has a gradient hook (a replay would skip it),
+    or on a key whose region could not be captured."""
+
+    def __init__(self, cfg: Config, opt):
+        self.cfg, self.opt = cfg, opt
+        self.graphs: Dict[tuple, Optional[_StepGraph]] = {}
+        self.seen: Dict[tuple, None] = {}     # keys run eagerly once
+        self.stream = None                    # warm-up and capture
+
+    def _region(self, model: Separator, params, batch: MixtureBatch):
+        loss, losses = _joint_loss(model, featurize(batch, self.cfg),
+                                   self.cfg)
+        with span("backward"):
+            return losses, _gradients(loss, params)
+
+    def _capture(self, model: Separator, params, batch: MixtureBatch
+                 ) -> Optional[_StepGraph]:
+        static = MixtureBatch(*(None if x is None else x.clone()
+                                for x in batch))
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(batch.mix_wav.device)
+        self.stream.wait_stream(torch.cuda.current_stream(
+            batch.mix_wav.device))
+        with cuda_lib.uncounted(), torch.cuda.stream(self.stream):
+            self._region(model, params, static)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with cuda_lib.uncounted() as launched, \
+                    torch.cuda.graph(graph, stream=self.stream):
+                losses, grads = self._region(model, params, static)
+        except RuntimeError as err:
+            warnings.warn(f"the joint step runs eagerly: its region could "
+                          f"not be captured as a CUDA graph ({err})")
+            return None
+        GRAPH_COUNTS["captures"] += 1
+        return _StepGraph(graph, static, losses, grads, launched)
+
+    def __call__(self, state: TrainState, batch: MixtureBatch):
+        model = state.model
+        params = generator_params(model)
+        key = _graph_key(batch, model)
+        if any(p._backward_hooks for p in params):
+            graph = None
+        elif key in self.graphs:
+            graph = self.graphs[key]
+            if graph is not None:
+                for dst, src in zip(graph.batch, batch):
+                    if dst is not None:
+                        dst.copy_(src)
+        elif key in self.seen and len(self.graphs) < MAX_GRAPHS:
+            graph = self.graphs[key] = self._capture(model, params, batch)
+        else:
+            graph = None
+        if graph is None:
+            self.seen[key] = None
+            if len(self.seen) > 4 * MAX_GRAPHS:
+                del self.seen[next(iter(self.seen))]
+            return None
+        with span("replay"):
+            graph.graph.replay()
+        GRAPH_COUNTS["replays"] += 1
+        cuda_lib.count(graph.launched)
+        losses = {k: v.clone() for k, v in graph.losses.items()}
+        with span("optimizer"):
+            grad_norm = self.opt.update(params, graph.grads, state.opt_state)
+        state.step += 1
+        return state, {**losses, "grad_norm": grad_norm}
 
 
 def make_fused_step(cfg: Config, steps_per_epoch: int = 1,
@@ -194,12 +320,21 @@ def make_fused_step(cfg: Config, steps_per_epoch: int = 1,
     H2D copy -> GPU step, run on the device). `noise_bank` (W, N) enables
     the street-noise augment (A5) under cfg.add_bgd_noise. With a `mesh`
     every rank draws the global batch (the generator is the same on all)
-    and featurizes and trains on its own rows."""
+    and featurizes and trains on its own rows. On a CUDA device without a
+    mesh the device part of the step replays as a CUDA graph
+    (`_GraphedJointStep`); the metrics are fresh tensors either way."""
     inner = make_train_step(cfg, steps_per_epoch, mesh)
+    graphed = (_GraphedJointStep(cfg, make_optimizer(cfg, steps_per_epoch))
+               if mesh is None else None)
 
     def step(state: TrainState, bank: torch.Tensor):
         batch = sample_mixtures(state.generator, bank, cfg,
                                 noise_bank=noise_bank)
+        if graphed is not None and bank.is_cuda:
+            done = graphed(state, batch)
+            if done is not None:
+                return done
+        GRAPH_COUNTS["eager"] += 1
         return inner(state, featurize(shard_batch(batch, mesh), cfg))
 
     return step
