@@ -1,199 +1,104 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port (dl4ss_tpu_torch) on one NVIDIA GPU.
+"""Checks of the PyTorch port (dl4ss_tpu_torch) on one NVIDIA GPU that
+neither the card tests (`pytest -m cuda tests/`) nor the benchmark
+(`benchmark/`) make, and the kernel timings of PERF.md's kernel table.
 
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from dl4ss_tpu_torch/csrc, then:
-  1. card and build: the card's name and power limit, the build time;
-  2. kernel checks: each kernel against its plain PyTorch version on the
-     card, at the shapes the serving and training paths give it, with its
-     tolerance (K1-K4 forward, K5 the BiGRU backward, K6 the mask-head
-     backward, K7 and K8 the BiLSTM forward and backward at the classifier
-     width 300 and at 600, K9 and K10 the packed STFT and iSTFT); K1 and
-     K9 run their FFT body there, which is also held against its plain
-     torch mirror, and their direct body on a frame length of 96; K4 (f32
-     and bf16 masks, B=16 and B=1) and K10 run the inverse tile's FFT body,
-     each against its plain version and its plain torch mirror and twice
-     bit-equal, and their direct body forced at the same shape; K2, K5,
-     K7 and K8 run both their bodies (the resident one, which the shape
-     rule names at width 300 for B=1, 16 and 32, and K5/K8's also at 128,
-     in chunked launches past 20 rows; the stepwise one, which it names at
-     600 for K8) and K7 its wide one (which the rule names at 600), each
-     against the plain version and the resident or wide body against the
-     stepwise and against a second call of itself; the build log's
-     registers and spills of the resident chain kernels and of the wgmma
-     mask-head kernels K3 and K6 are printed; K3 also at B=1 and with bf16 masks, its W pack against the
-     plain mirror (bit-equal), K3 and K6 each against a second call of
-     itself (bit-equal), K6's db (from its partials) and the bf16-operand
-     dW and dh products (f32 output) against the f32 products;
+  1. card and build: the card's name and power limit, the build time, the
+     registers and spills of the resident chains and of K3 / K6;
   3. round trips: STFT features then masked iSTFT with all-ones masks, and
      the packed STFT then iSTFT through the public `ops` exports (both on
      the FFT bodies), reconstruct the waveform;
-  4. end to end: the torch_multi preset at full width (2-layer BiGRU-300,
+  4. serving at full width: the torch_multi preset (2-layer BiGRU-300,
      F*E = 129*50, 2-layer BiLSTM-300 classifier), random weights from a
-     seed — one B=16 batch and 8 B=1 requests through
-     serve.separate_waveforms with given speakers, then the same with no
-     speakers given (the classifier selects them), each with the launch
-     counters zeroed just before and read just after; outputs finite and
-     close to the same model's plain path (kernel flags off), the selected
-     speakers equal to the plain path's, and every K2 and K7 launch run by
-     the body the shape rule names (the resident one), every K1 and K4
-     launch by the FFT body, one K3 launch per call;
-  5. CLI: run.separate on two synthetic wavs writes four wavs with
-     --speakers, and 2 x recursive_max_steps wavs with --mode recursive,
-     every K2 and K7 launch of the latter by the resident body;
-  6. train steps: one torch_multi joint step, then one classifier step, at
-     full width on the card (the kernel route) against the same step on a
-     CPU copy of the model and batch (the same autograd.Functions on their
-     plain halves): loss, grad norm or accuracy, and every parameter's
-     update;
-  7. trainers: run.train --preset torch_multi --epochs 1 --epoch-size 4
-     and run.classify --epochs 1 --epoch-size 8 --eval-batches 2 on a bank
-     of 2 utterances per speaker, each with the launch counters zeroed
-     just before and read just after; every step's loss finite, the eval
-     SI-SDR finite, the metric report printed, the launches of one step
-     printed, every K2, K5, K7 and K8 launch of the two trainers run by
-     the resident body, and one K3, one K6 and one W pack a joint step;
-  8. timing: CUDA-event medians of each kernel, its plain version and a
-     one-call library yardstick, the end-to-end batch, request and train
-     step times with given and with classifier-selected speakers, and a
-     torch.profiler breakdown of one batch, one request and one step of
-     each trainer; for K1 and K9 also the direct body at the same shape,
-     both bodies at B=1 and at the 32 source signals of a train step, and
-     what an empty launch costs; for K4 and K10 both bodies at B=16 and
-     B=1 (K4 also with bf16 masks) beside torch.istft; for K2 and K7 both
-     bodies at B=1, 16, 32, 48, 64, 96 and 128 (the numbers the shape rule
-     follows), and K7 at width 600 in its wide and stepwise bodies at B=1,
-     16, 32 and 48 (the numbers WIDE_MAX_BATCH follows; B=1 and 16 also on
-     the `kernels` line, `h600_ms`); for K5 and K8 also the stepwise body
-     re-measured at B=16, 32 and 128, the resident body's three phases
-     (coefficients, chain, dU and db_n) by kernel name, bf16, and K8 at
-     width 600; every profile
-     counts the kernel launches of the call; K3 at B=1 beside its bound;
-     the dW + dh products both ways (bf16 operands with f32 output, and the
-     f32 products) as a yardstick row; and the profiler's K3 / K6 kernel names
-     for one batch and one joint step, which must be the wgmma kernels, as
-     many as the wrappers counted;
+     seed, one B=16 batch and 8 B=1 requests through
+     serve.separate_waveforms with given and with classifier-selected
+     speakers against the same model's plain path (kernel flags off), the
+     selected speakers equal to the plain path's, and every launch counted
+     and on the body the shape rule names;
+  5. CLI: run.separate with --speakers and with --mode recursive;
+  6. train steps: one torch_multi joint step and one classifier step at
+     full width on the card against the same step on a CPU copy of the
+     model and batch: loss, grad norm or accuracy, every update;
+  7. trainers: run.train and run.classify at full width, every step's loss
+     finite, the launches of the runs and of one step of each;
+  8. kernels at the path shapes (B=16, T=313, D=2, H=300 and 600): each
+     (K1-K10 and the dW + dh products) held against its plain version,
+     also in bf16, at B=1, 32 and 128 and on both bodies where it has two,
+     and the FFT bodies against their mirrors; then CUDA-event medians of
+     each beside its plain version, a library yardstick and its bound, and
+     the body sweeps the shape rules follow (RESIDENT_MAX_CHUNKS: K2 and
+     K7 by batch; WIDE_MAX_BATCH: K7 at H=600; K5 and K8 both bodies at
+     every shape);
   9. persistence: run.train saves 2 epochs, --resume adds a third, equal
      to an unbroken 3-epoch run; K3 after a restore; run.separate and
      run.evaluate from the checkpoint;
  10. TDAA at full width: serving against the plain path, one dense and
      one adversarial step against a CPU copy (losses, every gradient and
      every update), the classifier step at H=600, remat, tdaa_crm,
-     tdaa_recursive, their timings;
+     tdaa_recursive, each with its launches;
  11. the learning check: 1,000 steps of run.train must raise the held-out
      SI-SDR of run.evaluate by at least 1 dB;
  12. data sources and scoring on a rehearsal corpus that the port writes
-     (101 speakers, 5 s, +/-2.5 dB, k = 1, 2, 3 lists; 12 utterances a
-     speaker, 1,600 / 160 / 160 entries a k): the native loader against
-     the plain one, a list batch on the card against the CPU's, the
-     device prefetch against synchronous copies (pinned, bit-equal),
-     run.train from the speaker tree (torch_multi, torch_multi_noise with
-     noise wavs, tdaa adversarial) and from the lists (tdaa adversarial
-     with dis-sp, torch_multi_3db on k = 1, 2, 3), run.classify from the
-     lists, each list-driven step launching what its bank-driven one
-     does, a list-driven run resumed after an epoch against the unbroken
-     one, list-driven against bank-driven step times, BSS-Eval on the
-     card against the float64 oracle, run.evaluate --list-dir --bss-eval
-     --oracle irm --export-wavs from the tdaa checkpoint, and run.score
-     reproducing its SDR;
- 13. the memory, image-query and video generations at full width:
-     cocktail in memory mode on a rehearsal corpus (12 speakers x 6
-     utterances, 5 s) and its Cocktail wavlists (run.train saved after one
-     epoch, --resume adds a second, which must improve the dev loss and
-     equal an unbroken run in parameters, memory rows and ages, moments,
-     step and generator; --file-lists; run.evaluate --mode memory on known
-     speakers, --unk-holdout, --unk-root and the wavlists' test and unk
-     splits), run.train --mode image-query (multimodal_image, two steps),
-     one step of cocktail, grid_video, multimodal_image and cocktail_debug
-     each held to the launches its flags send, the query BiLSTMs on K7 / K8
-     against their plain loop on the card, a memory and a video-query step
-     on the card against the CPU, one grid_video step with the frozen
-     Inception trunk at 299x299 (its parameters unmoved), the step times
-     and profiles, the speech query's share of a memory step on either
-     route, and the two learning gates on a 101 x 8 rehearsal tree (seed
-     3): cocktail memory mode's dev MSE after 1,000 steps at most 0.8 of
-     step 0's, and grid_video's held-out SI-SDR gain over 500 steps at
-     encoder depth 1, the mean over seeds 0-7, at least JAX's mean less 1.5
-     standard deviations on the same protocol
-     (tools/grid_video_jax_curve.py);
- 14. parallel and utils: run.train --preset torch_multi --dp auto (one
-     card: dp=1, no process group) launches per step what the run without
-     --dp launches and ends bit-equal to it; run.train --dp 2 exits
-     non-zero with JAX's message; two gloo ranks on cuda:0
-     (make_mesh(2, 1, devices=[cuda:0, cuda:0]); NCCL refuses two ranks on
-     one card) run one torch_multi joint step and one cocktail memory step
-     (a speaker on both ranks) at B=16 global, each held to the same step
-     on one rank: joint loss 1e-4 relative, every gradient after the
-     all-reduce and every update 5e-2 relative L2; memory loss 1e-5,
-     gradients and updates 1e-3, memory rows 1e-5, ages equal; every rank
-     launches the kernels; the joint step at B=8 (four rows a rank)
-     against one rank, its worst gradient printed, not gated;
-     utils.StepTimer times the joint step (median of 10), profile_trace
-     writes one step's Chrome trace, seed_everything repeats its draws;
- 15. the public surface: every module of dl4ss_tpu_torch imports
-     (pkgutil.walk_packages) with neither JAX nor dl4ss_tpu loaded;
-     tests/test_torch_surface.py's map of the JAX package's public names
-     resolves with nothing unmapped or stale; K2, K5, K7 and K8 with D = 1
-     (one-direction layers) at B=16, T=313, H=300, both bodies, against
-     their plain versions; a one-direction 2-layer GRU-300 and LSTM-300
-     stack through bidirectional_rnn(use_pallas=True), forward and
-     gradients, with the counts zeroed just before and read just after
-     (one K2 + K5 or K7 + K8 a layer, on the body the rule names), held to
-     the plain loop on the card; their kernel rows (name `*_d1`) join the
-     `kernels` line; native.resample_poly against scipy on 5 s of 16 kHz;
- 16. the joint step's CUDA graph: GRAPH_EQ_STEPS torch_multi steps at
-     full width by make_fused_step (one eager call, one capture, then
-     replays) against the eager step from the same seed and bank: every
-     parameter and Adam moment and every loss bit for bit (each leaf's
-     rel L2 printed where not), the same kernel launches, the graph's
-     counts; then ms a step both ways (the median of CUDA events around
-     each step, and the host clock over GRAPH_TIMED_STEPS steps).
+     (101 speakers, 5 s, k = 1, 2, 3 lists): the native loader against the
+     plain one, a list batch on the card against the CPU's, the device
+     prefetch against synchronous copies, run.train from the speaker tree
+     and from the lists and run.classify from the lists, each step
+     launching what its bank-driven one does, a list-driven resume against
+     the unbroken run, BSS-Eval on the card against the float64 oracle
+     (and its time a batch), run.evaluate --bss-eval and run.score;
+ 13. the memory, image-query and video generations at full width: the
+     cocktail memory mode's resume, wavlists and evaluations, one step of
+     each preset held to the launches its flags send, the query BiLSTMs
+     on K7 / K8 against their plain loop, a memory and a video-query step
+     on the card against the CPU, the frozen Inception trunk unmoved by a
+     step, and the two learning gates (cocktail memory's dev MSE after
+     1,000 steps at most 0.8 of step 0's; grid_video's held-out SI-SDR
+     gain over 500 steps, the mean over seeds 0-7, at least JAX's mean
+     less 1.5 standard deviations, tools/grid_video_jax_curve.py);
+ 14. parallel and utils: run.train --dp auto on one card bit-equal to the
+     run without --dp, --dp 2 refused, two gloo ranks on cuda:0 running a
+     joint and a memory step held to one rank, StepTimer, profile_trace
+     and seed_everything;
+ 15. the public surface: every module imports without JAX, the surface
+     map resolves, K2, K5, K7 and K8 with D = 1 at B=16, T=313, H=300
+     against their plain versions and timed, the one-direction stacks
+     through bidirectional_rnn against the plain loop, native.resample_poly
+     against scipy.
 
-    python3 chip_smoke.py --graph
-
-builds the kernels and runs phase 16 alone, and prints no `ok` line;
+(Phase 2, the kernels' inputs, feeds phases 3 and 8; the kernels' other
+shapes and properties are tests/test_torch_cuda.py's, run on the card with
+`pytest -m cuda`.)
 
     python3 chip_smoke.py --learning STEPS
 
 runs phase 11 alone for STEPS steps (a multiple of 1,000), scored every
-1,000 steps, and prints no `ok` line;
+1,000 steps;
 
     python3 chip_smoke.py --rehearsal
 
 runs phase 12 alone at the official wsj0-2mix depth (135 utterances a
-speaker, 20,000 / 5,000 / 3,000 entries: one tdaa epoch of 1,250 steps and
-the whole 3,000-mixture tt split scored), and prints no `ok` line;
+speaker, 20,000 / 5,000 / 3,000 entries);
 
-    python3 chip_smoke.py --generations
+    python3 chip_smoke.py --generations | --parallel | --surface
 
-builds the kernels and runs phase 13 alone, and prints no `ok` line;
-
-    python3 chip_smoke.py --parallel
-
-builds the kernels and runs phase 14 alone, and prints no `ok` line;
+build the kernels and run phase 13, 14 or 15 alone;
 
     python3 chip_smoke.py --cards
 
-needs an even number of cards, two or more (all visible ones, one rank a
-card over NCCL): it builds the kernels, runs phase 14's joint and
-memory steps on a dp = cards mesh and the joint step on a dp = cards / 2 x
-mp = 2 mesh (torch_multi with 104 speakers, so that the embedding table's
-rows split over the model axis), each held to the same step on one rank at
-phase 14's gates, then run.train --preset torch_multi --dp auto and --dp
-cards / 2 --mp 2 for PAR_STEPS steps against the run without --dp (their
-parameters' largest difference printed, not gated: Adam's first steps move
-an element whose gradient lies within the rounding by ~lr either way), and
-prints no `ok` line.
+needs an even number of cards, two or more (one rank a card over NCCL):
+phase 14's joint and memory steps on a dp = cards mesh and the joint step
+on a dp = cards / 2 x mp = 2 mesh (104 speakers, so that the embedding
+table's rows split), each held to one rank at phase 14's gates, then
+run.train --dp auto and --dp cards / 2 --mp 2 against the run without
+--dp (their largest parameter difference printed, not gated).
 
-    python3 chip_smoke.py --surface
-
-builds the kernels and runs phase 15 alone, prints its `kernels` rows and
-the card's line, and no `ok` line.
-
-It prints a `kernels` JSON line, the nvidia-smi line, and last
-`{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
-those lines; so does a machine without CUDA.
+The modes print no `ok` line. The default run prints a `kernels` JSON
+line, the nvidia-smi line, and last `{"ok": true, "device": {...}}`. Any
+failed check exits non-zero before those lines; so does a machine without
+CUDA.
 """
 
 from __future__ import annotations
@@ -232,7 +137,6 @@ SMOKE_DATA = dict(utts=12, holdout=4, tr=1600, cv=160, tt=160)
 REHEARSAL_DATA = dict(utts=135, holdout=10, tr=20000, cv=5000, tt=3000)
 DATA_HEAD = 800             # list entries a k of the shorter runs
 DATA_TREE_STEPS = 2         # steps of the speaker-tree runs
-DATA_TREE_UTTS = 4          # utterances a speaker of the timing bank
 DATA_PLAIN_UTTS = 101       # utterances the plain loader decodes
 DATA_PREFETCH = 8           # streamed batches through the prefetch
 DATA_BSS_ORACLE = 4         # mixtures held to the float64 BSS-Eval
@@ -260,31 +164,30 @@ VIDEO_HELD_BATCHES = 16
 MEM_HELD_BATCHES = 16
 VIDEO_LEARN_SEEDS = tuple(range(8))
 SURFACE_LAYERS = 2          # depth of phase 15's one-direction stacks
-GRAPH_EQ_STEPS = 6          # phase 16: steps held to the eager path
-GRAPH_TIMED_STEPS = 50      # and steps timed each way
 PAR_STEPS = 2               # steps of the run.train --dp auto check
-PAR_TIMINGS = 10            # StepTimer chains of one step each (median)
 
 # Published H100 SXM peaks (NVIDIA data sheet), for the bound column.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12           # CUDA cores, float32
 BF16_TC_FLOPS = 989e12      # tensor cores, dense bf16
 
-TOL = {"stft_features": 1e-4, "gru_fwd": 1e-4, "gru_fwd_bf16": 2e-2,
-       "maskhead_fwd": 2e-2, "masked_istft": 1e-4, "round_trip": 1e-4,
-       "end_to_end_rel": 2e-2,
-       # relative L2 of each output against the plain version. K5 f32:
-       # summation order only. K5 bf16: da_w rounds to bf16 before both
-       # products, so one flipped rounding carries back through the steps.
-       # K6: the recomputed g differs by summation order, which can flip
-       # one bf16 rounding of de or dacc (2^-8 relative).
-       "gru_bwd": 1e-4, "gru_bwd_bf16": 5e-2, "maskhead_bwd": 1e-2,
-       # K6's db, summed from its per-unit partials, against the f32 sum of
-       # its own dacc: summation order only
-       "maskhead_db": 1e-5,
+TOL = {"round_trip": 1e-4, "end_to_end_rel": 2e-2,
+       # each kernel against its plain version at the path shapes (phase 8)
+       # and with D = 1 (phase 15): the max abs error of the outputs, the
+       # relative L2 of a backward's. f32: summation order only. bf16: one
+       # flipped rounding of h (forward) or da (backward) carries on
+       # through the steps. K6: the recomputed g differs by summation
+       # order, which can flip one bf16 rounding of de or dacc (2^-8)
+       "stft_features": 1e-4, "maskhead_fwd": 2e-2, "masked_istft": 1e-4,
+       "stft_ri": 1e-4, "istft_ri": 1e-4, "maskhead_bwd": 1e-2,
+       "gru_fwd": 1e-4, "gru_bwd": 1e-4, "lstm_fwd": 1e-4, "lstm_bwd": 1e-4,
+       "gru_fwd_bf16": 2e-2, "gru_bwd_bf16": 5e-2, "lstm_fwd_bf16": 2e-2,
+       "lstm_bwd_bf16": 5e-2,
+       # the FFT bodies against their mirrors, the same steps in plain
+       # torch: they differ by the compiler's FMA contraction only
+       "stft_mirror": 1e-5, "istft_mirror": 1e-5,
        # dW and dh as bf16-operand products with f32 output against the f32
-       # products of the upcast operands: a product of two bf16 values is
-       # exact in f32, so summation order only
+       # products of the upcast operands: summation order only
        "dacc_products": 1e-3,
        # train step, kernel route on the card against the plain halves on
        # the CPU: the CPU test's bars (tests/test_torch_train.py), set by
@@ -295,17 +198,6 @@ TOL = {"stft_features": 1e-4, "gru_fwd": 1e-4, "gru_fwd_bf16": 2e-2,
        # gradient difference; they may carry at most this share of the
        # leaf's gradient (L2)
        "sign_noise": 3.0, "sign_hidden": 1e-2,
-       # K7 / K8 follow K2 / K5: summation order only in f32; in bf16 one
-       # flipped rounding of h (forward) or da (backward) carries on
-       # through the steps
-       "lstm_fwd": 1e-4, "lstm_fwd_bf16": 2e-2,
-       "lstm_bwd": 1e-4, "lstm_bwd_bf16": 5e-2,
-       "stft_ri": 1e-4, "istft_ri": 1e-4,
-       # the FFT body against its mirror, the same steps in plain torch:
-       # they differ by the compiler's FMA contraction only
-       "stft_mirror": 1e-5,
-       # the inverse FFT body against its mirror: the same
-       "istft_mirror": 1e-5,
        # selected speakers are compared where the plain path's top-k
        # probabilities are further apart than this
        "selection_gap": 1e-3,
@@ -358,43 +250,6 @@ TOL = {"stft_features": 1e-4, "gru_fwd": 1e-4, "gru_fwd_bf16": 2e-2,
        "uni_rnn_fwd": 2e-2, "uni_rnn_bwd": 5e-2, "resample": 5e-5}
 
 
-def cocktail_layout(corpus_root: str, out_root: str, holdout: int,
-                    unk_root: str | None = None) -> str:
-    """Cocktail's `{train,dev,test[,unk]}/<spk>/*.wav` tree over corpora
-    that `generate_corpus` wrote, as symbolic links, for
-    `layout_tools.generate_file_lists`: each speaker's utterances but the
-    last `holdout` train, the held-out ones go to dev (the first half)
-    and test (the rest) under the same speaker, and `unk_root`'s speakers
-    (another corpus, with other speakers) form the unk split, named
-    `u<id>`. Returns `out_root`. Phase 13 and tests/test_torch_memory.py
-    build their Cocktail wavlists on it."""
-    def speakers(root):
-        base = os.path.join(root, "wsj0", "si_tr_s")
-        return {s: sorted(os.path.join(base, s, w)
-                          for w in os.listdir(os.path.join(base, s)))
-                for s in sorted(os.listdir(base))}
-
-    def link(paths, split, spk):
-        d = os.path.join(out_root, split, spk)
-        os.makedirs(d, exist_ok=True)
-        for p in paths:
-            os.symlink(os.path.abspath(p),
-                       os.path.join(d, os.path.basename(p)))
-
-    for spk, paths in speakers(corpus_root).items():
-        if len(paths) <= holdout or holdout < 2:
-            raise ValueError(f"speaker {spk!r} has {len(paths)} "
-                             f"utterances: cannot hold out {holdout} for "
-                             f"dev and test")
-        link(paths[:-holdout], "train", spk)
-        link(paths[-holdout:-holdout // 2], "dev", spk)
-        link(paths[-holdout // 2:], "test", spk)
-    if unk_root is not None:
-        for spk, paths in speakers(unk_root).items():
-            link(paths, "unk", "u" + spk)
-    return out_root
-
-
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -427,6 +282,17 @@ def check_rel(name: str, got, ref, tol: float) -> float:
     return err
 
 
+def hold(label: str, got, ref, tol: float, rel: bool = False) -> float:
+    """Each output of a call (a tensor or a tuple of them) against the
+    reference's: the max abs error, or the relative L2 where `rel`.
+    Returns the largest max abs error."""
+    if not isinstance(got, (tuple, list)):
+        got, ref = (got,), (ref,)
+    return max(check_rel(f"{label} [{i}]", g, r, tol) if rel
+               else check(f"{label} [{i}]", max_err(g, r), tol)
+               for i, (g, r) in enumerate(zip(got, ref)))
+
+
 def device_ms(torch, fn, iters: int = 20) -> float:
     """Median device time of one call of `fn`, by CUDA events. The stream
     is held by a sleep kernel while every call is queued, so the events
@@ -447,64 +313,6 @@ def device_ms(torch, fn, iters: int = 20) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
-def host_ms(torch, fn, iters: int) -> float:
-    """Median wall time of one synchronised call (a request's latency)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
-def profile_ms(torch, fn, top: int = 8, expect=(), by_name_out=None):
-    """Device time of one call of `fn` by kernel name, from torch.profiler
-    (CUPTI): (busy ms, [(name, launches, ms), ...] largest first, kernel
-    launches of the call). The
-    tracer can miss the kernels launched right after it starts, so `fn`
-    runs once unmeasured inside the trace, then again under a marker, and
-    only the kernels that start after the marker count. If the trace still
-    lacks a kernel for a name in `expect`, the call is profiled again
-    (three times at most). `by_name_out`, if given, receives every kernel
-    of the measured call as {name: (launches, ms)}."""
-    from torch.profiler import (ProfilerActivity, profile,
-                                record_function)
-    marker = "chip_smoke: measured call"
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-            with record_function(marker):
-                fn()
-                torch.cuda.synchronize()
-        events = prof.events()
-        start = min(evt.time_range.start for evt in events
-                    if evt.name == marker)
-        by_name = {}
-        for evt in events:
-            # the marker itself also shows as a range on the device
-            if (evt.device_type == torch.autograd.DeviceType.CUDA
-                    and evt.name != marker
-                    and evt.time_range.start >= start):
-                n, ms = by_name.get(evt.name, (0, 0.0))
-                by_name[evt.name] = (n + 1,
-                                     ms + evt.time_range.elapsed_us() / 1e3)
-        if by_name and all(any(key in name for name in by_name)
-                           for key in expect):
-            break
-    if by_name_out is not None:
-        by_name_out.update(by_name)
-    rows = sorted(((k, n, ms) for k, (n, ms) in by_name.items()),
-                  key=lambda r: -r[2])
-    return sum(r[2] for r in rows), rows[:top], sum(r[1] for r in rows)
 
 
 def rfft_flops(frames: int, length: int) -> float:
@@ -659,19 +467,6 @@ def close_losses(path, met_g, met_c, keys, tol):
             fail(f"{path} {key} differs: card {got}, cpu {ref}")
 
 
-def print_profile(label, fn, wall, torch, top=10):
-    """One profiled call of `fn`: device busy, idle share against `wall`,
-    the launches and the top kernels; returns {name: (launches, ms)}."""
-    names = {}
-    busy, rows, n_launch = profile_ms(torch, fn, top=top, by_name_out=names)
-    print(f"profile {label}: device busy {busy:.3f} ms of {wall:.3f} ms "
-          f"wall (idle {1 - busy / wall:.1%}), {n_launch} kernel launches",
-          flush=True)
-    for name, n, ms in rows:
-        print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
-    return names
-
-
 def check_bodies_on(torch, sms, label, name, cuda, plain, args, outs, tol,
                  rel):
     """K2, K5, K7 or K8: the body the shape rule names (it must be the
@@ -679,8 +474,8 @@ def check_bodies_on(torch, sms, label, name, cuda, plain, args, outs, tol,
     where the rule names the stepwise one and it can run, each against the
     plain version (max abs error, or relative L2 where `rel`); the resident
     or wide body (K7 past H=304) against the stepwise one and against a
-    second call of itself. Returns the rule's body's max abs error. `sms`:
-    the card's SM count, which the rule reads."""
+    second call of itself. `sms`: the card's SM count, which the rule
+    reads."""
     from dl4ss_tpu_torch.ops import rnn_kernels as k2
     hidden = args[1].shape[1]          # wh (D, H, NG * H)
     rule = k2.rnn_body(hidden, args[0].shape[2], args[0].shape[1], sms=sms,
@@ -737,7 +532,6 @@ def persistence_phase(torch, dev, rng, tmp):
     ck = os.path.join(tmp, "ck")
     base = ["--preset", "torch_multi", "--epoch-size", str(RESUME_STEPS),
             "--utts", str(BANK_UTTS), "--seed", str(SEED), "--device", "cuda"]
-    t0 = time.perf_counter()
     quiet(train_cli.main, [*base, "--epochs", "2", "--checkpoint-dir", ck])
     if latest_step(ck) != 2 * RESUME_STEPS:
         fail(f"run.train saved step {latest_step(ck)}, expected "
@@ -748,7 +542,6 @@ def persistence_phase(torch, dev, rng, tmp):
     if "resuming under the checkpoint's config" not in text:
         fail("run.train --resume did not take the checkpoint's config")
     unbroken, _ = quiet(train_cli.main, [*base, "--epochs", "3"])
-    runs_s = time.perf_counter() - t0
     pairs = list(zip(resumed.model.state_dict().values(),
                      unbroken.model.state_dict().values()))
     pairs += list(zip(resumed.opt_state.mu + resumed.opt_state.nu,
@@ -758,8 +551,7 @@ def persistence_phase(torch, dev, rng, tmp):
     print(f"resume: 2 epochs + --resume 1 against 3 unbroken epochs of "
           f"{RESUME_STEPS} steps: step {resumed.step} and {unbroken.step}, "
           f"{len(pairs)} tensors, worst rel L2 {worst:.3e} tol "
-          f"{TOL['repeat_rel']:.0e}, bit-equal {bit_equal} ({runs_s:.1f} s "
-          f"for the three runs)", flush=True)
+          f"{TOL['repeat_rel']:.0e}, bit-equal {bit_equal}", flush=True)
     if resumed.step != unbroken.step or not worst <= TOL["repeat_rel"]:
         fail(f"the resumed run differs from the unbroken one: {worst}")
     if not torch.equal(resumed.generator.get_state(),
@@ -837,9 +629,8 @@ def tdaa_phase(torch, dev, rng, wav, reqs):
     speakers against the plain path; one dense and one adversarial step on
     the card against the same steps on the CPU; remat's gradients against
     remat=False's; tdaa_crm serving one request and taking one dense step;
-    tdaa_recursive peeling a request in two steps; and the timings.
-    Returns the launches by kernel of those paths (remat's comparison and
-    the timing runs not counted)."""
+    tdaa_recursive peeling a request in two steps. Returns the launches by
+    kernel of those paths (remat's comparison not counted)."""
     from dl4ss_tpu_torch import preset
     from dl4ss_tpu_torch.data.synth import (featurize, make_synthetic_bank,
                                             sample_mixtures)
@@ -954,22 +745,18 @@ def tdaa_phase(torch, dev, rng, wav, reqs):
         before = leaves(model)
         step = make(cfg)
         zero_counts(torch)
-        t0 = time.perf_counter()
         (_, met_g), grads_g = recorded_grads(
             step, create_train_state(cfg, model=model), feats)
-        torch.cuda.synchronize()
-        t_card = time.perf_counter() - t0
         launches, bodies = read_counts(torch, total)
-        t0 = time.perf_counter()
         (_, met_c), grads_c = recorded_grads(
             step, create_train_state(cfg, model=twin, device="cpu"),
             cpu_feats)
-        t_cpu = time.perf_counter() - t0
-        print(f"tdaa {name} step: launches {launches}, bodies {bodies} "
-              f"(card {t_card:.2f} s incl. warm-up, CPU {t_cpu:.2f} s)",
+        print(f"tdaa {name} step: launches {launches}, bodies {bodies}",
               flush=True)
         expect_counts(f"tdaa {name} step", launches, want)
-        if set(bodies) != {("lstm_fwd", res), ("lstm_bwd", res)}:
+        # every K7 and K8 launch is one chain of the resident body
+        if bodies != {("lstm_fwd", res): want["lstm_fwd"],
+                      ("lstm_bwd", res): want["lstm_bwd"]}:
             fail(f"tdaa {name} step ran the bodies {bodies}")
         close_losses(f"tdaa {name} step", met_g, met_c, keys,
                      TOL["train_loss_rel"])
@@ -1058,45 +845,6 @@ def tdaa_phase(torch, dev, rng, wav, reqs):
              f"{ref_spk.tolist()}")
     compare("tdaa_recursive two-step peel", rec, ref)
 
-    # timing: the B=16 batch, the B=1 request (given and selected
-    # speakers), the dense and the adversarial step (each on a batch drawn
-    # and featurized in the step)
-    timing = {}
-    with torch.inference_mode():
-        for label, fn in (
-                (f"tdaa B={BATCH} batch", lambda: separate_waveforms(
-                    model, wav, cfg, spk, length=N_SAMPLES)),
-                ("tdaa B=1 request", lambda: separate_waveforms(
-                    model, w1, cfg, s1, length=N_SAMPLES)),
-                (f"tdaa selected B={BATCH} batch", lambda: separate_waveforms(
-                    model, wav, cfg, length=N_SAMPLES)),
-                ("tdaa selected B=1 request", lambda: separate_waveforms(
-                    model, w1, cfg, length=N_SAMPLES))):
-            wall = host_ms(torch, fn, 10)
-            timing[label] = wall
-            print_profile(label, fn, wall, torch)
-    state = create_train_state(cfg, model=model)
-    for label, make in (("tdaa dense step", make_dense_train_step),
-                        ("tdaa adversarial step", make_adversarial_step)):
-        step = make(cfg)
-
-        def run(step=step):
-            return step(state, featurize(sample_mixtures(
-                state.generator, bank, cfg), cfg))
-        wall = host_ms(torch, run, 10)
-        timing[label] = wall
-        names = print_profile(label, run, wall, torch, top=12)
-        chains = {key: sum(n for k, (n, _) in names.items()
-                           if key in k and "Lstm" in k)
-                  for key in ("fwd_chain", "bwd_chain")}
-        print(f"profile {label}: K7 chain launches {chains['fwd_chain']}, "
-              f"K8 chain launches {chains['bwd_chain']}", flush=True)
-        want_fwd = layers * (2 if "adversarial" in label else 1)
-        if chains != {"fwd_chain": want_fwd, "bwd_chain": layers}:
-            fail(f"profile {label}: LSTM chain kernels {chains}")
-    print("tdaa: " + ", ".join(f"{k} {v:.3f} ms" for k, v in timing.items())
-          + f" (B={BATCH}: {BATCH / timing[f'tdaa B={BATCH} batch'] * 1e3:.1f}"
-          f" mixtures/s served)", flush=True)
     return total
 
 
@@ -1116,21 +864,17 @@ def learning_phase(torch, tmp, steps=LEARN_STEPS):
     before, _ = quiet(evaluate_cli.main, [*common, *score])
     print(f"learning: held-out teacher-forced SI-SDR {before:.3f} dB at "
           f"step 0 ({LEARN_BATCHES} batches)", flush=True)
-    train_s, first = 0.0, None
+    first = None
     for epoch in range(1, steps // LEARN_STEPS + 1):
-        t0 = time.perf_counter()
         quiet(train_cli.main, [*common, "--epochs", str(epoch),
                                "--epoch-size", str(LEARN_STEPS),
                                "--eval-every", "0", "--checkpoint-dir", ck,
                                *(["--resume"] if epoch > 1 else [])])
-        torch.cuda.synchronize()
-        train_s += time.perf_counter() - t0
         after, _ = quiet(evaluate_cli.main, [*common, *score,
                                              "--checkpoint-dir", ck])
         first = after if first is None else first
         print(f"learning: {after:.3f} dB after {epoch * LEARN_STEPS} "
-              f"B={BATCH} steps ({train_s:.1f} s of training), gain "
-              f"{after - before:.3f} dB", flush=True)
+              f"B={BATCH} steps, gain {after - before:.3f} dB", flush=True)
     gain = first - before
     print(f"learning: gain {gain:.3f} dB after {LEARN_STEPS} steps (at "
           f"least {TOL['learning_gain_db']} required)", flush=True)
@@ -1186,34 +930,26 @@ def data_phase(torch, dev, tmp, size):
     tdaa adversarial), from the lists (tdaa adversarial with dis-sp, a
     resumed run against an unbroken one, torch_multi_3db on k = 1, 2, 3)
     and run.classify from the lists, each list-driven step launching what
-    its bank-driven counterpart launches; the list-driven step time against
-    the bank-driven one; BSS-Eval on the card against the float64 oracle;
-    run.evaluate --list-dir --bss-eval --oracle irm --export-wavs from the
-    tdaa checkpoint, and run.score reproducing its SDR. Returns the
-    launches by kernel of the CLI runs."""
+    its bank-driven counterpart launches; BSS-Eval on the card against the
+    float64 oracle, and its time a batch; run.evaluate --list-dir
+    --bss-eval --oracle irm --export-wavs from the tdaa checkpoint, and
+    run.score reproducing its SDR. Returns the launches by kernel of the
+    CLI runs."""
     from dl4ss_tpu_torch import native, preset
-    from dl4ss_tpu_torch.data.dirtree import (DirTreeSampler,
-                                              StreamingTreeSampler,
+    from dl4ss_tpu_torch.data.dirtree import (StreamingTreeSampler,
                                               _load_fixed)
-    from dl4ss_tpu_torch.data.listsampler import (
-        Wsj0MixSampler, list_same_speaker_real_specs, mix_from_list)
+    from dl4ss_tpu_torch.data.listsampler import Wsj0MixSampler, mix_from_list
     from dl4ss_tpu_torch.data.loader import device_prefetch, to_pinned
     from dl4ss_tpu_torch.data.rehearsal import generate_corpus
-    from dl4ss_tpu_torch.data.synth import (MixtureBatch, featurize,
-                                            same_speaker_real_specs,
-                                            sample_mixtures)
+    from dl4ss_tpu_torch.data.synth import featurize
     from dl4ss_tpu_torch.data.wavio import write_wav
     from dl4ss_tpu_torch.eval.bss_eval import (bss_eval_sources,
                                                bss_eval_sources_numpy)
-    from dl4ss_tpu_torch.models import init_separator, separate
     from dl4ss_tpu_torch.run import classify as classify_cli
     from dl4ss_tpu_torch.run import evaluate as evaluate_cli
     from dl4ss_tpu_torch.run import score as score_cli
     from dl4ss_tpu_torch.run import train as train_cli
-    from dl4ss_tpu_torch.train.state import create_train_state
-    from dl4ss_tpu_torch.train.steps import (make_adversarial_step,
-                                             make_eval_step, make_fused_step,
-                                             make_train_step)
+    from dl4ss_tpu_torch.train.steps import make_eval_step
     total = collections.Counter()
     root = os.path.join(tmp, "corpus")
     t0 = time.perf_counter()
@@ -1304,52 +1040,19 @@ def data_phase(torch, dev, tmp, size):
     torch.cuda.synchronize()
     equal = all(torch.equal(a[k], b[k]) for a, b in zip(got, sync)
                 for k in a)
-    model = init_separator(cfg, torch.Generator().manual_seed(SEED), dev)
-
-    def compute(b):
-        mb = MixtureBatch(b["mix_wav"], b["source_wavs"],
-                          b["spk_idx"].long(), b["gains"])
-        with torch.no_grad():
-            return separate(model, featurize(mb, cfg)["mix_feas"], cfg,
-                            spk_idx=mb.spk_idx).masks
-
-    def loop(feed):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for b in feed():
-            compute(b)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3
-
-    def copies():
-        return ({k: torch.as_tensor(v).to(dev) for k, v in b.items()}
-                for b in batches)
-
-    def copy_only():
-        for b in copies():
-            pass
-    h2d_ms = host_ms(torch, copy_only, 3) / len(batches)
-    loop(copies)
-    sync_ms = statistics.median(loop(copies) for _ in range(3))
-    pref_ms = statistics.median(loop(lambda: device_prefetch(
-        iter(batches), depth=2, device=dev)) for _ in range(3))
     print(f"data: prefetch of {len(batches)} streamed B={BATCH} batches "
           f"bit-equal to synchronous copies {equal}, host buffers pinned "
-          f"{pinned}; H2D {h2d_ms:.3f} ms a batch (synchronous, pageable); "
-          f"featurize + forward over them {sync_ms:.3f} ms with synchronous "
-          f"copies, {pref_ms:.3f} ms through the prefetch: "
-          f"{sync_ms - pref_ms:.3f} ms hidden", flush=True)
+          f"{pinned}", flush=True)
     if not (equal and pinned):
         fail("device_prefetch differs from synchronous copies or its host "
              "buffers are not pinned")
-    del batches, sync, got, model
+    del batches, sync, got
 
     # ---- the training runs -------------------------------------------------
     joint_k = ("stft_features", "gru_fwd", "gru_bwd", "maskhead_fwd",
                "maskhead_bwd")
     adv_k = ("stft_features", "lstm_fwd", "lstm_bwd", "maskhead_fwd",
              "maskhead_bwd")
-    cls_k = ("stft_features", "lstm_fwd", "lstm_bwd")
     base = ["--seed", str(SEED), "--device", "cuda", "--eval-every", "0"]
     tree_args = ["--data-root", tree, "--split", "si_tr_s", "--utts",
                  str(size["utts"] - size["holdout"]), "--epochs", "1",
@@ -1377,17 +1080,13 @@ def data_phase(torch, dev, tmp, size):
     per_step = {}
     for label, argv, steps, names in runs:
         zero_counts(torch)
-        t0 = time.perf_counter()
         state, _ = quiet(train_cli.main, [*argv, *base])
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
         launches, bodies = read_counts(torch, total)
         if state.step != steps:
             fail(f"run.train {label}: {state.step} steps, expected {steps}")
         per_step[label] = _per_step(launches, steps, names)
-        print(f"data: run.train {label}: {steps} steps in {run_s:.2f} s, "
-              f"launches a step {per_step[label]}, bodies {bodies}",
-              flush=True)
+        print(f"data: run.train {label}: {steps} steps, launches a step "
+              f"{per_step[label]}, bodies {bodies}", flush=True)
         if label.startswith("tdaa adversarial dis-sp, lists"):
             tdaa_state = state
     for bank_label, list_label, want in (
@@ -1447,62 +1146,6 @@ def data_phase(torch, dev, tmp, size):
         fail(f"the resumed list-driven run differs from the unbroken one: "
              f"{worst}")
 
-    # ---- list-driven against bank-driven steps -----------------------------
-    timing = {}
-    for name, pcfg, make in (("joint", cfg, None),
-                             ("tdaa adversarial", tcfg,
-                              make_adversarial_step)):
-        pcfg = pcfg.replace(num_speakers=sampler.num_speakers,
-                            use_discriminator=make is not None)
-        st = create_train_state(pcfg, SEED, device=dev)
-        gen = torch.Generator().manual_seed(SEED)
-        tbank = torch.as_tensor(DirTreeSampler(tree, pcfg, "si_tr_s",
-                                               DATA_TREE_UTTS).bank,
-                                device=dev)
-        rows, counts = sampler.spk_tables()
-        stream = iter(())
-
-        def next_batch():
-            nonlocal stream
-            for b in stream:
-                return b
-            stream = sampler.batches(BATCH, seed=SEED, augment=True)
-            return next(stream)
-        if make is None:
-            fused, inner = make_fused_step(pcfg), make_train_step(pcfg)
-
-            def bank_step():
-                fused(st, tbank)
-
-            def list_step():
-                inner(st, featurize(next_batch(), pcfg))
-        else:
-            adv = make(pcfg)
-
-            def bank_step():
-                b = sample_mixtures(gen, tbank, pcfg)
-                f = featurize(b, pcfg)
-                f["real_specs"] = same_speaker_real_specs(gen, b, tbank, pcfg)
-                adv(st, f)
-
-            def list_step():
-                b = next_batch()
-                f = featurize(b, pcfg)
-                f["real_specs"] = list_same_speaker_real_specs(
-                    gen, b, sampler.device_bank(), rows, counts, pcfg)
-                adv(st, f)
-        for side, fn in (("bank", bank_step), ("list", list_step),
-                         ("list", list_step), ("bank", bank_step)):
-            timing.setdefault(f"{name} {side}", []).append(
-                host_ms(torch, fn, 5))
-        print_profile(f"B={BATCH} {name} step, list-driven", list_step,
-                      statistics.median(timing[f"{name} list"]), torch)
-        del tbank
-    print("data: step ms (median of 5 synchronised steps, two runs each, "
-          "bank / list / list / bank): " + "; ".join(
-              f"{k} {' '.join(f'{v:.3f}' for v in vals)}"
-              for k, vals in timing.items()), flush=True)
-
     # ---- BSS-Eval on the card against the float64 oracle -------------------
     tt = Wsj0MixSampler(lists, root, tcfg, "test",
                         spk2idx=sampler.spk2idx, device=dev)
@@ -1512,11 +1155,8 @@ def data_phase(torch, dev, tmp, size):
     out = ev(tdaa_state.model, featurize(batch, tcfg))
     ref, est = batch.source_wavs.float(), out["pred_wavs"].float()
     res = bss_eval_sources(ref, est)
-    bss_ms = host_ms(torch, lambda: bss_eval_sources(ref, est), 3)
-    print_profile(f"BSS-Eval B={BATCH}", lambda: bss_eval_sources(ref, est),
-                  bss_ms, torch, top=6)
+    bss_ms = device_ms(torch, lambda: bss_eval_sources(ref, est), 3)
     worst, perms_ok = 0.0, True
-    t0 = time.perf_counter()
     for i in range(DATA_BSS_ORACLE):
         sdr, sir, sar, perm = bss_eval_sources_numpy(
             ref[i].double().cpu().numpy(), est[i].double().cpu().numpy())
@@ -1524,10 +1164,9 @@ def data_phase(torch, dev, tmp, size):
         for got, want_ in ((res.sdr, sdr), (res.sir, sir), (res.sar, sar)):
             worst = max(worst, float(np.abs(got[i].cpu().numpy()
                                             - want_).max()))
-    oracle_s = time.perf_counter() - t0
     print(f"data: BSS-Eval flen=512 on the card {bss_ms:.3f} ms per "
-          f"B={BATCH} batch (K=2, N={N_SAMPLES}); against the float64 "
-          f"oracle on {DATA_BSS_ORACLE} mixtures ({oracle_s:.1f} s): worst "
+          f"B={BATCH} batch (K=2, N={N_SAMPLES}, CUDA events); against the "
+          f"float64 oracle on {DATA_BSS_ORACLE} mixtures: worst "
           f"{worst:.3e} dB over SDR / SIR / SAR, permutations equal "
           f"{perms_ok}; mean SDR {float(res.sdr.mean()):.3f} dB", flush=True)
     if not (perms_ok and worst <= TOL["bss_db"]):
@@ -1537,34 +1176,28 @@ def data_phase(torch, dev, tmp, size):
     # ---- run.evaluate --list-dir, then run.score ---------------------------
     export = os.path.join(tmp, "data_export")
     zero_counts(torch)
-    t0 = time.perf_counter()
-    sisdr, text = quiet(evaluate_cli.main, [
+    _, text = quiet(evaluate_cli.main, [
         "--preset", "tdaa", "--checkpoint-dir", ck, "--list-dir", lists,
         "--wav-root", root, "--split", "test", "--teacher-forced",
         "--bss-eval", "--oracle", "irm", "--export-wavs", export,
         "--device", "cuda"])
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t0
     launches, _ = read_counts(torch, total)
     line = next(x for x in text.splitlines() if x.startswith("BSS-Eval SDR"))
     eval_sdr = float(line.split()[2])
     n_eval = size["tt"] // tcfg.batch_size_eval
-    print(f"data: run.evaluate --list-dir --split test: {eval_s:.2f} s; "
+    print("data: run.evaluate --list-dir --split test: "
           + "; ".join(x for x in text.splitlines()
                       if x.startswith(("SI-SDR", "oracle", "BSS-Eval")))
           + f"; launches {launches}", flush=True)
     expect_counts("run.evaluate --list-dir", launches, {
         "stft_features": 2 * n_eval, "lstm_fwd": 4 * n_eval,
         "maskhead_fwd": n_eval})
-    t0 = time.perf_counter()
     scored, _ = quiet(score_cli.main, [export, "--nsdr", "--device",
                                        "cuda"])
-    score_s = time.perf_counter() - t0
     gap = abs(scored["mean_sdr"] - eval_sdr)
-    print(f"data: run.score --nsdr: {scored['n_mixtures']} mixtures in "
-          f"{score_s:.2f} s, SDR {scored['mean_sdr']:.4f} dB (run.evaluate "
-          f"{eval_sdr:.4f}, gap {gap:.4f} dB), NSDR "
-          f"{scored['mean_nsdr']:.4f} dB", flush=True)
+    print(f"data: run.score --nsdr: {scored['n_mixtures']} mixtures, SDR "
+          f"{scored['mean_sdr']:.4f} dB (run.evaluate {eval_sdr:.4f}, gap "
+          f"{gap:.4f} dB), NSDR {scored['mean_nsdr']:.4f} dB", flush=True)
     if scored["n_mixtures"] != size["tt"] or not gap <= TOL["score_db"]:
         fail(f"run.score: {scored['n_mixtures']} mixtures, SDR gap {gap} dB")
     return total
@@ -1589,14 +1222,14 @@ def generations_phase(torch, dev, tmp):
     with one W pack, and K7 / K8 2 each for a grid_video step; none for
     multimodal_image and cocktail_debug); the query BiLSTMs on K7 / K8
     against their plain loop on the card; one memory and one video-query
-    step on the card against the CPU; the step times and profiles, the
-    speech query's share of a memory step on either route; the two
-    learning gates. Returns the launches by kernel of the CLI runs."""
+    step on the card against the CPU; the two learning gates. Returns the
+    launches by kernel of the CLI runs."""
     from dl4ss_tpu_torch import preset
     from dl4ss_tpu_torch.data.dirtree import DirTreeSampler
     from dl4ss_tpu_torch.data.layout_tools import generate_file_lists
     from dl4ss_tpu_torch.data.mnist import digit_query_bank, load_mnist
-    from dl4ss_tpu_torch.data.rehearsal import generate_corpus
+    from dl4ss_tpu_torch.data.rehearsal import (cocktail_layout,
+                                                generate_corpus)
     from dl4ss_tpu_torch.data.synth import make_synthetic_bank
     from dl4ss_tpu_torch.data.video import synthetic_frame_bank
     from dl4ss_tpu_torch.models.query import (apply_speech_query,
@@ -1648,7 +1281,6 @@ def generations_phase(torch, dev, tmp):
     ck = os.path.join(tmp, "gen_ck")
     m_res, m_unb = (os.path.join(tmp, f"gen_{n}.jsonl") for n in "ru")
     zero_counts(torch)
-    t0 = time.perf_counter()
     quiet(train_cli.main, [*mem, "--epochs", "1", "--checkpoint-dir", ck,
                            "--metrics", m_res])
     resumed, text = quiet(train_cli.main, [*mem, "--epochs", "2",
@@ -1656,7 +1288,6 @@ def generations_phase(torch, dev, tmp):
                                            "--resume", "--metrics", m_res])
     unbroken, _ = quiet(train_cli.main, [*mem, "--epochs", "2",
                                          "--metrics", m_unb])
-    runs_s = time.perf_counter() - t0
     launches, _ = read_counts(torch, total)
     if "resumed memory-mode step" not in text:
         fail("run.train --mode memory --resume did not restore the "
@@ -1679,7 +1310,7 @@ def generations_phase(torch, dev, tmp):
                  and torch.equal(resumed.generator.get_state(),
                                  unbroken.generator.get_state()))
     print(f"cocktail memory resume: 1 epoch + --resume 1 against 2 unbroken "
-          f"epochs of {GEN_RESUME_STEPS} steps in {runs_s:.1f} s; dev losses "
+          f"epochs of {GEN_RESUME_STEPS} steps; dev losses "
           f"unbroken {hist}, resumed {hist_r}; the second epoch improved "
           f"{improved}; step {resumed.step} and {unbroken.step}; "
           f"{len(same)} tensors (moments, parameters, memory rows and "
@@ -1717,15 +1348,13 @@ def generations_phase(torch, dev, tmp):
                                    "unk"]))
     for label, ckd, extra in evals:
         zero_counts(torch)
-        t0 = time.perf_counter()
         res, text = quiet(evaluate_cli.main, [
             "--mode", "memory", "--checkpoint-dir", ckd, "--seed",
             str(SEED), "--device", "cuda", *extra])
         launches, _ = read_counts(torch, total)
         lines = [ln for ln in text.splitlines() if "SI-SDR" in ln]
-        print(f"run.evaluate --mode memory {label}: {lines[-1:]} "
-              f"({time.perf_counter() - t0:.1f} s); launches {launches}",
-              flush=True)
+        print(f"run.evaluate --mode memory {label}: {lines[-1:]}; launches "
+              f"{launches}", flush=True)
         if not np.isfinite([res["si_sdr"], res["nsdr"],
                             *res["gain"].values()]).all():
             fail(f"run.evaluate --mode memory {label}: {res}")
@@ -1790,15 +1419,13 @@ def generations_phase(torch, dev, tmp):
 
     # run.train --mode image-query: two steps on the glyphs, no kernel
     zero_counts(torch)
-    t0 = time.perf_counter()
     img, _ = quiet(train_cli.main, [
         "--preset", "multimodal_image", "--mode", "image-query", "--seed",
         str(SEED), "--device", "cuda", "--utts", str(BANK_UTTS),
         "--epochs", "1", "--epoch-size", "2"])
     launches, _ = read_counts(torch)
     print(f"run.train --preset multimodal_image --mode image-query: step "
-          f"{img.step} in {time.perf_counter() - t0:.1f} s; launches "
-          f"{launches}", flush=True)
+          f"{img.step}; launches {launches}", flush=True)
     if img.step != 2 or launches:
         fail(f"run.train --mode image-query: step {img.step}, launches "
              f"{launches}")
@@ -1857,16 +1484,9 @@ def generations_phase(torch, dev, tmp):
         state, twin = create(dev), create("cpu")
         before = leaves(state.model)
         step = make(cfg)
-        t0 = time.perf_counter()
         (_, met_g), grads_g = recorded_grads(step, state, feats)
-        torch.cuda.synchronize()
-        t_card = time.perf_counter() - t0
-        t0 = time.perf_counter()
         (_, met_c), grads_c = recorded_grads(
             step, twin, {k: v.cpu() for k, v in feats.items()})
-        t_cpu = time.perf_counter() - t0
-        print(f"{label} card vs CPU (card {t_card:.2f} s incl. warm-up, "
-              f"CPU {t_cpu:.2f} s)", flush=True)
         close_losses(label, met_g, met_c, keys, loss_tol)
         close_losses(label, met_g, met_c, ("grad_norm",), tol)
         worst = leaf_updates(label, before, leaves(state.model),
@@ -1885,47 +1505,15 @@ def generations_phase(torch, dev, tmp):
                  f"(ages equal {ages})")
         del state, twin
 
-    # ---- timings and profiles -----------------------------------------------
-    ifeats = query_batch(gen, bank, cfg_i, "query_image", digits)
-    mem_ms = host_ms(torch, lambda: mstep(mstate, mfeats), 10)
-    vid_ms = host_ms(torch, lambda: vstep(vstate, vfeats), 10)
-    img_ms = host_ms(torch, lambda: istep(istate, ifeats), 2)
-    for label, fn, wall in (
-            ("cocktail memory step", lambda: mstep(mstate, mfeats), mem_ms),
-            ("grid_video step (conv trunk)", lambda: vstep(vstate, vfeats),
-             vid_ms),
-            ("multimodal_image step", lambda: istep(istate, ifeats),
-             img_ms)):
-        print_profile(f"B={BATCH} {label}", fn, wall, torch, top=12)
-    # the speech query's BiLSTM-25 x 2 forward and backward, on the eager
-    # loop (JAX's route there, lax.scan) and on K7 / K8
-    q_ms = {}
-    for route, kernels in (("eager loop", False), ("K7/K8", True)):
-        def fwd_bwd():
-            apply_speech_query(query, clean, valid, kernels).sum().backward()
-        q_ms[route] = host_ms(torch, fwd_bwd, 5 if not kernels else 10)
-    eager_step = mem_ms - q_ms["K7/K8"] + q_ms["eager loop"]
-    print(f"time speech query BiLSTM-{query.rnn[0].fwd.wh.shape[0]} x "
-          f"{len(query.rnn)} forward + backward at B={BATCH}, T="
-          f"{clean.shape[1]}: eager loop {q_ms['eager loop']:.3f} ms, K7/K8 "
-          f"{q_ms['K7/K8']:.3f} ms; its share of a memory step: "
-          f"{q_ms['K7/K8'] / mem_ms:.1%} of {mem_ms:.3f} ms on K7/K8, "
-          f"{q_ms['eager loop'] / eager_step:.1%} of {eager_step:.3f} ms on "
-          f"the eager loop", flush=True)
-    print(f"time B={BATCH} steps (median wall ms): cocktail memory "
-          f"{mem_ms:.3f}, grid_video conv trunk {vid_ms:.3f}, "
-          f"multimodal_image (plain recurrences) {img_ms:.3f}", flush=True)
     del mstate, vstate, istate
 
     # ---- grid_video with the frozen Inception trunk at 299x299 -----------
     video = ["--preset", "grid_video", "--mode", "video", "--seed",
              str(SEED), "--device", "cuda"]
     zero_counts(torch)
-    t0 = time.perf_counter()
     inc, _ = quiet(train_cli.main, [*video, "--video-trunk", "inception",
                                     "--epochs", "1", "--epoch-size", "1",
                                     "--eval-every", "0"])
-    inc_s = time.perf_counter() - t0
     launches, _ = read_counts(torch, total)
     fresh = create_query_state(cfg_v, SEED, video_trunk="inception",
                                frame_hw=(299, 299), device=dev)
@@ -1935,24 +1523,13 @@ def generations_phase(torch, dev, tmp):
     moved = [n for n, p in trunk if not torch.equal(p, ref[n])]
     head_moved = not torch.equal(inc.model.video_query.dense.w,
                                  ref["video_query.dense.w"])
-    print(f"grid_video Inception trunk: one step in {inc_s:.1f} s (frames "
-          f"made and trunk built included); {len(trunk)} trunk parameters, "
-          f"{len(moved)} moved; the query head moved {head_moved}; "
-          f"launches {launches}", flush=True)
+    print(f"grid_video Inception trunk: one step; {len(trunk)} trunk "
+          f"parameters, {len(moved)} moved; the query head moved "
+          f"{head_moved}; launches {launches}", flush=True)
     if moved or not head_moved:
         fail(f"the frozen Inception trunk moved ({moved[:3]}) or the head "
              f"did not")
-    del fresh
-    istack = torch.as_tensor(synthetic_frame_bank(4, 1, 4, (299, 299),
-                                                  seed=SEED), device=dev)
-    inc_step = make_query_train_step(cfg_v)
-    incfeats = query_batch(gen, bank[:4], cfg_v, "query_video", istack)
-    inc_ms = host_ms(torch, lambda: inc_step(inc, incfeats), 3)
-    print(f"time B={BATCH} grid_video step with the Inception trunk "
-          f"(2 x 4 frames of 299x299 a mixture): {inc_ms:.3f} ms", flush=True)
-    print_profile(f"B={BATCH} grid_video step (Inception trunk)",
-                  lambda: inc_step(inc, incfeats), inc_ms, torch, top=12)
-    del inc, istack, incfeats
+    del fresh, inc
 
     # ---- the learning gates, on one 101 x 8 rehearsal tree ------------------
     t0 = time.perf_counter()
@@ -1984,16 +1561,14 @@ def generations_phase(torch, dev, tmp):
 
     m0, m1 = (os.path.join(tmp, f"gen_learn{i}.jsonl") for i in (0, 1))
     memory_run(LEARN_UTTS, 1, 0, m0)
-    t0 = time.perf_counter()
     zero_counts(torch)
     memory_run(LEARN_UTTS, 10, MEM_LEARN_STEPS // 10, m1)
     read_counts(torch, total)
-    learn_s = time.perf_counter() - t0
     start, curve = dev_losses(m0)[0], dev_losses(m1)
     ratio = curve[-1] / start
     print(f"learning cocktail memory ({LEARN_SPEAKERS}-speaker tree, "
           f"{LEARN_UTTS} utterances a speaker): dev MSE {start:.4f} at step "
-          f"0, {curve} every {MEM_LEARN_STEPS // 10} steps ({learn_s:.1f} s); "
+          f"0, {curve} every {MEM_LEARN_STEPS // 10} steps; "
           f"after {MEM_LEARN_STEPS} steps {ratio:.4f} of step 0 (gate: at "
           f"most {TOL['memory_learn_ratio']})", flush=True)
     # printed, not gated: the same model trained on each speaker's first
@@ -2039,7 +1614,6 @@ def generations_phase(torch, dev, tmp):
             for i in range(VIDEO_HELD_BATCHES)]))
 
     curves, ces = {}, {}
-    t0 = time.perf_counter()
     zero_counts(torch)
     for seed in VIDEO_LEARN_SEEDS:
         m3 = os.path.join(tmp, f"gen_v{seed}.jsonl")
@@ -2054,7 +1628,6 @@ def generations_phase(torch, dev, tmp):
         with open(m3) as fh:
             ces[seed] = round(json.loads(fh.readlines()[-1])["query_ce"], 3)
     read_counts(torch, total)
-    learn_s = time.perf_counter() - t0
     gains = [end - start for start, end in curves.values()]
     gain = float(np.mean(gains))
     print(f"learning grid_video (encoder depth 1, {cfg_l.num_speakers}-"
@@ -2062,7 +1635,7 @@ def generations_phase(torch, dev, tmp):
           f"48x48 synthetic lips): held-out SI-SDR (step 0, step "
           f"{VIDEO_LEARN_STEPS}) by seed {curves} dB on "
           f"{VIDEO_HELD_BATCHES} batches of the last {LEARN_HELD_UTTS} "
-          f"utterances ({learn_s:.1f} s); the query CE {ces}; gains "
+          f"utterances; the query CE {ces}; gains "
           f"{[round(g, 4) for g in gains]}, mean {gain:.4f} dB (gate: at "
           f"least {TOL['video_learn_db']})", flush=True)
     if not gain >= TOL["video_learn_db"]:
@@ -2275,13 +1848,11 @@ def parallel_phase(torch, dev, tmp):
     runs = {}
     for label, extra in (("--dp auto", ["--dp", "auto"]), ("no --dp", [])):
         zero_counts(torch)
-        t0 = time.perf_counter()
         state, text = quiet(train_cli.main, argv + extra)
         launches, bodies = read_counts(torch, total if extra else None)
         runs[label] = (_leaves(state.model), launches, text)
-        print(f"run.train --preset torch_multi {label}: step {state.step} "
-              f"in {time.perf_counter() - t0:.1f} s; launches {launches}, "
-              f"bodies {bodies}", flush=True)
+        print(f"run.train --preset torch_multi {label}: step {state.step}; "
+              f"launches {launches}, bodies {bodies}", flush=True)
         if state.step != PAR_STEPS:
             fail(f"run.train {label} ended at step {state.step}")
     auto, plain = runs["--dp auto"], runs["no --dp"]
@@ -2346,13 +1917,12 @@ def parallel_phase(torch, dev, tmp):
               f"{statistics.median(rels.values()):.3e}", flush=True)
     # ---- d. the utils -----------------------------------------------------
     state, run = par_case(torch, dev, "joint", None)
-    timer = StepTimer(warmup=1)
-    times = [timer.time_chain(lambda s: run(s)[0], state, iters=1)
-             for _ in range(PAR_TIMINGS)]
-    step_ms = statistics.median(times)
-    print(f"utils.StepTimer: torch_multi joint step {step_ms:.3f} ms "
-          f"(median of {PAR_TIMINGS} chains of one step after one "
-          f"warm-up, closed by torch.cuda.synchronize)", flush=True)
+    step_ms = StepTimer(warmup=1).time_chain(lambda s: run(s)[0], state,
+                                             iters=1)
+    print(f"utils.StepTimer: a chain of one joint step after one warm-up, "
+          f"timed {step_ms > 0}", flush=True)
+    if not (np.isfinite(step_ms) and step_ms > 0):
+        fail(f"StepTimer timed the joint step at {step_ms} ms")
     with profile_trace(os.path.join(tmp, "trace")) as log_dir:
         run(state)
         torch.cuda.synchronize()
@@ -2483,13 +2053,11 @@ def cards_only(torch) -> int:
             "--epoch-size", str(PAR_STEPS), "--eval-every", "0"]
     one = _leaves(quiet(train_cli.main, argv)[0].model)
     for extra in (["--dp", "auto"], ["--dp", str(n // 2), "--mp", "2"]):
-        t1 = time.perf_counter()
         state = train_cli.main(argv + extra)
         got = _leaves(state.model)
         diff = max(float(np.abs(got[k] - one[k]).max()) for k in one)
         print(f"run.train --preset torch_multi {' '.join(extra)}: step "
-              f"{state.step} in {time.perf_counter() - t1:.1f} s with the "
-              f"ranks' start; largest parameter difference from the run "
+              f"{state.step}; largest parameter difference from the run "
               f"without --dp {diff:.3e}", flush=True)
         if state.step != PAR_STEPS or set(got) != set(one) or not all(
                 np.isfinite(v).all() for v in got.values()):
@@ -2510,7 +2078,7 @@ def surface_phase(torch, dev, smi):
     tests/test_torch_surface.py's walk of the JAX package's surface (its
     source read as text by `ast`) finds no name unmapped and no map entry
     stale, every counterpart resolved here. c: K2, K5, K7 and K8 with D = 1
-    at B=16, T=313, H=300, both bodies, as phase 2 holds D = 2. d: a
+    at B=16, T=313, H=300, both bodies, against their plain versions. d: a
     one-direction 2-layer GRU-300 and LSTM-300 stack (rnn_init(...,
     bidirectional=False)) over torch_multi's 129 features through
     `bidirectional_rnn(use_pallas=True)`, forward and gradients, with the
@@ -2599,20 +2167,20 @@ def surface_phase(torch, dev, smi):
     zeros = torch.zeros_like(hs[:1])
     k5_args = (xp2, wh2, bhn, torch.cat([zeros, hs[:-1]]), dhs)
     errs["gru_bwd"] = check_bodies_on(
-        torch, sms, "K5 gru_bwd D=1", "gru_bwd", k2.gru_scan_bwd_cuda,
-        k2.gru_scan_bwd_plain, k5_args, ("dxp", "dU", "db_n"),
-        TOL["gru_bwd"], rel=True)
+                    torch, sms, "K5 gru_bwd D=1", "gru_bwd",
+                    k2.gru_scan_bwd_cuda, k2.gru_scan_bwd_plain, k5_args,
+                    ("dxp", "dU", "db_n"), TOL["gru_bwd"], rel=True)
     errs["lstm_fwd"] = check_bodies_on(
-        torch, sms, "K7 lstm_fwd D=1", "lstm_fwd", k2.lstm_scan_cuda,
-        k2.lstm_scan_plain, (xp7, wh7), ("hs", "cs"), TOL["lstm_fwd"],
-        rel=False)
+                    torch, sms, "K7 lstm_fwd D=1", "lstm_fwd",
+                    k2.lstm_scan_cuda, k2.lstm_scan_plain, (xp7, wh7),
+                    ("hs", "cs"), TOL["lstm_fwd"], rel=False)
     hs7, cs7 = k2.lstm_scan_cuda(xp7, wh7)
     k8_args = (xp7, wh7, torch.cat([zeros, hs7[:-1]]),
                torch.cat([zeros, cs7[:-1]]), cs7, dhs)
     errs["lstm_bwd"] = check_bodies_on(
-        torch, sms, "K8 lstm_bwd D=1", "lstm_bwd", k2.lstm_scan_bwd_cuda,
-        k2.lstm_scan_bwd_plain, k8_args, ("dxp", "dU"), TOL["lstm_bwd"],
-        rel=True)
+                    torch, sms, "K8 lstm_bwd D=1", "lstm_bwd",
+                    k2.lstm_scan_bwd_cuda, k2.lstm_scan_bwd_plain, k8_args,
+                    ("dxp", "dU"), TOL["lstm_bwd"], rel=True)
 
     # ---- d. the one-direction stacks through the public entry point -------
     x = tensor(np.abs(rng.standard_normal((B, T, F))))
@@ -2631,15 +2199,11 @@ def surface_phase(torch, dev, smi):
 
     got = {}
     zero_counts(torch)
-    t0 = time.perf_counter()
     for cell in stacks:
         got[cell] = run(cell, True)
-    torch.cuda.synchronize()
-    stack_ms = (time.perf_counter() - t0) * 1e3
     launches, bodies = read_counts(torch)
-    print(f"surface: one-direction stacks, forward and backward, "
-          f"{stack_ms:.1f} ms (first call); launches {launches}, bodies "
-          f"{bodies}", flush=True)
+    print(f"surface: one-direction stacks, forward and backward: launches "
+          f"{launches}, bodies {bodies}", flush=True)
     want = {n: SURFACE_LAYERS for n in ("gru_fwd", "gru_bwd", "lstm_fwd",
                                         "lstm_bwd")}
     expect_counts("surface: one-direction stacks", launches,
@@ -2733,8 +2297,9 @@ def surface_phase(torch, dev, smi):
         kernels.append(dict(
             name=f"{name}_d1", route="cuda", source=r["source"],
             replaces=r["replaces"], launches=launches[name],
-            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+            max_abs_err=errs[name], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms))
         print(f"time {name} D=1 B={B}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (one-direction "
               f"nn.{'GRU' if 'gru' in name else 'LSTM'}), bound "
@@ -2779,112 +2344,6 @@ def surface_only(torch) -> int:
     return 0
 
 
-def graph_phase(torch, dev):
-    """16. The joint step's CUDA graph against the eager step at full
-    width: equality, launches, counts, then ms a step both ways."""
-    from dl4ss_tpu_torch import preset
-    from dl4ss_tpu_torch.data.synth import featurize, sample_mixtures
-    from dl4ss_tpu_torch.ops import cuda_lib
-    from dl4ss_tpu_torch.train import steps
-    from dl4ss_tpu_torch.train.state import create_train_state
-    cfg = preset("torch_multi")
-    bank = torch.as_tensor(np.random.default_rng(SEED).uniform(
-        -1, 1, (cfg.num_speakers, BANK_UTTS, N_SAMPLES)).astype(np.float32),
-        device=dev)
-
-    def eager_step():
-        inner = steps.make_train_step(cfg)
-
-        def run(state):
-            batch = sample_mixtures(state.generator, bank, cfg)
-            return inner(state, featurize(batch, cfg))
-        return run
-
-    def graphed_step():
-        fused = steps.make_fused_step(cfg)
-        return lambda state: fused(state, bank)
-
-    def run(make, n):
-        zero_counts(torch)
-        steps.GRAPH_COUNTS.clear()
-        state, step, losses = create_train_state(cfg, SEED, device=dev), \
-            make(), []
-        for _ in range(n):
-            state, m = step(state)
-            losses.append(m["loss"])
-        torch.cuda.synchronize()
-        leaves = ([p.detach().clone() for p in state.model.parameters()]
-                  + [t.clone() for t in state.opt_state.mu
-                     + state.opt_state.nu])
-        return (torch.stack(losses), leaves, dict(cuda_lib.LAUNCHES),
-                dict(steps.GRAPH_COUNTS), state, step)
-
-    t_phase = time.perf_counter()
-    e_loss, e_leaves, e_launch, _, _, _ = run(eager_step, GRAPH_EQ_STEPS)
-    g_loss, g_leaves, g_launch, counts, _, _ = run(graphed_step,
-                                                   GRAPH_EQ_STEPS)
-    rels = [0.0 if torch.equal(a, b) else rel_l2(a, b)
-            for a, b in zip(g_leaves, e_leaves)]
-    bit = not any(rels)
-    print(f"graph: {GRAPH_EQ_STEPS} torch_multi steps graphed against "
-          f"eager: losses bit-equal {torch.equal(g_loss, e_loss)}, "
-          f"{len(g_leaves)} parameters and moments bit-equal {bit}, worst "
-          f"rel L2 {max(rels):.3e}; counts {counts}; launches equal "
-          f"{g_launch == e_launch}: {g_launch}", flush=True)
-    if not bit:
-        print("graph: rel L2 by leaf " + ", ".join(
-            f"{i}:{r:.2e}" for i, r in enumerate(rels) if r), flush=True)
-        fail("the graphed joint step differs from the eager one")
-    if not torch.equal(g_loss, e_loss):
-        fail(f"graphed losses {g_loss.tolist()} against {e_loss.tolist()}")
-    if counts != {"eager": 1, "captures": 1,
-                  "replays": GRAPH_EQ_STEPS - 1}:
-        fail(f"the graphed run counted {counts}")
-    if g_launch != e_launch:
-        fail(f"graphed launches {g_launch} against eager {e_launch}")
-
-    timing = {}
-    for label, make in (("eager", eager_step), ("graphed", graphed_step)):
-        _, _, _, _, state, step = run(make, 3)
-        events = [(torch.cuda.Event(enable_timing=True),
-                   torch.cuda.Event(enable_timing=True))
-                  for _ in range(GRAPH_TIMED_STEPS)]
-        for start, end in events:
-            start.record()
-            state, _ = step(state)
-            end.record()
-        torch.cuda.synchronize()
-        ev_ms = statistics.median(a.elapsed_time(b) for a, b in events)
-        t0 = time.perf_counter()
-        for _ in range(GRAPH_TIMED_STEPS):
-            state, _ = step(state)
-        torch.cuda.synchronize()
-        host = (time.perf_counter() - t0) / GRAPH_TIMED_STEPS * 1e3
-        timing[label] = (ev_ms, host)
-        print(f"graph: {label} joint step {ev_ms:.3f} ms (median CUDA "
-              f"events of {GRAPH_TIMED_STEPS}), {host:.3f} ms (host clock "
-              f"over {GRAPH_TIMED_STEPS}), "
-              f"{cfg.batch_size / host * 1e3:.1f} mixtures/s; counts "
-              f"{dict(steps.GRAPH_COUNTS)}", flush=True)
-    print(f"graph: host clock {timing['eager'][1]:.3f} -> "
-          f"{timing['graphed'][1]:.3f} ms a step "
-          f"({timing['eager'][1] / timing['graphed'][1]:.3f}x); phase 16 "
-          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-
-
-def graph_only(torch) -> int:
-    """`chip_smoke.py --graph`: the kernels' build and phase 16 alone."""
-    from dl4ss_tpu_torch import resolve_device
-    from dl4ss_tpu_torch.ops import cuda_lib
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip(), flush=True)
-    cuda_lib.library()
-    graph_phase(torch, resolve_device("cuda"))
-    return 0
-
-
 def main(argv=None) -> int:
     import torch
     argv = sys.argv[1:] if argv is None else argv
@@ -2904,12 +2363,10 @@ def main(argv=None) -> int:
         return cards_only(torch)
     if argv == ["--surface"]:
         return surface_only(torch)
-    if argv == ["--graph"]:
-        return graph_only(torch)
     if argv:
         print("usage: chip_smoke.py [--learning STEPS | --rehearsal | "
-              "--generations | --parallel | --cards | --surface | "
-              "--graph]", file=sys.stderr)
+              "--generations | --parallel | --cards | --surface]",
+              file=sys.stderr)
         return 2
     from dl4ss_tpu_torch import preset, resolve_device
     from dl4ss_tpu_torch.models import init_separator
@@ -2981,51 +2438,20 @@ def main(argv=None) -> int:
         return torch.as_tensor(np.asarray(a, np.float32), device=dev
                                ).to(dtype).contiguous()
 
-    # ---- 2. kernel checks at the serving shapes (B=16) -------------------
+    # ---- 2. the kernels' inputs at the path shapes (B=16, T=313) ---------
+    # (each kernel against its plain version: tests/test_torch_cuda.py)
     wav = tensor(rng.uniform(-1, 1, (BATCH, N_SAMPLES)))
     xpad = reflect_pad(wav, L // 2).contiguous()
-    feat_c = k14.stft_features_cuda(xpad, L, hop, cfg.window, torch.float32)
-    feat_p = k14.stft_features_plain(xpad, L, hop, cfg.window, torch.float32)
-    errs = {"stft_features": check("K1 stft_features", max(
-        max_err(a, b) for a, b in zip(feat_c, feat_p)), TOL["stft_features"])}
-    _, re, im = feat_c
+    _, re, im = k14.stft_features_cuda(xpad, L, hop, cfg.window,
+                                       torch.float32)
     T = re.shape[1]
-    # the serving shape takes the tile's FFT body; the direct body, which
-    # every other frame length takes, on L=96 at the same batch
-    if k14.stft_body(L, hop) != k14.BODY_FFT:
-        fail(f"L={L}, hop={hop} does not take the FFT body")
-    xpad96 = reflect_pad(wav, 48).contiguous()
-    before = k14.BODY_LAUNCHES["stft_features", k14.BODY_DIRECT]
-    check("K1 stft_features direct body, L=96 hop=48", max(
-        max_err(a, b) for a, b in zip(
-            k14.stft_features_cuda(xpad96, 96, 48, cfg.window, torch.float32),
-            k14.stft_features_plain(xpad96, 96, 48, cfg.window,
-                                    torch.float32))), TOL["stft_features"])
-    if k14.BODY_LAUNCHES["stft_features", k14.BODY_DIRECT] != before + 1:
-        fail("L=96 did not run the direct body")
-
-    def check_bodies(*args, **kwargs):
-        return check_bodies_on(torch, SMS, *args, **kwargs)
-
-    # K2 at the serving shapes (T=313, D=2, H=300): B=16 in f32 and bf16,
-    # a B=1 request, and B=32, which the resident body takes in two
-    # launches
+    # K2 (T=313, D=2, H=300) at B=16 and B=32
     scale = 1.0 / np.sqrt(H)
     xp = tensor(0.5 * rng.standard_normal((T, 2, BATCH, 3 * H)))
     wh = tensor(rng.uniform(-scale, scale, (2, H, 3 * H)))
     bhn = tensor(rng.uniform(-scale, scale, (2, 1, H)))
     xp32 = tensor(0.5 * rng.standard_normal((T, 2, 2 * BATCH, 3 * H)))
-    for label, args, tol in (
-            ("f32", (xp, wh, bhn), TOL["gru_fwd"]),
-            ("bf16", (xp.to(torch.bfloat16), wh.to(torch.bfloat16), bhn),
-             TOL["gru_fwd_bf16"]),
-            ("f32 B=1", (xp[:, :, :1].contiguous(), wh, bhn), TOL["gru_fwd"]),
-            (f"f32 B={2 * BATCH}", (xp32, wh, bhn), TOL["gru_fwd"])):
-        err = check_bodies(f"K2 gru_fwd {label}", "gru_fwd", k2.gru_scan_cuda,
-                           k2.gru_scan_plain, args, ("hs",), tol, rel=False)
-        if label == "f32":
-            errs["gru_fwd"] = err
-
+    # K3 (B=16, T=313, D=600, F=129, E=50, K=2)
     d2 = 2 * H
     hb = tensor(rng.uniform(-1, 1, (BATCH, T, d2)), torch.bfloat16)
     s2 = 1.0 / np.sqrt(d2)
@@ -3033,60 +2459,18 @@ def main(argv=None) -> int:
     bias = tensor(rng.uniform(-s2, s2, (F * E,)))
     qb = tensor(rng.standard_normal((BATCH, K, E)), torch.bfloat16)
     k3_args = (hb, wb, bias, qb, F, E, torch.float32)
-    if not torch.equal(k3.pack_w(wb, F, E), k3.pack_w_mirror(wb, F, E)):
-        fail("K3's packed W differs from pack_w_mirror")
-    k3_out = k3.fused_dot_masks_cuda(*k3_args)
-    errs["maskhead_fwd"] = check(f"K3 maskhead_fwd B={BATCH} f32 masks",
-                                 max_err(k3_out,
-                                         k3.fused_dot_masks_plain(*k3_args)),
-                                 TOL["maskhead_fwd"])
-    if not torch.equal(k3_out, k3.fused_dot_masks_cuda(*k3_args)):
-        fail("K3: two calls on the same inputs differ")
-    k3_b1 = (hb[:1], wb, bias, qb[:1], F, E)
-    for label, args in ((f"B={BATCH} bf16 masks",
-                         (*k3_args[:6], torch.bfloat16)),
-                        ("B=1 f32 masks", (*k3_b1, torch.float32)),
-                        ("B=1 bf16 masks", (*k3_b1, torch.bfloat16))):
-        check(f"K3 maskhead_fwd {label}", max_err(
-            k3.fused_dot_masks_cuda(*args), k3.fused_dot_masks_plain(*args)),
-            TOL["maskhead_fwd"])
-
+    # K4 on K1's spectra, with f32 and bf16 masks at B=16 and B=1
     masks = tensor(rng.uniform(0, 1, (BATCH, K, T, F)))
     k4_args = (re, im, masks, L, hop, cfg.window)
-    # K4 on the inverse tile's FFT body (the rule's at every preset), with
-    # f32 and bf16 masks at B=16 and B=1, against the plain version and the
-    # plain torch mirror, twice bit-equal; the direct body forced at B=16
-    if k14.istft_body(L, hop) != k14.BODY_FFT:
-        fail(f"L={L}, hop={hop} does not take the inverse FFT body")
-    k4_cases = {}
-    for label, b_n, dt in ((f"B={BATCH}", BATCH, torch.float32),
-                           (f"B={BATCH} bf16 masks", BATCH, torch.bfloat16),
-                           ("B=1", 1, torch.float32),
-                           ("B=1 bf16 masks", 1, torch.bfloat16)):
-        k4_cases[label] = (re[:b_n], im[:b_n], masks[:b_n].to(dt), L, hop,
-                           cfg.window)
-    errs["masked_istft"] = 0.0
-    for label, args in k4_cases.items():
-        before = k14.BODY_LAUNCHES["masked_istft", k14.BODY_FFT]
-        got = k14.masked_ola_cuda(*args)
-        if k14.BODY_LAUNCHES["masked_istft", k14.BODY_FFT] != before + 1:
-            fail(f"K4 {label} did not run the FFT body")
-        errs["masked_istft"] = max(errs["masked_istft"], check(
-            f"K4 masked_istft {label}", max_err(
-                got, k14.masked_ola_plain(*args)), TOL["masked_istft"]))
-        check(f"K4 FFT body {label} against its plain torch mirror",
-              max_err(got, k14.istft_fft_mirror(*args[:2], L, hop,
-                                                cfg.window, args[2])),
-              TOL["istft_mirror"])
-        if not torch.equal(got, k14.masked_ola_cuda(*args)):
-            fail(f"K4 {label}: two calls on the same inputs differ")
-    check(f"K4 direct body forced at B={BATCH}", max_err(
-        k14.masked_ola_cuda(*k4_args, body=k14.BODY_DIRECT),
-        k14.masked_ola_plain(*k4_args)), TOL["masked_istft"])
-
-    # K5 at the training shapes (T=313, D=2, B=16, H=300), and at B=32 and
-    # 128, which the resident body takes in 2 and 7 chain launches: the
-    # backward of the forward just checked, on that forward's own hs
+    k4_cases = {label: (re[:b_n], im[:b_n], masks[:b_n].to(dt), L, hop,
+                        cfg.window)
+                for label, b_n, dt in (
+                    (f"B={BATCH}", BATCH, torch.float32),
+                    (f"B={BATCH} bf16 masks", BATCH, torch.bfloat16),
+                    ("B=1", 1, torch.float32),
+                    ("B=1 bf16 masks", 1, torch.bfloat16))}
+    # K5 at B=16 (f32 and bf16), 32 and 128 (two and seven resident
+    # launches), on its forward's own hs
     dhs = tensor(rng.standard_normal((T, 2, 8 * BATCH, H)))
     xp128 = tensor(0.5 * rng.standard_normal((T, 2, 8 * BATCH, 3 * H)))
     k5_args = {}
@@ -3095,49 +2479,19 @@ def main(argv=None) -> int:
                           (f"f32 B={2 * BATCH}", torch.float32, xp32),
                           (f"f32 B={8 * BATCH}", torch.float32, xp128)):
         x5, w5 = x5.to(dt), wh.to(dt)
-        g5 = dhs[:, :, :x5.shape[2]].contiguous().to(dt)
         hs = k2.gru_scan_cuda(x5, w5, bhn)
         k5_args[label] = (x5, w5, bhn,
-                          torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]), g5)
-        tol = TOL["gru_bwd" if dt == torch.float32 else "gru_bwd_bf16"]
-        err = check_bodies(
-            f"K5 gru_bwd {label}", "gru_bwd", k2.gru_scan_bwd_cuda,
-            k2.gru_scan_bwd_plain, k5_args[label], ("dxp", "dU", "db_n"),
-            tol, rel=True)
-        if label == "f32":
-            errs["gru_bwd"] = err
-
-    # K6 at the training shapes (B=16, T=313, F=129, E=50, K=2), on K3's
-    # own bf16 masks; db comes from K6's partials, dW and dh from dacc by
-    # bf16-operand products with f32 output (cuBLAS), against the plain
-    # route (K6's plain version, the f32 products)
+                          torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]),
+                          dhs[:, :, :x5.shape[2]].contiguous().to(dt))
+    # K6 on K3's own bf16 masks
     masks6 = k3.fused_dot_masks_cuda(hb, wb, bias, qb, F, E, torch.bfloat16)
     dout6 = tensor(rng.standard_normal((BATCH, K, T, F)), torch.bfloat16)
     k6_args = (hb, wb, bias, qb, masks6, dout6, F, E)
-    k6_out = k3.fused_dot_masks_bwd_cuda(*k6_args)
-    dacc, dq, db = k6_out
-    dacc_p, dq_p, db_p = k3.fused_dot_masks_bwd_plain(*k6_args)
-    if not all(torch.equal(a, b) for a, b in zip(
-            k6_out, k3.fused_dot_masks_bwd_cuda(*k6_args))):
-        fail("K6: two calls on the same inputs differ")
-    dprod = k3.dacc_products(hb, wb, dacc)
-    errs["maskhead_bwd"] = max(
-        check_rel(f"K6 maskhead_bwd {name}", g, r, TOL["maskhead_bwd"])
-        for name, g, r in zip(
-            ("dacc", "dq", "db", "dh", "dW"), (*k6_out, *dprod),
-            (dacc_p, dq_p, db_p, *k3.dacc_products_plain(hb, wb, dacc_p))))
-    check_rel("K6 db from its partials against the f32 sum of its dacc", db,
-              dacc.float().sum((0, 1)), TOL["maskhead_db"])
-    errs["dacc_products"] = max(
-        check_rel(f"{name}: bf16 operands, f32 output, against the f32 "
-                  f"products", g, r, TOL["dacc_products"])
-        for name, g, r in zip(("dh", "dW"), dprod,
-                              k3.dacc_products_plain(hb, wb, dacc)))
+    dacc, dq, db = k3.fused_dot_masks_bwd_cuda(*k6_args)
 
-    # K7 and K8 at the classifier's shapes (T=313, D=2, H=300): B=16 in
-    # f32 and bf16, a B=1 request, B=32 (two resident launches) and, for
-    # K8, B=128 (seven), and B=16 at H=600 (the TDAA classifier width: K7
-    # wide, K8 stepwise): the backward runs on the forward's own hs and cs
+    # K7 and K8 at the classifier's shapes (T=313, D=2, H=300): B=16 in f32
+    # and bf16, B=32 and 128, and B=16 at H=600 (the TDAA classifier
+    # width); K8 on K7's own hs and cs
     def lstm_case(hidden, dt, batch=BATCH):
         sc = 1.0 / np.sqrt(hidden)
         x7 = tensor(0.5 * rng.standard_normal((T, 2, batch, 4 * hidden)), dt)
@@ -3149,70 +2503,18 @@ def main(argv=None) -> int:
             x7, w7, torch.cat([zeros, hs7[:-1]]),
             torch.cat([zeros, cs7[:-1]]), cs7, g7)
 
-    k7_args, k8_args = {}, {}
+    k8_args = {}
     for label, hidden, dt, batch in (
             ("f32", H, torch.float32, BATCH),
             ("bf16", H, torch.bfloat16, BATCH),
-            ("f32 B=1", H, torch.float32, 1),
             (f"f32 B={2 * BATCH}", H, torch.float32, 2 * BATCH),
             (f"f32 B={8 * BATCH}", H, torch.float32, 8 * BATCH),
             (f"f32 H={WIDE}", WIDE, torch.float32, BATCH)):
-        fwd_args, k8_args[label] = lstm_case(hidden, dt, batch)
-        suffix = "_bf16" if dt == torch.bfloat16 else ""
-        if batch <= 2 * BATCH:
-            k7_args[label] = fwd_args
-            err7 = check_bodies(
-                f"K7 lstm_fwd {label}", "lstm_fwd", k2.lstm_scan_cuda,
-                k2.lstm_scan_plain, fwd_args, ("hs", "cs"),
-                TOL["lstm_fwd" + suffix], rel=False)
-        if batch == 1:
-            del k8_args[label]
-            continue
-        err8 = check_bodies(
-            f"K8 lstm_bwd {label}", "lstm_bwd", k2.lstm_scan_bwd_cuda,
-            k2.lstm_scan_bwd_plain, k8_args[label], ("dxp", "dU"),
-            TOL["lstm_bwd" + suffix], rel=True)
+        k7_args, k8_args[label] = lstm_case(hidden, dt, batch)
         if label == "f32":
-            errs["lstm_fwd"], errs["lstm_bwd"] = err7, err8
-
-    # K9 (centered and not) and K10 at B=16, N=40000; K9's packed halves
-    # are K1's Re and Im
+            x7, w7 = k7_args
+    # K9's packed halves, K10's input
     ri_c = k14.stft_ri_cuda(xpad, L, hop, cfg.window)
-    errs["stft_ri"] = max(
-        check("K9 stft_ri centered", max_err(
-            ri_c, k14.stft_ri_plain(xpad, L, hop, cfg.window)),
-            TOL["stft_ri"]),
-        check("K9 stft_ri uncentered", max_err(
-            k14.stft_ri_cuda(wav, L, hop, cfg.window),
-            k14.stft_ri_plain(wav, L, hop, cfg.window)), TOL["stft_ri"]))
-    check("K9 packed halves against K1's Re and Im", max_err(
-        ri_c, torch.cat([re, im], dim=-1)), 1e-6)
-    check("K9 FFT body against its plain torch mirror", max_err(
-        ri_c, k14.stft_fft_mirror(xpad, L, hop, cfg.window)),
-        TOL["stft_mirror"])
-    check("K9 direct body forced at L=256 against the FFT body", max_err(
-        k14.stft_ri_cuda(xpad, L, hop, cfg.window, body=k14.BODY_DIRECT),
-        ri_c), TOL["stft_ri"])
-    check("K9 stft_ri direct body, L=96 hop=48", max_err(
-        k14.stft_ri_cuda(xpad96, 96, 48, cfg.window),
-        k14.stft_ri_plain(xpad96, 96, 48, cfg.window)), TOL["stft_ri"])
-    # K10 on the same tile as K4: the FFT body against plain and the
-    # mirror, twice bit-equal, and the direct body forced
-    before = k14.BODY_LAUNCHES["istft_ri", k14.BODY_FFT]
-    ola_c = k14.istft_ola_cuda(ri_c, L, hop, cfg.window)
-    if k14.BODY_LAUNCHES["istft_ri", k14.BODY_FFT] != before + 1:
-        fail("K10 did not run the FFT body")
-    errs["istft_ri"] = check("K10 istft_ri", max_err(
-        ola_c, k14.istft_ola_plain(ri_c, L, hop, cfg.window)),
-        TOL["istft_ri"])
-    check("K10 FFT body against its plain torch mirror", max_err(
-        ola_c, k14.istft_fft_mirror(ri_c[..., :F], ri_c[..., F:], L, hop,
-                                    cfg.window)), TOL["istft_mirror"])
-    if not torch.equal(ola_c, k14.istft_ola_cuda(ri_c, L, hop, cfg.window)):
-        fail("K10: two calls on the same inputs differ")
-    check("K10 direct body forced", max_err(
-        k14.istft_ola_cuda(ri_c, L, hop, cfg.window, body=k14.BODY_DIRECT),
-        k14.istft_ola_plain(ri_c, L, hop, cfg.window)), TOL["istft_ri"])
 
     # ---- 3. round trip ----------------------------------------------------
     ones = torch.ones((BATCH, 1, T, F), device=dev)
@@ -3436,23 +2738,16 @@ def main(argv=None) -> int:
     def leaves(m):
         return dict(flatten_tree(export_jax_params(m)))
 
-    t0 = time.perf_counter()
     bank = torch.as_tensor(make_synthetic_bank(
         SEED, cfg.num_speakers, BANK_UTTS, N_SAMPLES), device=dev)
-    bank_s = time.perf_counter() - t0
     feats = featurize(sample_mixtures(torch.Generator().manual_seed(SEED),
                                       bank, cfg), cfg)
     twin = copy.deepcopy(model).to("cpu")
     before = leaves(model)
     step = make_train_step(cfg)
-    t0 = time.perf_counter()
     _, met_g = step(create_train_state(cfg, model=model), feats)
-    torch.cuda.synchronize()
-    t_card = time.perf_counter() - t0
-    t0 = time.perf_counter()
     _, met_c = step(create_train_state(cfg, model=twin, device="cpu"),
                     {k: v.cpu() for k, v in feats.items()})
-    t_cpu = time.perf_counter() - t0
     for key in ("loss", "grad_norm"):
         got, ref = float(met_g[key]), float(met_c[key])
         rel = abs(got - ref) / abs(ref)
@@ -3473,8 +2768,7 @@ def main(argv=None) -> int:
         if not rel <= TOL["train_update_rel"]:
             fail(f"train step update of {name}: rel L2 {rel}")
     print(f"train step updates: {len(after_c)} leaves, worst rel L2 "
-          f"{worst:.3e} tol {TOL['train_update_rel']:.0e} (card step "
-          f"{t_card:.2f} s incl. warm-up, CPU step {t_cpu:.2f} s)", flush=True)
+          f"{worst:.3e} tol {TOL['train_update_rel']:.0e}", flush=True)
 
     # the classifier step (K7 forward, K8 backward) the same way: loss,
     # element accuracy and every classifier leaf's update; the encoder,
@@ -3541,20 +2835,18 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         cuda_lib.LAUNCHES.clear()
         k2.BODY_LAUNCHES.clear()
-        t0 = time.perf_counter()
         state = train_cli.main([
             "--preset", "torch_multi", "--epochs", "1", "--epoch-size",
             str(TRAIN_STEPS), "--utts", str(BANK_UTTS), "--seed", str(SEED),
             "--metrics", metrics_path, "--device", "cuda"])
         torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
         train_launches = dict(cuda_lib.LAUNCHES)
         with open(metrics_path) as fh:
             record = json.loads(fh.read().splitlines()[-1])
     train_loop.make_fused_step = make_fused_step
-    print(f"trainer: {TRAIN_STEPS} steps + eval in {train_s:.2f} s (bank "
-          f"{bank_s:.2f} s to make), losses {step_losses}, eval SI-SDR "
-          f"{record.get('si_sdr')} dB, launches {train_launches}", flush=True)
+    print(f"trainer: {TRAIN_STEPS} steps + eval, losses {step_losses}, eval "
+          f"SI-SDR {record.get('si_sdr')} dB, launches {train_launches}",
+          flush=True)
     if len(step_losses) != TRAIN_STEPS or not np.isfinite(step_losses).all():
         fail(f"trainer losses {step_losses}")
     if not np.isfinite(record.get("si_sdr", np.nan)):
@@ -3608,7 +2900,6 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     cuda_lib.LAUNCHES.clear()
     k2.BODY_LAUNCHES.clear()
-    t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(printed):
             report = classify_cli.main([
@@ -3619,12 +2910,11 @@ def main(argv=None) -> int:
     finally:
         train_loop.make_classifier_step = make_classifier_step
     torch.cuda.synchronize()
-    classify_s = time.perf_counter() - t0
     classify_launches = dict(cuda_lib.LAUNCHES)
     print(printed.getvalue(), end="", flush=True)
     print(f"classifier trainer: {CLASSIFY_STEPS} steps + {EVAL_BATCHES} "
-          f"report batches in {classify_s:.2f} s, losses {closses}, launches "
-          f"{classify_launches}", flush=True)
+          f"report batches, losses {closses}, launches {classify_launches}",
+          flush=True)
     if len(closses) != CLASSIFY_STEPS or not np.isfinite(closses).all():
         fail(f"classifier trainer losses {closses}")
     if "top3_recall:" not in printed.getvalue() or not np.isfinite(
@@ -3645,18 +2935,16 @@ def main(argv=None) -> int:
     for name in ("lstm_fwd", "lstm_bwd"):
         check_resident("classifier trainer", name, classify_launches[name])
 
-    def classifier_step():
-        return cstep(state, featurize(sample_mixtures(state.generator, bank,
-                                                      cfg), cfg))
-    classifier_step()
-    torch.cuda.synchronize()
-    cuda_lib.LAUNCHES.clear()
-    classifier_step()
+    for _ in range(2):      # the second step's launches
+        torch.cuda.synchronize()
+        cuda_lib.LAUNCHES.clear()
+        cstep(state, featurize(sample_mixtures(state.generator, bank, cfg),
+                               cfg))
     torch.cuda.synchronize()
     print(f"launches per classifier train step: {dict(cuda_lib.LAUNCHES)}",
           flush=True)
 
-    # ---- 8. timing ----------------------------------------------------------
+    # ---- 8. kernel timings --------------------------------------------------
     B, D = BATCH, 2
     hann = torch.hann_window(L, periodic=True, device=dev)
     spec = torch.complex(masks * re[:, None], masks * im[:, None])
@@ -3716,8 +3004,11 @@ def main(argv=None) -> int:
     kernels = []
 
     def time_row(name, r, kernel_iters, plain_iters):
-        """Time one kernel, its plain version and its library yardstick,
-        print them beside the bound and add the kernel's JSON row."""
+        """Hold one kernel against its plain version, time both and its
+        library yardstick, print them beside the bound and add the
+        kernel's JSON row."""
+        err = hold(f"{name} B={B} f32", r["kernel"](), r["plain"](),
+                   TOL[name], rel=name.endswith("_bwd"))
         ms = device_ms(torch, r["kernel"], kernel_iters)
         plain_ms = device_ms(torch, r["plain"], plain_iters)
         lib_ms = (device_ms(torch, r["library"], 10)
@@ -3726,8 +3017,8 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name=name, route="cuda", source=r["source"],
             replaces=r["replaces"], launches=launches[name],
-            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms))
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, library {lib_ms} ms, bound {bound_ms:.4f} ms "
               f"({bound_by})", flush=True)
@@ -3748,16 +3039,27 @@ def main(argv=None) -> int:
             return_complex=True), 20)
         print(f"time torch.stft(wav, center=True), the yardstick as timed "
               f"before (it pads inside): {old_lib:.4f} ms", flush=True)
-        def k1(x, **kw):
-            return k14.stft_features_cuda(x, L, hop, cfg.window,
-                                          torch.float32, **kw)
+        def k1(x, plain=False, **kw):
+            return (k14.stft_features_plain if plain else
+                    k14.stft_features_cuda)(x, L, hop, cfg.window,
+                                            torch.float32, **kw)
 
-        def k9(x, **kw):
-            return k14.stft_ri_cuda(x, L, hop, cfg.window, **kw)
+        def k9(x, plain=False, **kw):
+            return (k14.stft_ri_plain if plain else k14.stft_ri_cuda)(
+                x, L, hop, cfg.window, **kw)
 
+        hold("stft_ri FFT body against its plain torch mirror", k9(xpad),
+             k14.stft_fft_mirror(xpad, L, hop, cfg.window), TOL["stft_mirror"])
+        hold("stft_ri uncentered", k9(wav), k9(wav, plain=True),
+             TOL["stft_ri"])
         for name, fn in (("stft_features", k1), ("stft_ri", k9)):
             for label, x in ((f"B={B}", xpad), ("B=1", xpad[:1].contiguous()),
                              (f"B={2 * B}", torch.cat([xpad, xpad]))):
+                ref = fn(x, plain=True)
+                for what, kw in (("FFT", {}), ("direct", {
+                        "body": k14.BODY_DIRECT})):
+                    hold(f"{name} {label} {what} body", fn(x, **kw), ref,
+                         TOL[name])
                 parts = [
                     f"{what} {device_ms(torch, lambda: fn(x, **kw), 50):.4f}"
                     for what, kw in (("FFT body", {}), (
@@ -3774,13 +3076,23 @@ def main(argv=None) -> int:
         torch.istft on the same (masked) spectra."""
         rows_ = [("masked_istft", label, args[2].float() * args[0][:, None],
                   args[2].float() * args[1][:, None],
-                  lambda kw, a=args: k14.masked_ola_cuda(*a, **kw))
+                  lambda kw, a=args: k14.masked_ola_cuda(*a, **kw),
+                  k14.masked_ola_plain(*args),
+                  k14.istft_fft_mirror(*args[:2], L, hop, cfg.window, args[2]))
                  for label, args in k4_cases.items()]
         for label, x in ((f"B={B}", ri_c), ("B=1", ri_c[:1].contiguous())):
             rows_.append(("istft_ri", label, x[..., :F], x[..., F:],
                           lambda kw, x=x: k14.istft_ola_cuda(
-                              x, L, hop, cfg.window, **kw)))
-        for name, label, lre, lim, fn in rows_:
+                              x, L, hop, cfg.window, **kw),
+                          k14.istft_ola_plain(x, L, hop, cfg.window),
+                          k14.istft_fft_mirror(x[..., :F], x[..., F:], L,
+                                               hop, cfg.window)))
+        for name, label, lre, lim, fn, ref, mirror in rows_:
+            hold(f"{name} {label} FFT body against its plain torch mirror",
+                 fn({}), mirror, TOL["istft_mirror"])
+            for what, kw in (("FFT", {}), ("direct", {
+                    "body": k14.BODY_DIRECT})):
+                hold(f"{name} {label} {what} body", fn(kw), ref, TOL[name])
             parts = [f"{what} {device_ms(torch, lambda: fn(kw), 50):.4f}"
                      for what, kw in (("FFT body", {}), (
                          "direct body", {"body": k14.BODY_DIRECT}))]
@@ -3791,41 +3103,27 @@ def main(argv=None) -> int:
             print(f"time {name} {label} ms: " + ", ".join(parts)
                   + f", torch.istft {lib:.4f}", flush=True)
 
-    def mask_names(label, names, want):
-        """The K3 / K6 kernels by the profiler's names in one profiled
-        call: only the wgmma kernels (and the W pack and K6's partial sums
-        beside them), each as often as `want` says."""
-        got = {}
-        for name, (n, ms) in names.items():
-            if "maskhead" in name:
-                print(f"profile {label}: {n}x {ms:.4f} ms {name[:100]}",
-                      flush=True)
-                key = next((k for k in want if k in name), name)
-                got[key] = got.get(key, 0) + n
-        if got != want:
-            fail(f"profile {label}: mask-head kernels {got}, expected {want}")
-
     with torch.inference_mode():
         for name, r in rows.items():
             slow = name == "gru_fwd"
             time_row(name, r, 5 if slow else 20, 3 if slow else 10)
         stft_extras()
         istft_extras()
+        for label, args in ((f"B={B} bf16 masks",
+                             (*k3_args[:6], torch.bfloat16)),
+                            ("B=1 f32 masks", (hb[:1], wb, bias, qb[:1], F, E,
+                                               torch.float32)),
+                            ("B=1 bf16 masks", (hb[:1], wb, bias, qb[:1], F,
+                                                E, torch.bfloat16))):
+            hold(f"maskhead_fwd {label}", k3.fused_dot_masks_cuda(*args),
+                 k3.fused_dot_masks_plain(*args), TOL["maskhead_fwd"])
+        if not torch.equal(k3.pack_w(wb, F, E), k3.pack_w_mirror(wb, F, E)):
+            fail("K3's packed W differs from pack_w_mirror")
         pack_ms = device_ms(torch, lambda: k3.pack_w(wb, F, E), 10)
         print(f"time maskhead_pack (K3's W layout, once per weight version, "
               f"bf16 W): {pack_ms:.4f} ms", flush=True)
-        gru_host = host_ms(torch, rows["gru_fwd"]["kernel"], 5)
-        print(f"time gru_fwd host-paced (one call, synchronised): "
-              f"{gru_host:.4f} ms", flush=True)
-        batch_ms = host_ms(torch, lambda: separate_waveforms(
-            model, wav, cfg, spk, length=N_SAMPLES), 5)
-        req_ms = host_ms(torch, lambda: separate_waveforms(
-            model, reqs[0][0], cfg, reqs[0][1], length=N_SAMPLES), 10)
-        plain_batch_ms = host_ms(torch, lambda: separate_waveforms(
-            model, wav, plain_cfg, spk, length=N_SAMPLES), 3)
         # the B=1 request's kernels alone, at its own shapes
-        w1, s1 = reqs[0]
-        x1 = reflect_pad(w1, L // 2).contiguous()
+        x1 = reflect_pad(reqs[0][0], L // 2).contiguous()
         _, re_1, im_1 = k14.stft_features_cuda(x1, L, hop, cfg.window,
                                                torch.float32)
         one = {
@@ -3847,19 +3145,6 @@ def main(argv=None) -> int:
             + (2 * T * F * E + 2 * K * T * F * E + 4 * K * T * F) / F32_FLOPS)
         print(f"time maskhead_fwd B=1: kernel {k3_b1_ms:.4f} ms, bound "
               f"{k3_b1_bound:.4f} ms ({k3_b1_by})", flush=True)
-        for label, fn, wall in (
-                (f"B={BATCH} batch", lambda: separate_waveforms(
-                    model, wav, cfg, spk, length=N_SAMPLES), batch_ms),
-                ("B=1 request", lambda: separate_waveforms(
-                    model, w1, cfg, s1, length=N_SAMPLES), req_ms)):
-            names = {}
-            busy, rows, n_launch = profile_ms(torch, fn, by_name_out=names)
-            print(f"profile {label}: device busy {busy:.3f} ms of "
-                  f"{wall:.3f} ms wall (idle {1 - busy / wall:.1%}), "
-                  f"{n_launch} kernel launches", flush=True)
-            mask_names(label, names, {"maskhead_fwd_kernel": 1})
-            for name, n, ms in rows:
-                print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
 
     # the training kernels: K5 per layer (f32, as torch_multi trains; the
     # cuDNN yardstick is nn.GRU's backward) and K6
@@ -3906,6 +3191,10 @@ def main(argv=None) -> int:
     # the port runs them, and the f32 products of the upcast operands, as
     # the parent did. Bound: h, dacc and W in bf16, dW and dh out in f32;
     # two products of 2*B*T*D*F*E on the bf16 tensor cores
+    dp_err = hold("dW + dh: bf16 operands, f32 output, against the f32 "
+                  "products", k3.dacc_products(hb, wb, dacc),
+                  k3.dacc_products_plain(hb, wb, dacc), TOL["dacc_products"],
+                  rel=True)
     dp_ms = device_ms(torch, lambda: k3.dacc_products(hb, wb, dacc), 20)
     dp_f32_ms = device_ms(torch, lambda: k3.dacc_products_plain(hb, wb, dacc),
                           5)
@@ -3918,20 +3207,23 @@ def main(argv=None) -> int:
         source="dl4ss_tpu_torch/ops/maskhead_kernels.py",
         replaces="dl4ss_tpu/ops/pallas_maskhead.py:280",
         # one call per K6 launch of the trainer run
-        launches=launches["maskhead_bwd"],
-        max_abs_err=errs["dacc_products"], ms=dp_ms, plain_ms=dp_f32_ms,
+        launches=launches["maskhead_bwd"], max_abs_err=dp_err, ms=dp_ms,
+        plain_ms=dp_f32_ms,
         bound_ms=dp_bound, bound_by=dp_by, library_ms=None))
     print(f"time dW + dh (yardstick, not a kernel): bf16 operands with f32 "
           f"output {dp_ms:.4f} ms, f32 products of the upcast operands "
           f"{dp_f32_ms:.4f} ms, bound {dp_bound:.4f} ms ({dp_by})",
           flush=True)
 
-    def bwd_extras(name, cuda, args_by_label):
-        """K5 or K8 beside its row (which times the rule's body): both
-        bodies re-measured in the same run at every shape checked (bf16,
-        B=32 and 128, H=600 stepwise only), the rule's body named, and the
-        resident body's phases by kernel name from one profiled call."""
+    def bwd_extras(name, cuda, plain, outs, args_by_label):
+        """K5 or K8 beside its row (which times the rule's body): at every
+        shape (bf16, B=32 and 128, H=600 stepwise only) both bodies held
+        against the plain version (`check_bodies_on`) and re-measured in
+        the same run, the rule's body named."""
         for label, args in args_by_label.items():
+            bf16 = "_bf16" if args[0].dtype == torch.bfloat16 else ""
+            check_bodies_on(torch, SMS, f"{name} {label}", name, cuda, plain,
+                            args, outs, TOL[name + bf16], rel=True)
             parts = []
             hidden, batch = args[1].shape[1], args[0].shape[2]
             for body in (k2.BODY_RESIDENT, k2.BODY_STEPWISE):
@@ -3943,35 +3235,9 @@ def main(argv=None) -> int:
             rule = k2.rnn_body(hidden, batch, sms=SMS, backward=True)
             print(f"time {name} {label} per layer ms: " + ", ".join(parts)
                   + f" (rule: {rule})", flush=True)
-        args = args_by_label["f32"]
-        phases = {"coefficients (phase A)": "rnn_bwd_coef_kernel",
-                  f"chain of {T} steps (phase B)": "rnn_bwd_chain_kernel",
-                  "dU and db_n (phase C)": "_partial"}
-        busy, prow, _ = profile_ms(torch, lambda: cuda(*args), top=8,
-                                   expect=phases.values())
-        print(f"time {name} f32 resident body by phase, one profiled call, "
-              f"{busy:.4f} ms busy: " + ", ".join(
-                  f"{what} {sum(ms for kern, _, ms in prow if key in kern):.4f}"
-                  f" ms in {sum(n for kern, n, _ in prow if key in kern)} "
-                  f"launches" for what, key in phases.items()), flush=True)
 
-    bwd_extras("gru_bwd", k2.gru_scan_bwd_cuda, k5_args)
-    # the training step, sample -> featurize -> forward -> backward -> Adam
-    step_ms = host_ms(torch, lambda: fused(state, bank), 10)
-    names = {}
-    busy, prow, n_launch = profile_ms(torch, lambda: fused(state, bank),
-                                      top=12, by_name_out=names)
-    mask_names(f"B={BATCH} train step", names, {
-        "maskhead_pack_kernel": 1, "maskhead_fwd_kernel": 1,
-        "maskhead_bwd_kernel": 1, "maskhead_sums_kernel": 1})
-    print(f"profile B={BATCH} train step: device busy {busy:.3f} ms of "
-          f"{step_ms:.3f} ms wall (idle {1 - busy / step_ms:.1%}), "
-          f"{n_launch} kernel launches", flush=True)
-    for name, n, ms in prow:
-        print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
-    print(f"train: {step_ms:.3f} ms per B={BATCH} step (median of 10 "
-          f"synchronised steps, {BATCH / step_ms * 1e3:.1f} mixtures/s)",
-          flush=True)
+    bwd_extras("gru_bwd", k2.gru_scan_bwd_cuda, k2.gru_scan_bwd_plain,
+               ("dxp", "dU", "db_n"), k5_args)
     # the kernels of the classifier path and the packed DSP pair. K7 and K8
     # per layer in f32, as torch_multi runs them; the cuDNN yardstick is one
     # bidirectional nn.LSTM layer (it includes its input projection, and
@@ -3981,7 +3247,6 @@ def main(argv=None) -> int:
     lstm_out, _ = lstm(lstm_x)
     lstm_dout = torch.randn_like(lstm_out)
     lstm_leaves = [lstm_x, *lstm.parameters()]
-    x7, w7 = k7_args["f32"]
     x8, w8, hp8, cp8, cs8, g8 = k8_args["f32"]
     spec_c = torch.complex(ri_c[..., :F], ri_c[..., F:]).transpose(
         1, 2).contiguous()
@@ -4042,9 +3307,13 @@ def main(argv=None) -> int:
         forward's RESIDENT_MAX_CHUNKS follows. K7 also at H=600 in its wide
         and stepwise bodies at B=1, 16, 32 and 48, the numbers
         WIDE_MAX_BATCH follows; B=1 and 16 go on K7's row of the `kernels`
-        line as `h600_ms`."""
+        line as `h600_ms`. Each body is held against the plain version
+        first (`check_bodies_on`) up to B=32, and at H=600 at B=16."""
         sc = 1.0 / np.sqrt(H)
-        for name, gates in (("gru_fwd", 3), ("lstm_fwd", 4)):
+        for name, gates, fn, plain, outs in (
+                ("gru_fwd", 3, k2.gru_scan_cuda, k2.gru_scan_plain, ("hs",)),
+                ("lstm_fwd", 4, k2.lstm_scan_cuda, k2.lstm_scan_plain,
+                 ("hs", "cs"))):
             w = tensor(rng.uniform(-sc, sc, (2, H, gates * H)))
             for batch in (1, BATCH, 2 * BATCH, 3 * BATCH, 4 * BATCH,
                           6 * BATCH, 8 * BATCH):
@@ -4055,15 +3324,19 @@ def main(argv=None) -> int:
                 for dt in dts:
                     xd, wd = x.to(dt), w.to(dt)
                     args = (xd, wd, bhn) if gates == 3 else (xd, wd)
-                    fn = (k2.gru_scan_cuda if gates == 3
-                          else k2.lstm_scan_cuda)
+                    label = "bf16" if dt == torch.bfloat16 else "f32"
+                    if batch <= 2 * BATCH:
+                        check_bodies_on(
+                            torch, SMS, f"{name} B={batch} {label}", name, fn,
+                            plain, args, outs, TOL[name if label == "f32"
+                                                   else name + "_bf16"],
+                            rel=False)
                     parts = []
                     for body in (k2.BODY_RESIDENT, k2.BODY_STEPWISE):
                         ms = device_ms(torch, lambda: fn(*args, body=body),
                                        5 if batch <= 2 * BATCH else 3)
                         parts.append(f"{body} {ms:.4f}")
                     rule = k2.rnn_body(H, batch, sms=SMS)
-                    label = "bf16" if dt == torch.bfloat16 else "f32"
                     print(f"time {name} B={batch} {label} per layer ms: "
                           + ", ".join(parts) + f" (rule: {rule})", flush=True)
                 del x
@@ -4073,6 +3346,11 @@ def main(argv=None) -> int:
         row["h600_ms"] = {}
         for batch in (1, BATCH, 2 * BATCH, 3 * BATCH):
             x = tensor(0.5 * rng.standard_normal((T, 2, batch, 4 * WIDE)))
+            if batch == BATCH:
+                check_bodies_on(torch, SMS, f"lstm_fwd H={WIDE} B={batch}",
+                                "lstm_fwd", k2.lstm_scan_cuda,
+                                k2.lstm_scan_plain, (x, w), ("hs", "cs"),
+                                TOL["lstm_fwd"], rel=False)
             ms = {body: device_ms(torch, lambda: k2.lstm_scan_cuda(
                       x, w, body=body), 5 if batch <= BATCH else 3)
                   for body in (k2.BODY_WIDE, k2.BODY_STEPWISE)}
@@ -4086,41 +3364,9 @@ def main(argv=None) -> int:
 
     with torch.inference_mode():
         fwd_sweep()
-    bwd_extras("lstm_bwd", k2.lstm_scan_bwd_cuda, k8_args)
-    # serving with classifier-selected speakers, and the classifier step
-    with torch.inference_mode():
-        sel_batch_ms = host_ms(torch, lambda: separate_waveforms(
-            model, wav, cfg, length=N_SAMPLES), 5)
-        sel_req_ms = host_ms(torch, lambda: separate_waveforms(
-            model, w1, cfg, length=N_SAMPLES), 10)
-        busy, prow, n_launch = profile_ms(torch, lambda: separate_waveforms(
-            model, w1, cfg, length=N_SAMPLES))
-    print(f"profile B=1 request, classifier-selected: device busy "
-          f"{busy:.3f} ms of {sel_req_ms:.3f} ms wall (idle "
-          f"{1 - busy / sel_req_ms:.1%}), {n_launch} kernel launches",
-          flush=True)
-    for name, n, ms in prow:
-        print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
-    cstep_ms = host_ms(torch, classifier_step, 10)
-    busy, prow, n_launch = profile_ms(torch, classifier_step, top=12)
-    print(f"profile B={BATCH} classifier train step: device busy {busy:.3f} "
-          f"ms of {cstep_ms:.3f} ms wall (idle {1 - busy / cstep_ms:.1%}), "
-          f"{n_launch} kernel launches", flush=True)
-    for name, n, ms in prow:
-        print(f"  {ms:9.4f} ms {n:5d}x {name[:90]}", flush=True)
-    print(f"classifier: {cstep_ms:.3f} ms per B={BATCH} train step (median "
-          f"of 10 synchronised steps, {BATCH / cstep_ms * 1e3:.1f} "
-          f"mixtures/s); classifier-selected serving {sel_batch_ms:.3f} ms "
-          f"per B={BATCH} batch ({BATCH / sel_batch_ms * 1e3:.1f} "
-          f"mixtures/s), {sel_req_ms:.3f} ms per B=1 request", flush=True)
-    print(f"end to end: {batch_ms:.3f} ms per B={BATCH} batch "
-          f"({BATCH / batch_ms * 1e3:.1f} mixtures/s), {req_ms:.3f} ms per "
-          f"B=1 request; plain path {plain_batch_ms:.3f} ms per B={BATCH} "
-          f"batch", flush=True)
-
+    bwd_extras("lstm_bwd", k2.lstm_scan_bwd_cuda, k2.lstm_scan_bwd_plain,
+               ("dxp", "dU"), k8_args)
     with tempfile.TemporaryDirectory() as tmp:
-        # ---- 16. the joint step's CUDA graph ----------------------------
-        graph_phase(torch, dev)
         # ---- 9. persistence ----------------------------------------------
         persistence_phase(torch, dev, rng, tmp)
         # ---- 10. TDAA at full width ----------------------------------------

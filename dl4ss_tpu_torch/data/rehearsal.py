@@ -29,7 +29,8 @@ evaluation is the unk-enrollment protocol (`run.evaluate --mode memory
         --list-dir /data/rehearsal/lists --wav-root /data/rehearsal ...
 
 (The port's copy of `dl4ss_tpu/data/rehearsal.py`: the same files, byte for
-byte, for one seed.)
+byte, for one seed.) `cocktail_layout` lays Cocktail's train / dev / test
+/ unk tree over such corpora.
 """
 
 from __future__ import annotations
@@ -119,6 +120,42 @@ def generate_corpus(out_root: str, n_spk: int = 101, utts: int = 135,
              "generate_seconds": round(gen_s, 1),
              "write_seconds": round(write_s, 1), "lists": counts}
     return stats
+
+
+def cocktail_layout(corpus_root: str, out_root: str, holdout: int,
+                    unk_root: str | None = None) -> str:
+    """Cocktail's `{train,dev,test[,unk]}/<spk>/*.wav` tree over corpora
+    that `generate_corpus` wrote, as symbolic links, for
+    `layout_tools.generate_file_lists`: each speaker's utterances but the
+    last `holdout` train, the held-out ones go to dev (the first half)
+    and test (the rest) under the same speaker, and `unk_root`'s speakers
+    (another corpus, with other speakers) form the unk split, named
+    `u<id>`. Returns `out_root`."""
+    def speakers(root):
+        base = os.path.join(root, "wsj0", "si_tr_s")
+        return {s: sorted(os.path.join(base, s, w)
+                          for w in os.listdir(os.path.join(base, s)))
+                for s in sorted(os.listdir(base))}
+
+    def link(paths, split, spk):
+        d = os.path.join(out_root, split, spk)
+        os.makedirs(d, exist_ok=True)
+        for p in paths:
+            os.symlink(os.path.abspath(p),
+                       os.path.join(d, os.path.basename(p)))
+
+    for spk, paths in speakers(corpus_root).items():
+        if len(paths) <= holdout or holdout < 2:
+            raise ValueError(f"speaker {spk!r} has {len(paths)} "
+                             f"utterances: cannot hold out {holdout} for "
+                             f"dev and test")
+        link(paths[:-holdout], "train", spk)
+        link(paths[-holdout:-holdout // 2], "dev", spk)
+        link(paths[-holdout // 2:], "test", spk)
+    if unk_root is not None:
+        for spk, paths in speakers(unk_root).items():
+            link(paths, "unk", "u" + spk)
+    return out_root
 
 
 def main(argv=None):

@@ -28,12 +28,10 @@ Every trainer marks its phases for the profiler (`utils.profiling.span`):
 `forward` from the step's inputs to its loss tensors (twice in the
 adversarial step, once a phase), then `backward` and `optimizer`.
 
-On a CUDA device and without a mesh, the fused step replays its featurize
--> forward -> backward as a CUDA graph, one per key (the batch's shapes
-and dtypes, the model's tensors' addresses), with the optimizer eager
-after each replay (`_GraphedJointStep`); `GRAPH_COUNTS` counts its calls.
-A replay runs the same kernels on the same data as the eager step, in the
-same order: only the host's work per launch leaves the step.
+On a CUDA device without a mesh, the fused step replays its featurize ->
+forward -> backward as a CUDA graph per batch shape and parameter
+addresses (`_GraphedJointStep`; `GRAPH_COUNTS` counts its calls): the same
+kernels on the same data in the same order, without the host's work.
 """
 
 from __future__ import annotations
@@ -149,30 +147,47 @@ def _separation_loss(model: Separator, feats: dict, cfg: Config):
     return loss, aux
 
 
-def _gradients(loss: torch.Tensor, params) -> List[torch.Tensor]:
-    """d loss / d params alone. Parameters the loss does not reach get
-    zeros, as jax.grad gives them; nothing outside `params` gets a
-    gradient."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(params, grads)]
+def _gradients(loss: torch.Tensor, params, mesh: Optional[Mesh] = None):
+    """d loss / d params alone (zeros where the loss does not reach, as
+    jax.grad gives them), in the `backward` span, with a `mesh` averaged
+    over its data group there: (the gradients, the mesh's norm or None)."""
+    with span("backward"):
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            params, torch.autograd.grad(loss, params, allow_unused=True))]
+        if mesh is None:
+            return grads, None
+        return reduce_gradients(params, grads, mesh)
+
+
+def _update(opt, params, opt_state, grads, norm) -> torch.Tensor:
+    """One optimizer update of `params` and `opt_state` in place, in the
+    `optimizer` span; returns the global grad norm, which the clip takes."""
+    with span("optimizer"):
+        return opt.update(params, grads, opt_state, norm=norm)
 
 
 def _backward_and_update(params, opt_state, opt, loss: torch.Tensor,
                          mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Differentiate `loss` with respect to `params` (`_gradients`), apply
-    one optimizer update to them and `opt_state` in place and return the
-    global grad norm. With a `mesh` the gradients are averaged over its
-    data group first (where XLA inserts the all-reduce in JAX), and the
-    clip takes the mesh's global norm; the average is the tail of the
-    `backward` span."""
-    with span("backward"):
-        grads = _gradients(loss, params)
-        norm = None
-        if mesh is not None:
-            grads, norm = reduce_gradients(params, grads, mesh)
-    with span("optimizer"):
-        return opt.update(params, grads, opt_state, norm=norm)
+    """`_gradients`, then `_update`."""
+    return _update(opt, params, opt_state, *_gradients(loss, params, mesh))
+
+
+def _joint_tail(state: TrainState, losses: dict, grads, norm, opt,
+                mesh: Optional[Mesh] = None):
+    """A joint step's end, eager or replayed: the update, the step count
+    and the metrics."""
+    grad_norm = _update(opt, generator_params(state.model), state.opt_state,
+                        grads, norm)
+    state.step += 1
+    return state, mean_metrics({**losses, "grad_norm": grad_norm}, mesh)
+
+
+def _check_assignment(cfg: Config) -> None:
+    if not cfg.ground_truth and cfg.loss_mode == "identity":
+        raise ValueError(
+            "ground_truth=False selects channels from the classifier, so "
+            "channel k no longer aligns with source k — identity assignment "
+            "is ill-posed in the top-k layout; use loss_mode='pit'/'si_sdr'.")
 
 
 def make_train_step(cfg: Config, steps_per_epoch: int = 1,
@@ -180,32 +195,26 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1,
     """The canonical joint trainer (A17/A18/A19): teacher-forced speakers,
     mask MSE (+PIT) or SI-SDR, clipped Adam. step(state, feats) ->
     (state, metrics), updating the state in place."""
-    if not cfg.ground_truth and cfg.loss_mode == "identity":
-        raise ValueError(
-            "ground_truth=False selects channels from the classifier, so "
-            "channel k no longer aligns with source k — identity assignment "
-            "is ill-posed in the top-k layout; use loss_mode='pit'/'si_sdr'.")
+    _check_assignment(cfg)
     opt = make_optimizer(cfg, steps_per_epoch)
 
     def step(state: TrainState, feats: dict):
-        loss, losses = _joint_loss(state.model, feats, cfg)
-        grad_norm = _backward_and_update(generator_params(state.model),
-                                         state.opt_state, opt, loss, mesh)
-        state.step += 1
-        return state, mean_metrics({**losses, "grad_norm": grad_norm}, mesh)
+        return _joint_tail(state, *_joint_grads(state.model, feats, cfg, mesh),
+                           opt, mesh)
 
     return step
 
 
-def _joint_loss(model: Separator, feats: dict, cfg: Config):
-    """The joint trainer's forward: (the loss to differentiate, the step's
-    loss metrics)."""
+def _joint_grads(model: Separator, feats: dict, cfg: Config,
+                 mesh: Optional[Mesh] = None):
+    """The joint step's forward and backward: (its loss metrics, then
+    `_gradients` of the generator's parameters)."""
     with span("forward"):
         loss, aux = _separation_loss(model, feats, cfg)
     losses = {"loss": loss.detach(), "mask_loss": aux["mask_loss"].detach()}
     if "sum_loss" in aux:
         losses["sum_loss"] = aux["sum_loss"].detach()
-    return loss, losses
+    return losses, *_gradients(loss, generator_params(model), mesh)
 
 
 # The fused step's calls by how they ran: `eager`, or on a CUDA graph, which
@@ -232,32 +241,25 @@ def _graph_key(batch: MixtureBatch, model: Separator) -> tuple:
 
 
 class _GraphedJointStep:
-    """The device part of the fused joint step, featurize -> forward ->
-    backward, as CUDA graphs. The first call on a key runs eagerly; the
-    second warms the region up on a side stream on its own batch (which
-    changes no state), captures it and replays it; later calls copy their
-    batch into the graph's inputs and replay. Each replay adds the launches
-    its capture recorded to the launch counters (`cuda_lib.count`); the
-    warm-up and the capture count none. The optimizer runs eagerly on the
-    graph's gradients after each replay: its learning rate and bias
-    corrections are Python numbers that change every step. A call returns
-    None where the step has to run eagerly: on a new key, past MAX_GRAPHS
-    keys, while a parameter has a gradient hook (a replay would skip it),
-    or on a key whose region could not be captured."""
+    """The fused joint step's featurize -> forward -> backward as CUDA
+    graphs. A key's first call runs eagerly; its second warms the region up
+    on a side stream on its own batch (which changes no state), captures
+    and replays it; later calls replay on their batch. A replay counts its
+    capture's launches (`cuda_lib.count`); the optimizer runs eagerly after
+    it (`_joint_tail`: its learning rate and bias corrections change every
+    step). Calls run eagerly (None) past MAX_GRAPHS captures, while a
+    parameter has a gradient hook (a replay would skip it), and on a key
+    whose capture failed. `keys` holds at most 4 * MAX_GRAPHS keys."""
 
-    def __init__(self, cfg: Config, opt):
-        self.cfg, self.opt = cfg, opt
-        self.graphs: Dict[tuple, Optional[_StepGraph]] = {}
-        self.seen: Dict[tuple, None] = {}     # keys run eagerly once
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.keys: dict = {}   # None once seen, then its graph (False: failed)
         self.stream = None                    # warm-up and capture
 
-    def _region(self, model: Separator, params, batch: MixtureBatch):
-        loss, losses = _joint_loss(model, featurize(batch, self.cfg),
-                                   self.cfg)
-        with span("backward"):
-            return losses, _gradients(loss, params)
+    def _region(self, model: Separator, batch: MixtureBatch):
+        return _joint_grads(model, featurize(batch, self.cfg), self.cfg)[:2]
 
-    def _capture(self, model: Separator, params, batch: MixtureBatch
+    def _capture(self, model: Separator, batch: MixtureBatch
                  ) -> Optional[_StepGraph]:
         static = MixtureBatch(*(None if x is None else x.clone()
                                 for x in batch))
@@ -266,12 +268,12 @@ class _GraphedJointStep:
         self.stream.wait_stream(torch.cuda.current_stream(
             batch.mix_wav.device))
         with cuda_lib.uncounted(), torch.cuda.stream(self.stream):
-            self._region(model, params, static)
+            self._region(model, static)
         graph = torch.cuda.CUDAGraph()
         try:
             with cuda_lib.uncounted() as launched, \
                     torch.cuda.graph(graph, stream=self.stream):
-                losses, grads = self._region(model, params, static)
+                losses, grads = self._region(model, static)
         except RuntimeError as err:
             warnings.warn(f"the joint step runs eagerly: its region could "
                           f"not be captured as a CUDA graph ({err})")
@@ -279,36 +281,37 @@ class _GraphedJointStep:
         GRAPH_COUNTS["captures"] += 1
         return _StepGraph(graph, static, losses, grads, launched)
 
-    def __call__(self, state: TrainState, batch: MixtureBatch):
-        model = state.model
-        params = generator_params(model)
-        key = _graph_key(batch, model)
-        if any(p._backward_hooks for p in params):
-            graph = None
-        elif key in self.graphs:
-            graph = self.graphs[key]
-            if graph is not None:
-                for dst, src in zip(graph.batch, batch):
-                    if dst is not None:
-                        dst.copy_(src)
-        elif key in self.seen and len(self.graphs) < MAX_GRAPHS:
-            graph = self.graphs[key] = self._capture(model, params, batch)
-        else:
-            graph = None
-        if graph is None:
-            self.seen[key] = None
-            if len(self.seen) > 4 * MAX_GRAPHS:
-                del self.seen[next(iter(self.seen))]
+    def _graph(self, key: tuple, model: Separator, params,
+               batch: MixtureBatch) -> Optional[_StepGraph]:
+        """The graph this call replays, or None where it runs eagerly."""
+        if key not in self.keys:
+            self.keys[key] = None
+            if len(self.keys) > 4 * MAX_GRAPHS:
+                del self.keys[next(k for k, v in self.keys.items()
+                                   if v is None)]
             return None
+        if any(p._backward_hooks for p in params):
+            return None
+        if self.keys[key] is None and sum(
+                v is not None for v in self.keys.values()) < MAX_GRAPHS:
+            self.keys[key] = self._capture(model, batch) or False
+        return self.keys[key] or None
+
+    def __call__(self, model: Separator, batch: MixtureBatch):
+        """`_joint_grads` on `batch` by a replay, or None."""
+        graph = self._graph(_graph_key(batch, model), model,
+                            generator_params(model), batch)
+        if graph is None:
+            return None
+        for dst, src in zip(graph.batch, batch):
+            if dst is not None:
+                dst.copy_(src)
         with span("replay"):
             graph.graph.replay()
         GRAPH_COUNTS["replays"] += 1
         cuda_lib.count(graph.launched)
-        losses = {k: v.clone() for k, v in graph.losses.items()}
-        with span("optimizer"):
-            grad_norm = self.opt.update(params, graph.grads, state.opt_state)
-        state.step += 1
-        return state, {**losses, "grad_norm": grad_norm}
+        return ({k: v.clone() for k, v in graph.losses.items()}, graph.grads,
+                None)
 
 
 def make_fused_step(cfg: Config, steps_per_epoch: int = 1,
@@ -316,26 +319,26 @@ def make_fused_step(cfg: Config, steps_per_epoch: int = 1,
                     mesh: Optional[Mesh] = None) -> Callable:
     """Synthesis + STFT + train: step(state, bank) -> (state, metrics).
     The batch is drawn from the state's generator; on the kernel route the
-    features come from K1 (the reference's CPU generator -> numpy STFT ->
-    H2D copy -> GPU step, run on the device). `noise_bank` (W, N) enables
-    the street-noise augment (A5) under cfg.add_bgd_noise. With a `mesh`
-    every rank draws the global batch (the generator is the same on all)
-    and featurizes and trains on its own rows. On a CUDA device without a
-    mesh the device part of the step replays as a CUDA graph
-    (`_GraphedJointStep`); the metrics are fresh tensors either way."""
-    inner = make_train_step(cfg, steps_per_epoch, mesh)
-    graphed = (_GraphedJointStep(cfg, make_optimizer(cfg, steps_per_epoch))
-               if mesh is None else None)
+    features come from K1. `noise_bank` (W, N) enables the street-noise
+    augment (A5) under cfg.add_bgd_noise. With a `mesh` every rank draws
+    the global batch (the generator is the same on all) and featurizes and
+    trains on its own rows. On a CUDA device without a mesh the step up to
+    its update replays as a CUDA graph (`_GraphedJointStep`); the metrics
+    are fresh tensors either way."""
+    _check_assignment(cfg)
+    opt = make_optimizer(cfg, steps_per_epoch)
+    graphed = _GraphedJointStep(cfg) if mesh is None else None
 
     def step(state: TrainState, bank: torch.Tensor):
         batch = sample_mixtures(state.generator, bank, cfg,
                                 noise_bank=noise_bank)
-        if graphed is not None and bank.is_cuda:
-            done = graphed(state, batch)
-            if done is not None:
-                return done
-        GRAPH_COUNTS["eager"] += 1
-        return inner(state, featurize(shard_batch(batch, mesh), cfg))
+        region = (graphed(state.model, batch)
+                  if graphed is not None and bank.is_cuda else None)
+        if region is None:
+            GRAPH_COUNTS["eager"] += 1
+            region = _joint_grads(state.model, featurize(
+                shard_batch(batch, mesh), cfg), cfg, mesh)
+        return _joint_tail(state, *region, opt, mesh)
 
     return step
 
@@ -440,11 +443,7 @@ def make_adversarial_step(cfg: Config, steps_per_epoch: int = 1,
     the discriminator moves once a step. `real` is the clean target
     spectra (dis-ss) unless feats carries "real_specs", different-utterance
     same-speaker spectra (dis-sp, predata_fromList_dis.py:37-66)."""
-    if not cfg.ground_truth and cfg.loss_mode == "identity":
-        raise ValueError(
-            "ground_truth=False selects channels from the classifier — "
-            "identity assignment is ill-posed in the top-k layout; use "
-            "loss_mode='pit'/'si_sdr' (same constraint as make_train_step)")
+    _check_assignment(cfg)
     g_opt = make_optimizer(cfg, steps_per_epoch)
     d_opt = make_optimizer(cfg, steps_per_epoch)
     # the generator loss carries its own sum-to-one term (weight 0.5 per

@@ -130,6 +130,49 @@ def test_graph_key_follows_shapes_and_addresses():
     assert steps._graph_key(batch, model) != key
 
 
+def test_graph_keys_capture_on_the_second_call_and_stay_bounded():
+    """The map of keys on a hand-built key sequence, with `_capture` stubbed
+    (a sentinel graph, or None for a capture that failed): a key's first
+    call runs eagerly, its second captures, later calls replay; a gradient
+    hook forces eager; past MAX_GRAPHS captures, and on a key whose capture
+    failed, calls stay eager; the map holds at most 4 * MAX_GRAPHS keys,
+    dropping the oldest key seen only once, never a graph."""
+    graphed = steps._GraphedJointStep(preset("synth_tiny"))
+    captured = []
+
+    def capture(model, batch):
+        captured.append(batch)
+        return None if batch.startswith("bad") else ("graph", batch)
+    graphed._capture = capture
+    param = torch.zeros(2, requires_grad=True)
+
+    def call(key):
+        return graphed._graph(key, None, [param], key)
+
+    assert call("a") is None and captured == []        # first sight
+    hook = param.register_hook(lambda g: g)
+    assert call("a") is None and captured == []        # hooked: eager
+    hook.remove()
+    assert call("a") == ("graph", "a") and captured == ["a"]
+    assert call("a") == ("graph", "a") and captured == ["a"]    # replay
+    assert [call("bad"), call("bad"), call("bad")] == [None] * 3
+    assert captured == ["a", "bad"]                    # a failure stays
+    for key in ("b", "c", "d"):
+        assert [call(key), call(key)] == [None, None if key == "d"
+                                          else ("graph", key)]
+    assert captured == ["a", "bad", "b", "c"]          # MAX_GRAPHS reached
+    assert call("d") is None and len(captured) == steps.MAX_GRAPHS
+    bound = 4 * steps.MAX_GRAPHS
+    for i in range(2 * bound):
+        assert call(f"new{i}") is None
+        assert len(graphed.keys) <= bound
+    assert [k for k, v in graphed.keys.items() if v is not None] == [
+        "a", "bad", "b", "c"]
+    assert "d" not in graphed.keys and call("a") == ("graph", "a")
+    assert call("d") is None and call("d") is None     # seen anew, no room
+    assert len(captured) == steps.MAX_GRAPHS
+
+
 # ---- on the card --------------------------------------------------------
 
 @pytest.fixture

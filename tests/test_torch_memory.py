@@ -27,10 +27,9 @@ from dl4ss_tpu.data.synth import make_synthetic_bank as jax_bank
 from dl4ss_tpu.data.synth import sample_mixtures as jax_sample
 from dl4ss_tpu.models import memory as jmem
 from dl4ss_tpu.train import memory_trainer as jmt
-from chip_smoke import cocktail_layout
 from dl4ss_tpu_torch import preset
 from dl4ss_tpu_torch.data.layout_tools import generate_file_lists
-from dl4ss_tpu_torch.data.rehearsal import generate_corpus
+from dl4ss_tpu_torch.data.rehearsal import cocktail_layout, generate_corpus
 from dl4ss_tpu_torch.data.synth import MixtureBatch, linear_target_mags
 from dl4ss_tpu_torch.models import memory as tmem
 from dl4ss_tpu_torch.train import memory_trainer as tmt
