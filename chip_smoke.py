@@ -467,20 +467,18 @@ def close_losses(path, met_g, met_c, keys, tol):
             fail(f"{path} {key} differs: card {got}, cpu {ref}")
 
 
-def check_bodies_on(torch, sms, label, name, cuda, plain, args, outs, tol,
-                 rel):
-    """K2, K5, K7 or K8: the body the shape rule names (it must be the
-    one a default call launches) and the stepwise one, or the resident one
-    where the rule names the stepwise one and it can run, each against the
-    plain version (max abs error, or relative L2 where `rel`); the resident
-    or wide body (K7 past H=304) against the stepwise one and against a
-    second call of itself. `sms`: the card's SM count, which the rule
-    reads."""
+def check_bodies_on(torch, label, name, cuda, plain, args, outs, tol, rel):
+    """K2, K5, K7 or K8: the body the shape rule names on this card (it
+    must be the one a default call launches) and the stepwise one, or the
+    resident one where the rule names the stepwise one and it can run, each
+    against the plain version (max abs error, or relative L2 where `rel`);
+    the resident, cluster or wide body (K7 past H=304) against the stepwise
+    one and against a second call of itself, and the cluster body bit for
+    bit against the resident one."""
     from dl4ss_tpu_torch.ops import rnn_kernels as k2
     hidden = args[1].shape[1]          # wh (D, H, NG * H)
-    rule = k2.rnn_body(hidden, args[0].shape[2], args[0].shape[1], sms=sms,
-                       backward=name.endswith("_bwd"),
-                       gates=args[1].shape[2] // hidden)
+    rule = k2.default_body(args[0].device, name, args[0].dtype, hidden,
+                           args[0].shape[2], args[0].shape[1])
 
     def outputs(fn, **kw):          # K2 returns hs alone
         res = fn(*args, **kw)
@@ -508,6 +506,12 @@ def check_bodies_on(torch, sms, label, name, cuda, plain, args, outs, tol,
         for what, g, g2 in zip(outs, got[held], outputs(cuda, body=held)):
             if not torch.equal(g, g2):
                 fail(f"{label}: two {held} calls in a row differ in {what}")
+    if rule == k2.BODY_CLUSTER:
+        for what, g, r in zip(outs, got[rule],
+                              outputs(cuda, body=k2.BODY_RESIDENT)):
+            if not torch.equal(g, r):
+                fail(f"{label}: the cluster body differs from the resident "
+                     f"one in {what}")
     return worst[rule]
 
 
@@ -651,6 +655,7 @@ def tdaa_phase(torch, dev, rng, wav, reqs):
     plain = cfg.replace(**flags_off)
     K, layers, clayers = cfg.top_k, cfg.encoder_layers, cfg.classifier_layers
     res, step_, wide = k2.BODY_RESIDENT, k2.BODY_STEPWISE, k2.BODY_WIDE
+    clu = k2.BODY_CLUSTER
     model = init_separator(cfg, torch.Generator().manual_seed(SEED), dev)
     total = collections.Counter()
     n_params = sum(p.numel() for p in model.parameters())
@@ -671,7 +676,7 @@ def tdaa_phase(torch, dev, rng, wav, reqs):
                 "end_to_end_rel"]:
             fail(f"{path} differs from the plain path: {rel}")
 
-    # serving, given speakers: K1, K7 on the encoder (resident), K3 on
+    # serving, given speakers: K1, K7 on the encoder (cluster), K3 on
     # the ADDJUST queries, K4
     zero_counts(torch)
     out16 = separate_waveforms(model, wav, cfg, spk, length=N_SAMPLES)
@@ -682,7 +687,7 @@ def tdaa_phase(torch, dev, rng, wav, reqs):
     expect_counts("tdaa given-speaker serving", launches, {
         "stft_features": 2, "lstm_fwd": 2 * layers, "maskhead_fwd": 2,
         "masked_istft": 2, "lstm_bwd": 0})
-    if bodies != {("lstm_fwd", res): 2 * layers}:
+    if bodies != {("lstm_fwd", clu): 2 * layers}:
         fail(f"tdaa given-speaker serving ran the bodies {bodies}")
     compare(f"tdaa given B={BATCH}", out16, separate_waveforms(
         model, wav, plain, spk, length=N_SAMPLES))
@@ -702,7 +707,7 @@ def tdaa_phase(torch, dev, rng, wav, reqs):
     expect_counts("tdaa classifier-selected serving", launches, {
         "stft_features": 2, "lstm_fwd": 2 * (layers + clayers),
         "maskhead_fwd": 2, "masked_istft": 2})
-    if bodies != {("lstm_fwd", res): 2 * layers,
+    if bodies != {("lstm_fwd", clu): 2 * layers,
                   ("lstm_fwd", wide): 2 * clayers}:
         fail(f"tdaa classifier-selected serving ran the bodies {bodies}")
     for label, mix, got_wav, got_spk in ((f"B={BATCH}", wav, sel16, spk16),
@@ -754,8 +759,9 @@ def tdaa_phase(torch, dev, rng, wav, reqs):
         print(f"tdaa {name} step: launches {launches}, bodies {bodies}",
               flush=True)
         expect_counts(f"tdaa {name} step", launches, want)
-        # every K7 and K8 launch is one chain of the resident body
-        if bodies != {("lstm_fwd", res): want["lstm_fwd"],
+        # every K7 launch is one chain of the cluster body, every K8 one
+        # of the resident body
+        if bodies != {("lstm_fwd", clu): want["lstm_fwd"],
                       ("lstm_bwd", res): want["lstm_bwd"]}:
             fail(f"tdaa {name} step ran the bodies {bodies}")
         close_losses(f"tdaa {name} step", met_g, met_c, keys,
@@ -2147,12 +2153,12 @@ def surface_phase(torch, dev, smi):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev
                                ).contiguous()
 
-    for backward in (False, True):
-        rule = k2.rnn_body(H, B, 1, sms=sms, backward=backward)
-        print(f"surface: rnn_body(H={H}, B={B}, directions=1) "
-              f"{'backward' if backward else 'forward'}: {rule}, "
-              f"{len(k2.resident_chunks(B, H, 1, sms))} launch(es) of "
-              f"{k2.resident_chunk_rows(H, 1, sms)} rows", flush=True)
+    for name in ("gru_fwd", "gru_bwd"):
+        rule = k2.default_body(dev, name, torch.float32, H, B, 1)
+        print(f"surface: the rule at H={H}, B={B}, directions=1, {name}: "
+              f"{rule}, {len(k2.resident_chunks(B, H, 1, sms))} ticket "
+              f"launch(es) of {k2.resident_chunk_rows(H, 1, sms)} rows",
+              flush=True)
     xp2 = tensor(0.5 * rng.standard_normal((T, 1, B, 3 * H)))
     wh2 = tensor(rng.uniform(-sc, sc, (1, H, 3 * H)))
     bhn = tensor(rng.uniform(-sc, sc, (1, 1, H)))
@@ -2160,25 +2166,25 @@ def surface_phase(torch, dev, smi):
     wh7 = tensor(rng.uniform(-sc, sc, (1, H, 4 * H)))
     dhs = tensor(rng.standard_normal((T, 1, B, H)))
     errs = {"gru_fwd": check_bodies_on(
-        torch, sms, "K2 gru_fwd D=1", "gru_fwd", k2.gru_scan_cuda,
+        torch, "K2 gru_fwd D=1", "gru_fwd", k2.gru_scan_cuda,
         k2.gru_scan_plain, (xp2, wh2, bhn), ("hs",), TOL["gru_fwd"],
         rel=False)}
     hs = k2.gru_scan_cuda(xp2, wh2, bhn)
     zeros = torch.zeros_like(hs[:1])
     k5_args = (xp2, wh2, bhn, torch.cat([zeros, hs[:-1]]), dhs)
     errs["gru_bwd"] = check_bodies_on(
-                    torch, sms, "K5 gru_bwd D=1", "gru_bwd",
+                    torch, "K5 gru_bwd D=1", "gru_bwd",
                     k2.gru_scan_bwd_cuda, k2.gru_scan_bwd_plain, k5_args,
                     ("dxp", "dU", "db_n"), TOL["gru_bwd"], rel=True)
     errs["lstm_fwd"] = check_bodies_on(
-                    torch, sms, "K7 lstm_fwd D=1", "lstm_fwd",
+                    torch, "K7 lstm_fwd D=1", "lstm_fwd",
                     k2.lstm_scan_cuda, k2.lstm_scan_plain, (xp7, wh7),
                     ("hs", "cs"), TOL["lstm_fwd"], rel=False)
     hs7, cs7 = k2.lstm_scan_cuda(xp7, wh7)
     k8_args = (xp7, wh7, torch.cat([zeros, hs7[:-1]]),
                torch.cat([zeros, cs7[:-1]]), cs7, dhs)
     errs["lstm_bwd"] = check_bodies_on(
-                    torch, sms, "K8 lstm_bwd D=1", "lstm_bwd",
+                    torch, "K8 lstm_bwd D=1", "lstm_bwd",
                     k2.lstm_scan_bwd_cuda, k2.lstm_scan_bwd_plain, k8_args,
                     ("dxp", "dU"), TOL["lstm_bwd"], rel=True)
 
@@ -2210,7 +2216,7 @@ def surface_phase(torch, dev, smi):
                   {**want, "stft_features": 0, "maskhead_fwd": 0,
                    "masked_istft": 0})
     for name in want:
-        rule = k2.rnn_body(H, B, 1, sms=sms, backward=name.endswith("_bwd"))
+        rule = k2.default_body(dev, name, torch.float32, H, B, 1)
         if bodies != {**bodies, (name, rule): SURFACE_LAYERS}:
             fail(f"surface: {name} ran {bodies}, expected "
                  f"{SURFACE_LAYERS} launches of the {rule} body")
@@ -2403,11 +2409,17 @@ def main(argv=None) -> int:
             kind = "fwd" if "fwd_chain" in name else "bwd"
             cell = next(c for c in ("Gru", "Lstm") if c in name)
             dtype = "bf16" if "bfloat16" in name else "f32"
+            # the forward's body: the wide one, or the ticket (Lb0) or
+            # cluster (Lb1) body at its units a block
+            units = name.split("EEELb")[0].rsplit("Li", 1)[-1]
+            body = ("wide" if "wide" in name else
+                    f"cluster {units} units" if "ELb1E" in name else
+                    "ticket" if "ELb0E" in name else "")
             info = " ".join(x.strip() for x in log[i + 1:i + 4])
             regs = info.split("Used ")[1].split(" registers")[0]
             spill = info.split("spill stores")[0].split(",")[-1].strip()
-            print(f"ptxas {cell} {kind} chain {dtype}: {regs} registers, "
-                  f"{spill} spill stores", flush=True)
+            print(f"ptxas {cell} {kind} chain {dtype} {body}: {regs} "
+                  f"registers, {spill} spill stores", flush=True)
     mask_kernels = ("maskhead_fwd_kernel", "maskhead_bwd_kernel",
                     "maskhead_pack_kernel", "maskhead_sums_kernel")
     for i, line in enumerate(log):     # K3 and K6 (wgmma), their helpers
@@ -2559,15 +2571,18 @@ def main(argv=None) -> int:
     reqs = [(tensor(rng.uniform(-1, 1, (1, N_SAMPLES))),
              torch.as_tensor(rng.integers(0, cfg.num_speakers, (1, K)),
                              device=dev)) for _ in range(REQUESTS)]
-    def check_resident(path, name, count):
-        """Every launch of K2, K5, K7 or K8 on a main path ran the resident
-        body, the one the shape rule names at the path's shapes."""
+    def check_chain_bodies(path, name, count):
+        """Every launch of K2 or K7 on a main path ran the cluster body, of
+        K5 or K8 the resident one: the bodies the shape rule names at the
+        paths' shapes (H=300, B=1 and 16) on an H100."""
+        want = (k2.BODY_RESIDENT if name.endswith("_bwd")
+                else k2.BODY_CLUSTER)
         bodies = {b: n for (kern, b), n in k2.BODY_LAUNCHES.items()
                   if kern == name}
         print(f"{path}: {name} bodies {bodies}", flush=True)
-        if bodies != {k2.BODY_RESIDENT: count}:
+        if bodies != {want: count}:
             fail(f"{path}: {name} launched {bodies}, expected {count} "
-                 f"launches of the resident body")
+                 f"launches of the {want} body")
 
     def check_fft_bodies(path, counts):
         """Every K1 and K4 launch of a serving path ran the FFT body, the
@@ -2594,7 +2609,7 @@ def main(argv=None) -> int:
     missing = [n for n in cuda_lib.SERVING_KERNELS if not launches.get(n)]
     if missing:
         fail(f"kernels never launched on the serving path: {missing}")
-    check_resident("given-speaker serving", "gru_fwd", launches["gru_fwd"])
+    check_chain_bodies("given-speaker serving", "gru_fwd", launches["gru_fwd"])
     if launches["maskhead_fwd"] != 1 + REQUESTS:
         fail(f"given-speaker serving launched K3 {launches['maskhead_fwd']} "
              f"times, expected one per call ({1 + REQUESTS})")
@@ -2637,7 +2652,7 @@ def main(argv=None) -> int:
     if got != want:
         fail(f"classifier-selected path launched {got}, expected {want}")
     for name in ("gru_fwd", "lstm_fwd"):
-        check_resident("classifier-selected serving", name, want[name])
+        check_chain_bodies("classifier-selected serving", name, want[name])
     launches["lstm_fwd"] = sel_launches["lstm_fwd"]
     from dl4ss_tpu_torch.models import classify_speakers
     from dl4ss_tpu_torch.ops.stft import spectral_feature_cfg
@@ -2724,7 +2739,7 @@ def main(argv=None) -> int:
         if got != want:
             fail(f"recursive CLI launched {got}, expected {want}")
         for name, count in want.items():
-            check_resident("recursive CLI", name, count)
+            check_chain_bodies("recursive CLI", name, count)
 
     # ---- 6. train step: kernel route on the card against the CPU --------
     from dl4ss_tpu_torch.data.synth import (featurize, make_synthetic_bank,
@@ -2862,7 +2877,7 @@ def main(argv=None) -> int:
     if train_launches["gru_bwd"] != cfg.encoder_layers * TRAIN_STEPS:
         fail(f"trainer launched gru_bwd {train_launches['gru_bwd']} times")
     for name in ("gru_fwd", "gru_bwd"):
-        check_resident("trainer", name, train_launches[name])
+        check_chain_bodies("trainer", name, train_launches[name])
     # one step in steady state: the step before it updated W, so K3 packs
     # the new version once
     fused = make_fused_step(cfg)
@@ -2933,7 +2948,7 @@ def main(argv=None) -> int:
         fail(f"classifier trainer launched {got}, expected {want}")
     launches["lstm_bwd"] = classify_launches["lstm_bwd"]
     for name in ("lstm_fwd", "lstm_bwd"):
-        check_resident("classifier trainer", name, classify_launches[name])
+        check_chain_bodies("classifier trainer", name, classify_launches[name])
 
     for _ in range(2):      # the second step's launches
         torch.cuda.synchronize()
@@ -3222,7 +3237,7 @@ def main(argv=None) -> int:
         the same run, the rule's body named."""
         for label, args in args_by_label.items():
             bf16 = "_bf16" if args[0].dtype == torch.bfloat16 else ""
-            check_bodies_on(torch, SMS, f"{name} {label}", name, cuda, plain,
+            check_bodies_on(torch, f"{name} {label}", name, cuda, plain,
                             args, outs, TOL[name + bf16], rel=True)
             parts = []
             hidden, batch = args[1].shape[1], args[0].shape[2]
@@ -3302,14 +3317,23 @@ def main(argv=None) -> int:
         time_row(name, r, 5 if slow else 20,
                  (2 if name == "lstm_bwd" else 3) if slow else 10)
     def fwd_sweep():
-        """K2 and K7 per layer, both bodies, by batch at H=300 (f32; bf16
-        at B=1 and 16), beside the body the rule names: the numbers the
-        forward's RESIDENT_MAX_CHUNKS follows. K7 also at H=600 in its wide
-        and stepwise bodies at B=1, 16, 32 and 48, the numbers
+        """K2 and K7 per layer, the resident, stepwise and (up to B=32)
+        cluster bodies, by batch at H=300 (f32; bf16 at B=1 and 16), beside
+        the body the rule names and the card's occupancy answer for the
+        cluster body's two tilings: the numbers the forward's
+        RESIDENT_MAX_CHUNKS and CLUSTER_UNITS follow. K7 also at H=600 in
+        its wide and stepwise bodies at B=1, 16, 32 and 48, the numbers
         WIDE_MAX_BATCH follows; B=1 and 16 go on K7's row of the `kernels`
         line as `h600_ms`. Each body is held against the plain version
         first (`check_bodies_on`) up to B=32, and at H=600 at B=16."""
         sc = 1.0 / np.sqrt(H)
+        for name in ("gru_fwd", "lstm_fwd"):
+            for dt in (torch.float32, torch.bfloat16):
+                fits = dict(k2.forward_clusters(dev, name, dt, H))
+                print(f"occupancy {name} {dt} H={H}: clusters the card "
+                      f"holds at once, by units a block (blocks a cluster "
+                      + ", ".join(f"{-(-H // u)}" for u in fits)
+                      + f"): {fits}", flush=True)
         for name, gates, fn, plain, outs in (
                 ("gru_fwd", 3, k2.gru_scan_cuda, k2.gru_scan_plain, ("hs",)),
                 ("lstm_fwd", 4, k2.lstm_scan_cuda, k2.lstm_scan_plain,
@@ -3327,18 +3351,24 @@ def main(argv=None) -> int:
                     label = "bf16" if dt == torch.bfloat16 else "f32"
                     if batch <= 2 * BATCH:
                         check_bodies_on(
-                            torch, SMS, f"{name} B={batch} {label}", name, fn,
+                            torch, f"{name} B={batch} {label}", name, fn,
                             plain, args, outs, TOL[name if label == "f32"
                                                    else name + "_bf16"],
                             rel=False)
                     parts = []
-                    for body in (k2.BODY_RESIDENT, k2.BODY_STEPWISE):
+                    bodies = (k2.BODY_RESIDENT, k2.BODY_STEPWISE) + (
+                        (k2.BODY_CLUSTER,) if batch <= 2 * BATCH else ())
+                    for body in bodies:
                         ms = device_ms(torch, lambda: fn(*args, body=body),
                                        5 if batch <= 2 * BATCH else 3)
                         parts.append(f"{body} {ms:.4f}")
-                    rule = k2.rnn_body(H, batch, sms=SMS)
+                    rule = k2.default_body(dev, name, dt, H, batch)
+                    units = k2.cluster_units(H, batch, 2, k2.forward_clusters(
+                        dev, name, dt, H))
                     print(f"time {name} B={batch} {label} per layer ms: "
-                          + ", ".join(parts) + f" (rule: {rule})", flush=True)
+                          + ", ".join(parts) + f" (rule: {rule}"
+                          + (f", {units} units a block" if units else "")
+                          + ")", flush=True)
                 del x
         sc = 1.0 / np.sqrt(WIDE)
         w = tensor(rng.uniform(-sc, sc, (2, WIDE, 4 * WIDE)))
@@ -3347,7 +3377,7 @@ def main(argv=None) -> int:
         for batch in (1, BATCH, 2 * BATCH, 3 * BATCH):
             x = tensor(0.5 * rng.standard_normal((T, 2, batch, 4 * WIDE)))
             if batch == BATCH:
-                check_bodies_on(torch, SMS, f"lstm_fwd H={WIDE} B={batch}",
+                check_bodies_on(torch, f"lstm_fwd H={WIDE} B={batch}",
                                 "lstm_fwd", k2.lstm_scan_cuda,
                                 k2.lstm_scan_plain, (x, w), ("hs", "cs"),
                                 TOL["lstm_fwd"], rel=False)

@@ -19,7 +19,10 @@
 // The resident body (rnn_fwd_common.cuh): ONE persistent cooperative launch
 // per chunk of batch rows walks all steps of both directions, each block
 // with the gate columns of its 24 hidden units of U in registers and a
-// ticket barrier per (direction, 4 rows). GruFwdCell below is its gate math.
+// ticket barrier per (direction, 4 rows). The cluster body is the same
+// chain with each (direction, 4 rows) one thread-block cluster that passes
+// h through distributed shared memory, in one launch. GruFwdCell below is
+// their gate math.
 //
 // The stepwise body, for the widths the resident one cannot hold (H > 304):
 // one kernel per step, launched from a C loop in the same library, so one
@@ -149,6 +152,12 @@ struct GruFwdCell {
   // 3 outputs a unit (its gate columns of U), 3 a lane group; 6 unit
   // warps x 2 column warps split H <= 304 rows of U, 19 a lane: 57 floats
   using Tiling = dl4ss::ResidentTiling<3, 3, 6, 2, 19>;
+  // the cluster body's two tilings: 19 units a block (57 outputs in 60
+  // slots, 5 unit warps, 57 floats a thread: 16 blocks a cluster at H=300)
+  // and 36 (108 outputs in 120 slots, 5 a lane group, 6 unit warps: 95
+  // floats a thread; 9 blocks a cluster at H=300)
+  using ClusterTiling19 = dl4ss::ResidentTiling<3, 3, 5, 2, 19, 19>;
+  using ClusterTiling36 = dl4ss::ResidentTiling<5, 3, 6, 2, 19, 36>;
   struct State {
     float bn;
   };
@@ -166,13 +175,15 @@ struct GruFwdCell {
 
 template <typename T>
 cudaError_t run(const void* xp, const void* wh, const void* bhn, void* hs,
-                void* tickets, int groups, int chunk, int steps, int D,
-                int B, int H, int body, cudaStream_t stream) {
+                void* tickets, int groups, int chunk, int units, int steps,
+                int D, int B, int H, int body, cudaStream_t stream) {
+  const dl4ss::FwdArgs args = {xp, wh, static_cast<const float*>(bhn), hs,
+                               nullptr, static_cast<unsigned int*>(tickets),
+                               steps, D, B, H, 0, 0, 0};
   if (body == dl4ss::BODY_RESIDENT)
-    return dl4ss::fwd_chain<T, GruFwdCell>(
-        {xp, wh, static_cast<const float*>(bhn), hs, nullptr,
-         static_cast<unsigned int*>(tickets), steps, D, B, H, 0, 0, 0},
-        groups, chunk, stream);
+    return dl4ss::fwd_chain<T, GruFwdCell>(args, groups, chunk, stream);
+  if (body == dl4ss::BODY_CLUSTER)
+    return dl4ss::fwd_cluster<T, GruFwdCell>(args, units, stream);
   if (body == dl4ss::BODY_STEPWISE)
     return run_stepwise<T>(xp, wh, bhn, hs, steps, D, B, H, stream);
   return cudaErrorInvalidValue;
@@ -182,18 +193,26 @@ cudaError_t run(const void* xp, const void* wh, const void* bhn, void* hs,
 
 // xp (T, D, B, 3H) and wh (D, H, 3H) in f32, or both in bf16 (bf16 != 0);
 // bhn (D, 1, H) f32; hs (T, D, B, H) in the input dtype. body: 1 resident,
-// 2 stepwise; the resident body returns an error for a shape it cannot
-// hold. Resident: tickets = `groups` zeroed 32-bit counters, one per
-// direction and 4 batch rows (any other count is refused), and the batch
-// runs in chunks of `chunk` rows (a multiple of 4), one launch each. What a
-// body does not use may be null.
+// 2 stepwise, 4 cluster; the resident and cluster bodies return an error
+// for a shape they cannot hold. Resident: tickets = `groups` zeroed 32-bit
+// counters, one per direction and 4 batch rows (any other count is
+// refused), and the batch runs in chunks of `chunk` rows (a multiple of 4),
+// one launch each. Cluster: one launch, `units` hidden units a block (24 or
+// 36; any other count is refused). What a body does not use may be null.
 extern "C" int dl4ss_gru_fwd(const void* xp, const void* wh, const void* bhn,
                              void* hs, void* tickets, int groups, int chunk,
-                             int steps, int D, int B, int H, int bf16,
-                             int body, void* stream) {
+                             int units, int steps, int D, int B, int H,
+                             int bf16, int body, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? run<__nv_bfloat16>(xp, wh, bhn, hs, tickets, groups, chunk,
-                                   steps, D, B, H, body, s)
-              : run<float>(xp, wh, bhn, hs, tickets, groups, chunk, steps, D,
-                           B, H, body, s);
+                                   units, steps, D, B, H, body, s)
+              : run<float>(xp, wh, bhn, hs, tickets, groups, chunk, units,
+                           steps, D, B, H, body, s);
+}
+
+// How many clusters of the cluster body, `units` hidden units a block at
+// width H, the card holds at once; minus a CUDA error code.
+extern "C" long long dl4ss_gru_fwd_clusters(int bf16, int units, int H) {
+  return bf16 ? dl4ss::fwd_cluster_fit<__nv_bfloat16, GruFwdCell>(units, H)
+              : dl4ss::fwd_cluster_fit<float, GruFwdCell>(units, H);
 }

@@ -18,10 +18,12 @@
 // per layer, ~0.11 ms at the f32 CUDA-core rate. As for K2 (gru_fwd.cu) the
 // real limit is the 313 dependent steps.
 //
-// Design, after K2: three bodies, named to the entry point by the caller
+// Design, after K2: four bodies, named to the entry point by the caller
 // (ops/rnn_kernels.py::rnn_body, by shape alone). The resident body is
 // rnn_fwd_common.cuh's chain with LstmFwdCell below: c stays in the owner
-// thread's register for all steps. The wide body (rnn_fwd_wide.cuh, the same
+// thread's register for all steps. The cluster body is the same chain with
+// each (direction, 4 rows) one thread-block cluster that passes h through
+// distributed shared memory. The wide body (rnn_fwd_wide.cuh, the same
 // cell) is one persistent launch for the widths the registers cannot hold
 // (H > 304, the TDAA classifier's H=600 among them), with each direction's
 // U held once in the blocks' shared memory. The stepwise body takes every
@@ -163,6 +165,12 @@ struct LstmFwdCell {
   // unit warps x 2 column warps split H <= 304 rows, 19 a lane: 57 floats,
   // the fastest of the tilings measured (PERF.md, PR 6)
   using Tiling = dl4ss::ResidentTiling<3, 4, 8, 2, 19>;
+  // the cluster body's two tilings: 19 units a block (76 outputs in 80
+  // slots, 4 a lane group, 5 unit warps: 76 floats a thread; 16 blocks a
+  // cluster at H=300) and 36 (6 a lane group, 6 unit warps: 114 floats a
+  // thread; 9 blocks a cluster at H=300)
+  using ClusterTiling19 = dl4ss::ResidentTiling<4, 4, 5, 2, 19, 19>;
+  using ClusterTiling36 = dl4ss::ResidentTiling<6, 4, 6, 2, 19, 36>;
   struct State {
     float c;
   };
@@ -181,13 +189,15 @@ struct LstmFwdCell {
 
 template <typename T>
 cudaError_t run(const void* xp, const void* wh, void* hs, void* cs, void* c,
-                void* tickets, int groups, int chunk, int steps, int D, int B,
-                int H, int body, cudaStream_t stream) {
+                void* tickets, int groups, int chunk, int units, int steps,
+                int D, int B, int H, int body, cudaStream_t stream) {
+  const dl4ss::FwdArgs args = {xp, wh, nullptr, hs, cs,
+                               static_cast<unsigned int*>(tickets), steps, D,
+                               B, H, 0, 0, 0};
   if (body == dl4ss::BODY_RESIDENT)
-    return dl4ss::fwd_chain<T, LstmFwdCell>(
-        {xp, wh, nullptr, hs, cs, static_cast<unsigned int*>(tickets), steps,
-         D, B, H, 0, 0, 0},
-        groups, chunk, stream);
+    return dl4ss::fwd_chain<T, LstmFwdCell>(args, groups, chunk, stream);
+  if (body == dl4ss::BODY_CLUSTER)
+    return dl4ss::fwd_cluster<T, LstmFwdCell>(args, units, stream);
   if (body == dl4ss::BODY_WIDE)
     return dl4ss::wide::fwd_chain<T, LstmFwdCell>(
         {xp, wh, hs, cs, static_cast<unsigned int*>(tickets), steps, D, B, H,
@@ -202,20 +212,29 @@ cudaError_t run(const void* xp, const void* wh, void* hs, void* cs, void* c,
 
 // xp (T, D, B, 4H) and wh (D, H, 4H) in f32, or both in bf16 (bf16 != 0);
 // hs, cs (T, D, B, H) in the input dtype. body: 1 resident, 2 stepwise, 3
-// wide; the resident and wide bodies return an error for a shape they
-// cannot hold. Resident: tickets = `groups` zeroed 32-bit counters, one per
-// direction and 4 batch rows (any other count is refused), and the batch
-// runs in chunks of `chunk` rows (a multiple of 4), one launch each. Wide:
-// tickets = `groups` = D zeroed counters, one launch; `chunk` is not read.
-// Stepwise: c (D, B, H) f32 scratch (the cell carry; it need not be
-// initialised). What a body does not use may be null.
+// wide, 4 cluster; the resident, wide and cluster bodies return an error for
+// a shape they cannot hold. Resident: tickets = `groups` zeroed 32-bit
+// counters, one per direction and 4 batch rows (any other count is
+// refused), and the batch runs in chunks of `chunk` rows (a multiple of 4),
+// one launch each. Wide: tickets = `groups` = D zeroed counters, one
+// launch; `chunk` is not read. Cluster: one launch, `units` hidden units a
+// block (19 or 36; any other count is refused). Stepwise: c (D, B, H) f32
+// scratch (the cell carry; it need not be initialised). What a body does
+// not use may be null.
 extern "C" int dl4ss_lstm_fwd(const void* xp, const void* wh, void* hs,
                               void* cs, void* c, void* tickets, int groups,
-                              int chunk, int steps, int D, int B, int H,
-                              int bf16, int body, void* stream) {
+                              int chunk, int units, int steps, int D, int B,
+                              int H, int bf16, int body, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? run<__nv_bfloat16>(xp, wh, hs, cs, c, tickets, groups, chunk,
-                                   steps, D, B, H, body, s)
-              : run<float>(xp, wh, hs, cs, c, tickets, groups, chunk, steps,
-                           D, B, H, body, s);
+                                   units, steps, D, B, H, body, s)
+              : run<float>(xp, wh, hs, cs, c, tickets, groups, chunk, units,
+                           steps, D, B, H, body, s);
+}
+
+// How many clusters of the cluster body, `units` hidden units a block at
+// width H, the card holds at once; minus a CUDA error code.
+extern "C" long long dl4ss_lstm_fwd_clusters(int bf16, int units, int H) {
+  return bf16 ? dl4ss::fwd_cluster_fit<__nv_bfloat16, LstmFwdCell>(units, H)
+              : dl4ss::fwd_cluster_fit<float, LstmFwdCell>(units, H);
 }

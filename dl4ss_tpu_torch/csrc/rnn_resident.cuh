@@ -21,16 +21,25 @@
 //     four groups read the same ones. A fixed xor butterfly adds the eight
 //     lanes and the caller adds the KS column warps in order, so each sum
 //     has one fixed order: deterministic, no atomics on data.
-//   * `group_arrive` / `group_wait`: the barrier between steps. The blocks
-//     that share a chain (one direction, one tile of RES_BT batch rows) form
-//     a group; groups never wait on each other. The barrier is a monotonic
-//     ticket in device memory, zeroed by the caller before the launch:
-//     arrive adds one after the block's stores, wait spins with an acquire
-//     load until `members * phase` tickets are in. It needs every block of
-//     the grid resident at once, so the kernel is launched with
+//   * `group_arrive` / `group_wait`: the ticket barrier between steps. The
+//     blocks that share a chain (one direction, one tile of RES_BT batch
+//     rows) form a group; groups never wait on each other. The ticket is a
+//     monotonic counter in device memory, zeroed by the caller before the
+//     launch: arrive adds one after the block's stores, wait spins with an
+//     acquire load until `members * phase` tickets are in. It needs every
+//     block of the grid resident at once, so the kernel is launched with
 //     cudaLaunchCooperativeKernel, which refuses a grid that is not.
 //     A value another block wrote in the same launch is read with
 //     `load_shared_result` (an L2 load: L1 may hold a stale line).
+//   * `Inbox`, `cluster_send`, `cluster_sync`: the other way to pass a
+//     group's vector on, where the group is one thread-block cluster (the
+//     forward's cluster body, rnn_fwd_common.cuh). A block pushes its part
+//     of the vector into every member's shared memory with `st.async`,
+//     whose arrival completes a transaction on the member's `mbarrier`; the
+//     member waits on its own barrier and reads the vector from its own
+//     shared memory. No step goes through L2 and no block waits for more
+//     than the bytes it needs. Only a cluster's blocks must be co-resident,
+//     which the hardware guarantees for every cluster it launches.
 //   * `tile_product` / `tile_mac`: a 64 x (NG * 32) register-tiled f32
 //     matrix product through shared memory (8 x NG outputs a thread, the A
 //     operand read as two 16-byte broadcasts, the next slice's loads in
@@ -56,20 +65,26 @@ constexpr int RES_LANES = 8;     // lanes that split an output's columns
 constexpr int RES_UNITS = 24;    // hidden units per block, both passes
 constexpr int RES_BT = 4;        // batch rows per barrier group (a float4)
 
-// How a block splits the weights of its RES_UNITS units: each unit has
+// How a block splits the weights of its UNITS hidden units (RES_UNITS but
+// in the forward's cluster body, whose blocks may hold more): each unit has
 // OUTS outputs (output o of the block is output o % OUTS of unit o / OUTS),
 // a lane group owns UW consecutive outputs, a warp four lane groups, UWARPS
 // unit warps cover the block's outputs, and KS column warps split the
-// columns, MAXI a lane: UW * MAXI floats a thread, up to COLS columns.
-template <int UW_, int OUTS_, int UWARPS_, int KS_, int MAXI_>
+// columns, MAXI a lane: UW * MAXI floats a thread, up to COLS columns. The
+// lane groups' SLOTS outputs may run past OUTPUTS in the last unit warp
+// (a width the factors of OUTPUTS cannot give): those slots hold zeros.
+template <int UW_, int OUTS_, int UWARPS_, int KS_, int MAXI_,
+          int UNITS_ = RES_UNITS>
 struct ResidentTiling {
   static constexpr int UW = UW_, OUTS = OUTS_, UWARPS = UWARPS_;
-  static constexpr int KS = KS_, MAXI = MAXI_;
-  static constexpr int OUTPUTS = RES_UNITS * OUTS;
+  static constexpr int KS = KS_, MAXI = MAXI_, UNITS = UNITS_;
+  static constexpr int OUTPUTS = UNITS * OUTS;
   static constexpr int THREADS = 32 * UWARPS * KS;
   static constexpr int COLS = RES_LANES * MAXI * KS;
-  static_assert(UWARPS * (32 / RES_LANES) * UW == OUTPUTS,
-                "the lane groups cover the block's outputs once");
+  static constexpr int SLOTS = UWARPS * (32 / RES_LANES) * UW;
+  static_assert(SLOTS >= OUTPUTS && SLOTS - OUTPUTS < (32 / RES_LANES) * UW,
+                "the lane groups cover the block's outputs once, and every "
+                "unit warp holds some");
   // the first output (within the block) of this thread's lane group
   __device__ static int lane_output(int warp, int lane) {
     return ((warp % UWARPS) * (32 / RES_LANES) + lane / RES_LANES) * UW;
@@ -104,6 +119,78 @@ __device__ __forceinline__ void group_wait(const unsigned int* ticket,
     }
   }
   __syncthreads();
+}
+
+// ---- the exchange of one cluster ------------------------------------------
+
+// A block's arrival barrier for one vector: an mbarrier in its shared memory
+// whose phase completes once its own thread has armed it with the bytes to
+// expect (`inbox_expect`) and the members' `cluster_send`s have delivered
+// them. The bytes may land before the arming: the transaction count then
+// runs below zero, and the phase still waits for the arming's arrival.
+struct alignas(8) Inbox {
+  unsigned long long bar;
+};
+
+__device__ __forceinline__ unsigned int shared_addr(const void* p) {
+  return static_cast<unsigned int>(__cvta_generic_to_shared(p));
+}
+
+// The address of `p` (this block's shared memory) in member `rank`'s.
+__device__ __forceinline__ unsigned int member_addr(const void* p,
+                                                    unsigned int rank) {
+  unsigned int out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(shared_addr(p)), "r"(rank));
+  return out;
+}
+
+// One thread, once, before `cluster_sync` makes it visible to the members.
+__device__ __forceinline__ void inbox_init(Inbox* in) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(shared_addr(&in->bar)) : "memory");
+}
+__device__ __forceinline__ void inbox_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// One thread of the receiving block, once per phase, after the phase before
+// has completed.
+__device__ __forceinline__ void inbox_expect(Inbox* in, unsigned int bytes) {
+  asm volatile(
+      "{\n .reg .b64 state;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}"
+      :: "r"(shared_addr(&in->bar)), "r"(bytes) : "memory");
+}
+
+// Every thread that reads the vector: returns once the phase of `parity`
+// has completed, the members' bytes then visible to the caller.
+__device__ __forceinline__ void inbox_wait(Inbox* in, unsigned int parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n"
+      "WAIT:\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0],"
+      " %1;\n"
+      " @!done bra WAIT;\n}"
+      :: "r"(shared_addr(&in->bar)), "r"(parity) : "memory");
+}
+
+// Store v at `dst` (this block's shared memory) in member `rank`, and count
+// its 16 bytes on that member's `in`.
+__device__ __forceinline__ void cluster_send(float4* dst, float4 v, Inbox* in,
+                                             unsigned int rank) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];"
+      :: "r"(member_addr(dst, rank)), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w),
+         "r"(member_addr(&in->bar, rank))
+      : "memory");
+}
+
+// The cluster's own barrier: every thread of every member.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // A value that another block of the launch wrote: read at L2, never L1.

@@ -49,13 +49,13 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # is appended as a pointer; every function returns an int error code.
 SIGNATURES = {
     "stft_features": "ppppppppiiiiiiii",
-    "gru_fwd": "pppppiiiiiiii",
+    "gru_fwd": "pppppiiiiiiiii",
     "maskhead_fwd": "pppppiiiiiii",
     "maskhead_pack": "ppiiii",       # K3's weight layout, once per W version
     "masked_istft": "ppppppppiiiiiiiii",
     "gru_bwd": "ppppppppppppppiiiiiiiii",
     "maskhead_bwd": "ppppppppppiiiiii",
-    "lstm_fwd": "ppppppiiiiiiii",
+    "lstm_fwd": "ppppppiiiiiiiii",
     "lstm_bwd": "pppppppppppppiiiiiiiii",
     "stft_ri": "ppppppiiiiiii",
     "istft_ri": "ppppppiiiiiii",
@@ -71,7 +71,8 @@ TRAINING_KERNELS = ("stft_features", "gru_fwd", "maskhead_fwd", "gru_bwd",
 SELECTION_KERNELS = (*SERVING_KERNELS, "lstm_fwd")
 CLASSIFIER_KERNELS = ("stft_features", "lstm_fwd", "lstm_bwd")
 # Plain C queries (no launch, no stream): ints in, a 64-bit count out.
-QUERIES = {"maskhead_packed_size": "iii", "maskhead_bwd_partials": "iiiiii"}
+QUERIES = {"maskhead_packed_size": "iii", "maskhead_bwd_partials": "iiiiii",
+           "gru_fwd_clusters": "iii", "lstm_fwd_clusters": "iii"}
 
 LAUNCHES: collections.Counter = collections.Counter()
 # Every launch counter: LAUNCHES and the BODY_LAUNCHES of the kernel modules

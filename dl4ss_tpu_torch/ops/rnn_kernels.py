@@ -15,28 +15,32 @@ and the time order is the caller's (the reverse direction is flipped
 outside), so D only sizes the grid, the tickets and the rows a resident
 launch holds.
 
-All four kernels have two bodies each, and K7 a third. The resident one
-walks the whole chain of T steps in ONE persistent cooperative launch (per
-chunk of batch rows) with each block's slice of U in registers: the
-forward's (csrc/rnn_fwd_common.cuh) holds the gate columns of its units,
-the backward's (csrc/rnn_bwd_common.cuh) their rows, after the gate
-recompute for all steps at once and before a split dU reduction. The
-stepwise one launches a kernel per step. K7's wide body
+All four kernels have two bodies each, the forwards a third (cluster) and
+K7 a fourth (wide). The resident one walks the whole chain of T steps in ONE persistent cooperative
+launch (per chunk of batch rows) with each block's slice of U in registers
+and a ticket barrier in device memory between the steps: the forward's
+(csrc/rnn_fwd_common.cuh) holds the gate columns of its units, the
+backward's (csrc/rnn_bwd_common.cuh) their rows, after the gate recompute
+for all steps at once and before a split dU reduction. The stepwise one
+launches a kernel per step. The forward's cluster body is the resident
+chain with each barrier group one thread-block cluster, h passed through
+distributed shared memory, in one launch. K7's wide body
 (csrc/rnn_fwd_wide.cuh) is one persistent launch for the widths past the
 registers, with each direction's U held once in the blocks' shared memory
 for all batch rows. `rnn_body` is the only rule that picks between them,
-from the shape alone, for both passes; the launch names the body to the
-library, which refuses the resident and wide bodies where they cannot
-run. The backward's resident arithmetic, which runs only on the card, has
-plain-torch mirrors here (`gru_bwd_resident_mirror`,
-`lstm_bwd_resident_mirror`) for the CPU tests; the forward's is the plain
-loop's, summed in another order.
+from the shape and the card's occupancy answer, for both passes; the launch
+names the body to the library, which refuses the resident, cluster and
+wide bodies where they cannot run. The backward's resident arithmetic,
+which runs only on the card, has plain-torch mirrors here
+(`gru_bwd_resident_mirror`, `lstm_bwd_resident_mirror`) for the CPU tests;
+the forward's is the plain loop's, summed in another order.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Optional, Tuple
+import functools
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -56,7 +60,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # RESIDENT_ROWS and DU_SPLIT size scratch, so the launch passes the sizes it
 # allocated and the library refuses any but its own.
 BODY_RESIDENT, BODY_STEPWISE, BODY_WIDE = "resident", "stepwise", "wide"
-_BODY_CODES = {BODY_RESIDENT: 1, BODY_STEPWISE: 2, BODY_WIDE: 3}
+BODY_CLUSTER = "cluster"
+_BODY_CODES = {BODY_RESIDENT: 1, BODY_STEPWISE: 2, BODY_WIDE: 3,
+               BODY_CLUSTER: 4}
 RESIDENT_MAX_HIDDEN = 304
 RESIDENT_UNITS = 24
 RESIDENT_ROWS = 4
@@ -82,6 +88,15 @@ WIDE_TILE_ROWS = 4
 WIDE_THREADS = 256
 SMEM_PER_BLOCK = 232448
 WIDE_MAX_BATCH = 48
+# The forward's cluster body (csrc/rnn_fwd_common.cuh): one cluster of
+# ceil(H / units) blocks per barrier group, in one launch, at one of two
+# tilings, by hidden units a block: 19 (16 blocks at H=300) and 36 (9
+# blocks). The rule takes the first whose clusters the card holds all at
+# once, by its occupancy query (`forward_clusters`): on an H100 7 clusters
+# of 16 and 9 of 9, so up to B=12 (6 groups of both directions) a launch
+# takes 16 blocks a cluster and B=16's 8 groups take 9. The library refuses
+# any other count.
+CLUSTER_UNITS = (19, 36)
 # Launches of K2, K5, K7 and K8 by the body that ran, keyed (kernel name,
 # body); cuda_lib.LAUNCHES counts both bodies under the kernel's name.
 BODY_LAUNCHES: collections.Counter = collections.Counter()
@@ -130,23 +145,43 @@ def wide_smem_bytes(hidden: int, batch: int) -> int:
         tr * _ceil_div(batch, tr) * (kq | 1), 2 * tr * WIDE_THREADS))
 
 
+def cluster_units(hidden: int, batch: int, directions: int = 2,
+                  clusters: Optional[Mapping[int, int]] = None) -> int:
+    """The hidden units a block of the forward's cluster body for this
+    launch: the first of CLUSTER_UNITS at which the card holds all its
+    D * ceil(B / 4) clusters at once, `clusters` mapping units to the
+    occupancy answer (how many clusters of that tiling fit the card at
+    once, `forward_clusters`); 0 past H=304 or where none fits."""
+    if hidden > RESIDENT_MAX_HIDDEN or not clusters:
+        return 0
+    groups = resident_groups(batch, directions)
+    return next((u for u in CLUSTER_UNITS if groups <= clusters.get(u, 0)),
+                0)
+
+
 def rnn_body(hidden: int, batch: int, directions: int = 2,
              sms: int = H100_SMS, backward: bool = False,
-             gates: int = 4) -> str:
+             gates: int = 4,
+             clusters: Optional[Mapping[int, int]] = None) -> str:
     """The shape rule of K2 and K7 (forward) and K5 and K8 (`backward`) on
-    the card: the resident body where a block's slice of U fits its
-    registers (H <= 304) and the batch takes at most the pass's
-    RESIDENT_MAX_CHUNKS launches of the grid that fits the card's `sms` SMs
-    at once (at H=300 on 132 SMs 20 rows a launch: the forward's resident
-    body up to B=40, the backward's up to B=140). Past H=304, K7's forward
+    the card: a forward takes the cluster body where a block's slice of U
+    fits its registers (H <= 304) and the card holds all the launch's
+    clusters at once at one of CLUSTER_UNITS (`clusters`, the occupancy
+    answer: `cluster_units`). Otherwise, the resident body where H <= 304
+    and the batch takes at most the pass's RESIDENT_MAX_CHUNKS launches of
+    the grid that fits the card's `sms` SMs at once (at H=300 on 132 SMs
+    20 rows a launch: the forward's resident body up to B=40, the
+    backward's up to B=140). Past H=304, K7's forward
     (`gates` 4; K2 passes 3) takes the wide body where its D *
     ceil(H / WIDE_UNITS) blocks fit the `sms` SMs (H <= 660 for both
     directions on 132), a block fits SMEM_PER_BLOCK (at H=660 up to B=48)
     and B <= WIDE_MAX_BATCH. Every other shape, every backward
     past H=304 among them, takes the stepwise body. The dtype does not
     enter: U is held in f32 either way. The launch is told the body by
-    name; the library only refuses the resident or wide body on a shape it
-    cannot take."""
+    name; the library only refuses the resident, cluster or wide body on a
+    shape it cannot take."""
+    if not backward and cluster_units(hidden, batch, directions, clusters):
+        return BODY_CLUSTER
     if hidden <= RESIDENT_MAX_HIDDEN:
         chunks = resident_chunks(batch, hidden, directions, sms)
         most = RESIDENT_MAX_CHUNKS["backward" if backward else "forward"]
@@ -160,6 +195,62 @@ def rnn_body(hidden: int, batch: int, directions: int = 2,
 
 def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_fit(index: int, name: str, bf16: int, hidden: int):
+    fits = {}
+    with torch.cuda.device(index):
+        for units in CLUSTER_UNITS:
+            n = cuda_lib.query(name + "_clusters", bf16, units, hidden)
+            if n < 0:
+                msg = cuda_lib.library().dll.dl4ss_error_string(-n).decode()
+                raise RuntimeError(f"{name}: the occupancy query of the "
+                                   f"cluster body failed: {msg} (error {-n})")
+            fits[units] = n
+    return fits
+
+
+def forward_clusters(dev, name: str, dtype, hidden: int) -> Mapping[int, int]:
+    """The occupancy answer for K2 (`name` "gru_fwd") or K7 ("lstm_fwd") at
+    width `hidden` in `dtype` on the card `dev`: {units: how many clusters
+    of the cluster body at that tiling the card holds at once}, from
+    cudaOccupancyMaxActiveClusters on the kernel's own registers, threads
+    and shared memory; cached per device. Empty past H=304."""
+    if hidden > RESIDENT_MAX_HIDDEN:
+        return {}
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _cluster_fit(index, name, int(dtype == torch.bfloat16), hidden)
+
+
+def default_body(dev, name: str, dtype, hidden: int, batch: int,
+                 directions: int = 2) -> str:
+    """The body a call of K2, K5, K7 or K8 (`name`: "gru_fwd", "gru_bwd",
+    "lstm_fwd", "lstm_bwd") on the card `dev` runs unless told one:
+    `rnn_body` with the card's SM count and, for a forward, its occupancy
+    answer."""
+    backward = name.endswith("_bwd")
+    return rnn_body(hidden, batch, directions, _sms(dev), backward=backward,
+                    gates=3 if name.startswith("gru") else 4,
+                    clusters=None if backward else forward_clusters(
+                        dev, name, dtype, hidden))
+
+
+def _forward_launch(name: str, dev, dtype, hidden: int, batch: int,
+                    directions: int, body: Optional[str]):
+    """The forward's body (`body`, else the rule's) and its scratch: the
+    tickets, their count and the rows a launch of the resident body, or
+    the units a block of the cluster body."""
+    chosen = body or default_body(dev, name, dtype, hidden, batch,
+                                  directions)
+    tickets = groups = chunk = units = 0
+    if chosen == BODY_CLUSTER:
+        units = (cluster_units(hidden, batch, directions, forward_clusters(
+            dev, name, dtype, hidden)) or CLUSTER_UNITS[-1])
+    elif chosen == BODY_RESIDENT:
+        tickets, groups, chunk = _resident_scratch(dev, hidden, batch,
+                                                   directions)
+    return chosen, tickets, groups, chunk, units
 
 
 def _resident_scratch(dev, hidden: int, batch: int, directions: int):
@@ -223,10 +314,12 @@ def gru_scan_plain(xp: torch.Tensor, wh: torch.Tensor, bh_n: torch.Tensor
 def gru_scan_cuda(xp: torch.Tensor, wh: torch.Tensor, bh_n: torch.Tensor,
                   body: Optional[str] = None) -> torch.Tensor:
     """K2 on the card: csrc/gru_fwd.cu, one ctypes call per layer on the
-    current stream. The resident body makes one persistent launch for all
-    steps (per chunk of rows); the stepwise body one launch per step.
-    `body` forces one of the two for a check or a timing; by default
-    `rnn_body` names it from the shape. Same contract as `gru_scan_plain`."""
+    current stream. The cluster body makes one persistent launch for all
+    steps; the resident body one per chunk of rows; the stepwise body one
+    launch per step. `body` forces one for a check or a timing (a forced
+    cluster body whose clusters do not all fit runs at CLUSTER_UNITS[-1]);
+    by default `rnn_body` names it from the shape and the card's occupancy
+    answer. Same contract as `gru_scan_plain`."""
     t, d, b, g3 = xp.shape
     if g3 % 3:
         raise ValueError(f"xp's last axis must be 3H, got {g3}")
@@ -235,13 +328,11 @@ def gru_scan_cuda(xp: torch.Tensor, wh: torch.Tensor, bh_n: torch.Tensor,
     cuda_lib.check(wh, "wh", (xp.dtype,), (d, hidden, g3))
     cuda_lib.check(bh_n, "bh_n", (torch.float32,), (d, 1, hidden))
     dev = xp.device
-    chosen = body or rnn_body(hidden, b, d, _sms(dev), gates=3)
+    chosen, tickets, groups, chunk, units = _forward_launch(
+        "gru_fwd", dev, xp.dtype, hidden, b, d, body)
     hs = torch.empty((t, d, b, hidden), dtype=xp.dtype, device=dev)
-    tickets = groups = chunk = 0
-    if chosen != BODY_STEPWISE:
-        tickets, groups, chunk = _resident_scratch(dev, hidden, b, d)
     cuda_lib.launch("gru_fwd", dev, xp, wh, bh_n, hs, tickets, groups, chunk,
-                    t, d, b, hidden, int(xp.dtype == torch.bfloat16),
+                    units, t, d, b, hidden, int(xp.dtype == torch.bfloat16),
                     _BODY_CODES[chosen])
     BODY_LAUNCHES["gru_fwd", chosen] += 1
     return hs
@@ -467,26 +558,26 @@ def lstm_scan_cuda(xp: torch.Tensor, wh: torch.Tensor,
                    body: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7 on the card: csrc/lstm_fwd.cu, one ctypes call per layer, with
-    the two bodies of `gru_scan_cuda` and the wide one, one launch with a
+    the three bodies of `gru_scan_cuda` and the wide one, one launch with a
     ticket per direction (`body` forces one; by default `rnn_body` names it
-    from the shape). Returns (hs, cs) as `lstm_scan_plain`."""
+    from the shape and the card's occupancy answer). Returns (hs, cs) as
+    `lstm_scan_plain`."""
     t, d, b, hidden = _lstm_shape(xp)
     cuda_lib.check(xp, "xp", _DTYPES)
     cuda_lib.check(wh, "wh", (xp.dtype,), (d, hidden, 4 * hidden))
     dev = xp.device
-    chosen = body or rnn_body(hidden, b, d, _sms(dev))
+    chosen, tickets, groups, chunk, units = _forward_launch(
+        "lstm_fwd", dev, xp.dtype, hidden, b, d, body)
     hs = torch.empty((t, d, b, hidden), dtype=xp.dtype, device=dev)
     cs = torch.empty_like(hs)
-    carry = tickets = groups = chunk = 0
+    carry = 0
     if chosen == BODY_WIDE:
         tickets, groups = torch.zeros(d, dtype=torch.int32, device=dev), d
-    elif chosen != BODY_STEPWISE:
-        tickets, groups, chunk = _resident_scratch(dev, hidden, b, d)
-    else:
+    elif chosen == BODY_STEPWISE:
         carry = torch.empty((d, b, hidden), dtype=torch.float32, device=dev)
     cuda_lib.launch("lstm_fwd", dev, xp, wh, hs, cs, carry, tickets, groups,
-                    chunk, t, d, b, hidden, int(xp.dtype == torch.bfloat16),
-                    _BODY_CODES[chosen])
+                    chunk, units, t, d, b, hidden,
+                    int(xp.dtype == torch.bfloat16), _BODY_CODES[chosen])
     BODY_LAUNCHES["lstm_fwd", chosen] += 1
     return hs, cs
 

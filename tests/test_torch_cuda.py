@@ -339,26 +339,29 @@ def _rel(a, b):
 def _check_bodies(k, name, cuda, plain, args, h, tol, body, outs,
                   rtol=None):
     """One body of K2, K5, K7 or K8 against the plain version. The resident
-    body must refuse a width its registers cannot hold (H > 304), the wide
-    body every kernel but K7, and nothing may fall back: no launch is
-    counted; a batch past one launch's grid the resident body walks in
-    chunks. The stepwise body takes every shape that fits its shared
-    memory, the wide body every K7 shape the card holds (forced below
-    H=305 too). The resident and wide bodies are also held to the stepwise
-    one, and two back-to-back calls on one stream must agree bit for bit:
-    that guards the barrier's tickets, which each call gets zeroed. `rtol`
-    defaults to `tol`."""
+    and cluster bodies must refuse a width their registers cannot hold
+    (H > 304), the wide body every kernel but K7, the cluster body every
+    backward, and nothing may fall back: no launch is counted; a batch past
+    one launch's grid the resident body walks in chunks, the cluster body
+    in waves of clusters. The stepwise body takes every shape that fits its
+    shared memory, the wide body every K7 shape the card holds (forced below
+    H=305 too). The resident, cluster and wide bodies are also held to the
+    stepwise one, the cluster body bit for bit to the resident one (the
+    same column split), and two back-to-back calls on one stream must agree
+    bit for bit: that guards the barrier's tickets, which each call gets
+    zeroed, and the cluster body's inboxes. `rtol` defaults to `tol`."""
     from dl4ss_tpu_torch.ops import cuda_lib
     rtol = tol if rtol is None else rtol
-    sms = torch.cuda.get_device_properties(args[0].device)
-    rule = k.rnn_body(h, args[0].shape[2], args[0].shape[1],
-                      sms=sms.multi_processor_count,
-                      backward=name.endswith("_bwd"),
-                      gates=3 if name.startswith("gru") else 4)
-    if ((body == "resident" and h > k.RESIDENT_MAX_HIDDEN)
-            or (body == "wide" and name != "lstm_fwd")):
+    backward = name.endswith("_bwd")
+    rule = k.default_body(args[0].device, name, args[0].dtype, h,
+                          args[0].shape[2], args[0].shape[1])
+    if ((body in ("resident", "cluster") and h > k.RESIDENT_MAX_HIDDEN)
+            or (body == "wide" and name != "lstm_fwd")
+            or (body == "cluster" and backward)):
         if h > k.RESIDENT_MAX_HIDDEN:
             assert rule == ("wide" if name == "lstm_fwd" else "stepwise")
+        elif backward:
+            assert rule in ("resident", "stepwise")
         before = dict(k.BODY_LAUNCHES), dict(cuda_lib.LAUNCHES)
         with pytest.raises(RuntimeError, match=f"{name} failed"):
             cuda(*args, body=body)
@@ -378,12 +381,15 @@ def _check_bodies(k, name, cuda, plain, args, h, tol, body, outs,
         assert g.shape == r.shape and g.dtype == r.dtype, what
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=rtol,
                                    msg=what)
-    if body in ("resident", "wide"):
+    if body in ("resident", "wide", "cluster"):
         for what, g, g2, r in zip(outs, got, outputs(cuda, body=body),
                                   outputs(cuda, body="stepwise")):
             assert torch.equal(g, g2), what
             torch.testing.assert_close(g.float(), r.float(), atol=tol,
                                        rtol=rtol, msg=what)
+    if body == "cluster":
+        for what, g, r in zip(outs, got, outputs(cuda, body="resident")):
+            assert torch.equal(g, r), what
 
 
 # (t, b, h): B=21 and 32 at H=300 walk the resident body in two launches of
@@ -397,12 +403,13 @@ FWD_SHAPES = [(7, 1, 37), (6, 16, 37), (5, 21, 37), (4, 32, 37),
 @pytest.mark.parametrize("t,b,h", FWD_SHAPES + [(3, 5, 600)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("body", ["resident", "stepwise"])
+@pytest.mark.parametrize("body", ["resident", "stepwise", "cluster"])
 def test_k2_gru_fwd_bodies(dev, t, b, h, dtype, tol, body):
-    """K2, both bodies, against its plain version. f32: summation order
-    only (1e-4). bf16: h is carried in bf16, so an order difference can
-    flip one rounding and carry it on through the steps (2e-2, the repo's
-    bar for bf16 forward kernels). H=600 is past the resident body."""
+    """K2, all three bodies, against its plain version. f32: summation
+    order only (1e-4). bf16: h is carried in bf16, so an order difference
+    can flip one rounding and carry it on through the steps (2e-2, the
+    repo's bar for bf16 forward kernels). H=600 is past the resident and
+    cluster bodies."""
     from dl4ss_tpu_torch.ops import rnn_kernels as k
     rng = np.random.default_rng(16)
     s = 1 / np.sqrt(h)
@@ -424,11 +431,12 @@ WIDE_SHAPES = [(3, 1, 600), (3, 5, 600), (3, 16, 600), (2, 48, 600),
 @pytest.mark.parametrize("t,b,h", FWD_SHAPES + WIDE_SHAPES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("body", ["resident", "stepwise", "wide"])
+@pytest.mark.parametrize("body", ["resident", "stepwise", "wide", "cluster"])
 def test_k7_lstm_fwd_bodies(dev, t, b, h, dtype, tol, body):
-    """K7, all three bodies, hs and cs against its plain version;
-    tolerances as for K2. Past H=304 the resident body refuses and the rule
-    names the wide one; below it the wide body runs when forced."""
+    """K7, all four bodies, hs and cs against its plain version;
+    tolerances as for K2. Past H=304 the resident and cluster bodies refuse
+    and the rule names the wide one; below it the wide body runs when
+    forced."""
     from dl4ss_tpu_torch.ops import rnn_kernels as k
     rng = np.random.default_rng(17)
     s = 1 / np.sqrt(h)
@@ -446,7 +454,7 @@ def test_k7_lstm_fwd_bodies(dev, t, b, h, dtype, tol, body):
     (cell, *shape) for cell in ("gru", "lstm")
     for shape in ((7, 1, 37), (5, 17, 300), (3, 44, 300))]
     + [("lstm", 3, 16, 600)])
-@pytest.mark.parametrize("body", ["resident", "stepwise", "wide"])
+@pytest.mark.parametrize("body", ["resident", "stepwise", "wide", "cluster"])
 def test_one_direction_kernels(dev, t, b, h, cell, body):
     """K2 and K5 (GRU) or K7 and K8 (LSTM) with D = 1, the layout of a
     one-direction layer, every body, against the plain versions in f32
@@ -480,19 +488,74 @@ def test_one_direction_kernels(dev, t, b, h, cell, body):
 
 
 def test_k2_k7_refuse_a_drifted_ticket_count(dev, monkeypatch):
-    """The forward wrappers size the tickets from their own copy of the
-    rows per barrier group: a copy that has drifted is refused."""
+    """The forward wrappers size the ticket body's tickets from their own
+    copy of the rows per barrier group: a copy that has drifted is
+    refused."""
     from dl4ss_tpu_torch.ops import rnn_kernels as k
     xp = torch.zeros((2, 2, 5, 24), device=dev)
     wh = torch.zeros((2, 8, 24), device=dev)
-    k.gru_scan_cuda(xp, wh, torch.zeros((2, 1, 8), device=dev))
+    k.gru_scan_cuda(xp, wh, torch.zeros((2, 1, 8), device=dev),
+                    body="resident")
     monkeypatch.setattr(k, "RESIDENT_ROWS", 8)
     with pytest.raises(RuntimeError, match="gru_fwd failed"):
-        k.gru_scan_cuda(xp, wh, torch.zeros((2, 1, 8), device=dev))
+        k.gru_scan_cuda(xp, wh, torch.zeros((2, 1, 8), device=dev),
+                        body="resident")
     with pytest.raises(RuntimeError, match="lstm_fwd failed"):
         k.lstm_scan_cuda(torch.zeros((2, 2, 5, 32), device=dev),
-                         torch.zeros((2, 8, 32), device=dev))
+                         torch.zeros((2, 8, 32), device=dev),
+                         body="resident")
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["gru_fwd", "lstm_fwd"])
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_k2_k7_cluster_body_at_the_path_shapes(dev, name, b, dtype, tol):
+    """The cluster body at the paths' shape (T=313, H=300) and batches: a
+    serving request (B=1), 4 rows (one row tile) and B=16 (the training
+    step and the TDAA serving batch). On the card the rule names it (every
+    cluster of the launch fits at once: 16 blocks a cluster up to B=12, 9
+    from there to B=16 on an H100) and counts one launch of it a layer; it
+    holds the plain version to the bars of the other bodies, equals the
+    ticket body bit for bit (the same column split and order), two calls
+    equal each other, and a CUDA graph's replay equals the eager call."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    rng = np.random.default_rng(19)
+    t, h = 313, 300
+    gates = 3 if name == "gru_fwd" else 4
+    s = 1 / np.sqrt(h)
+    args = (_t(0.5 * rng.standard_normal((t, 2, b, gates * h)), dev, dtype),
+            _t(rng.uniform(-s, s, (2, h, gates * h)), dev, dtype))
+    if name == "gru_fwd":
+        args += (_t(rng.uniform(-s, s, (2, 1, h)), dev),)
+    cuda, plain = ((k.gru_scan_cuda, k.gru_scan_plain) if name == "gru_fwd"
+                   else (k.lstm_scan_cuda, k.lstm_scan_plain))
+
+    def outputs(fn, **kw):
+        res = fn(*args, **kw)
+        return (res,) if isinstance(res, torch.Tensor) else tuple(res)
+    assert k.default_body(dev, name, dtype, h, b) == "cluster"
+    before = k.BODY_LAUNCHES[name, "cluster"]
+    got = outputs(cuda)
+    assert k.BODY_LAUNCHES[name, "cluster"] == before + 1
+    for g, r in zip(got, outputs(plain)):
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=0)
+    for g, r, again in zip(got, outputs(cuda, body="resident"),
+                           outputs(cuda)):
+        assert torch.equal(g, r) and torch.equal(g, again)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outputs(cuda)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = outputs(cuda)
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, c in zip(got, captured):
+        assert torch.equal(g, c)
 
 
 # (4, 24, 300): 2 * 6 groups of 13 blocks are more than the card's SMs, so

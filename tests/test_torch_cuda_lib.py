@@ -58,3 +58,16 @@ def test_inverse_fft_rule_matches_the_library():
     assert int(cap.group(1)) == k.ISTFT_FFT_MAX_RATIO
     assert (f"L >= {k.FFT_MIN_LENGTH} && L <= {k.FFT_MAX_LENGTH}"
             in text.split("inline bool istft_fft_takes")[1].split("}")[0])
+
+
+def test_cluster_tilings_match_the_library():
+    """`CLUSTER_UNITS` names the hidden units a block of the forward's two
+    cluster tilings, as csrc sizes them: ClusterTiling19 and
+    ClusterTiling36, in K2 and K7 alike."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    for src in ("gru_fwd.cu", "lstm_fwd.cu"):
+        text = (cuda_lib.CSRC / src).read_text()
+        units = tuple(int(u) for u in re.findall(
+            r"using ClusterTiling(\d+) = dl4ss::ResidentTiling<"
+            r"\d+, \d+, \d+, \d+, \d+, \1>;", text))
+        assert units == k.CLUSTER_UNITS, src

@@ -1,13 +1,14 @@
 """The recurrent forward kernels K2 and K7 and their shape rule, on the CPU.
 
-Both bodies of each forward kernel (csrc/rnn_fwd_common.cuh's resident
-chain, and the step kernel per time step) run only on the card; they compute
-the plain loop's arithmetic in another summation order. Here the routes a
-user calls (`gru_scan`, `lstm_scan`, which take the plain versions on CPU
-tensors) are held to the JAX kernels (`pallas_gru_scan`, `pallas_lstm_scan`
-in interpret mode) at batches that cross a chunk of the resident body and a
-ragged row tile, and the rule `rnn_body` and its chunk plan to the shapes
-the main paths and the card tests use.
+The bodies of each forward kernel (csrc/rnn_fwd_common.cuh's chain, with
+the ticket or one cluster per barrier group, and the step kernel per time
+step) run only on the card; they compute the plain loop's arithmetic in
+another summation order. Here the routes a user calls (`gru_scan`,
+`lstm_scan`, which take the plain versions on CPU tensors) are held to the
+JAX kernels (`pallas_gru_scan`, `pallas_lstm_scan` in interpret mode) at
+batches that cross a chunk of the resident body and a ragged row tile, and
+the rule `rnn_body`, with the card's occupancy answer passed in, and its
+chunk plan to the shapes the main paths and the card tests use.
 """
 
 import jax.numpy as jnp
@@ -152,3 +153,65 @@ def test_wide_body_takes_the_sm_count_and_directions():
     # 2,048 float4 of partial sums
     assert k.wide_smem_bytes(600, 16) == 16 * (6000 + 16 * 151) == 134656
     assert k.wide_smem_bytes(600, 1) == 16 * (6000 + 2048)
+
+
+# the occupancy answer of an NVIDIA H100 80GB HBM3 at H=300 (and any H from
+# 289 to 304): cudaOccupancyMaxActiveClusters gives 7 clusters of 16 blocks
+# of 19 units and 9 of 9 blocks of 36, for K2 and K7, f32 and bf16 alike
+H100_CLUSTERS = {19: 7, 36: 9}
+
+
+@pytest.mark.parametrize("hidden,batch,directions,units", [
+    (300, 1, 2, 19), (300, 4, 2, 19), (300, 12, 2, 19), (300, 13, 2, 36),
+    (300, 16, 2, 36), (300, 17, 2, 0), (300, 20, 2, 0), (300, 32, 2, 0),
+    (300, 28, 1, 19), (300, 36, 1, 36), (300, 37, 1, 0), (304, 16, 2, 36),
+    (305, 1, 2, 0), (600, 16, 2, 0)])
+def test_rnn_body_names_the_cluster_body_where_its_clusters_all_fit(
+        hidden, batch, directions, units):
+    """A forward at H <= 304 takes the cluster body at the first tiling
+    (19 units a block, then 36) whose D * ceil(B / 4) clusters the card
+    holds at once, by the occupancy answer passed in: on an H100 16-block
+    clusters up to 7 groups (B <= 12 both ways), 9-block ones up to 9
+    (B=16, the training and TDAA serving batch). Where none fits, the
+    forward keeps the body it has without the answer (resident, wide or
+    stepwise); a backward never takes it."""
+    assert k.cluster_units(hidden, batch, directions, H100_CLUSTERS) == units
+    for gates in (3, 4):
+        without = k.rnn_body(hidden, batch, directions, gates=gates)
+        assert k.rnn_body(hidden, batch, directions, gates=gates,
+                          clusters=H100_CLUSTERS) == (
+            "cluster" if units else without)
+        assert k.rnn_body(hidden, batch, directions, gates=gates,
+                          backward=True, clusters=H100_CLUSTERS) == \
+            k.rnn_body(hidden, batch, directions, gates=gates, backward=True)
+    if (hidden, batch, directions) in {(300, 17, 2), (300, 20, 2),
+                                       (300, 32, 2)}:
+        assert without == "resident"
+    if hidden == 600:
+        assert k.rnn_body(600, batch, gates=4,
+                          clusters=H100_CLUSTERS) == "wide"
+
+
+def test_rnn_body_takes_the_occupancy_answer_from_its_argument():
+    """The rule follows the answer it is given: none (the default) or one
+    that holds fewer clusters than the launch's groups keeps the ticket body;
+    past the bodies a batch stays stepwise whatever the answer."""
+    assert k.rnn_body(300, 1) == "resident"
+    assert k.rnn_body(300, 1, clusters={}) == "resident"
+    assert k.rnn_body(300, 1, clusters={19: 1, 36: 1}) == "resident"
+    assert k.cluster_units(300, 1, 2, {19: 2}) == 19
+    assert k.cluster_units(300, 1, 2, {19: 1, 36: 2}) == 36
+    assert k.rnn_body(300, 1, directions=1, clusters={19: 1}) == "cluster"
+    assert k.rnn_body(300, 128, clusters=H100_CLUSTERS) == "stepwise"
+    assert k.rnn_body(300, 128, clusters={19: 64}) == "cluster"
+    assert k.rnn_body(600, 64, gates=4, clusters=H100_CLUSTERS) == "stepwise"
+    assert k.rnn_body(300, 16, backward=True,
+                      clusters={19: 100, 36: 100}) == "resident"
+
+
+def test_forward_clusters_past_the_registers_asks_no_card():
+    """Past H=304 there is no cluster body, so the occupancy answer is
+    empty without a query (here, on a machine without a card)."""
+    assert k.forward_clusters(torch.device("cpu"), "lstm_fwd",
+                              torch.float32, 600) == {}
+    assert k.CLUSTER_UNITS == (19, 36)
