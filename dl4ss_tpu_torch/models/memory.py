@@ -22,7 +22,9 @@ gradient to the incoming vectors. Duplicate speaker ids in one batch
 accumulate, as JAX's `.at[].add` does; the rows are summed as a one-hot
 (B, S) product, not by `index_add_`, whose CUDA atomics would add the
 duplicates in another order on every run (a resumed run must equal an
-unbroken one bit for bit). Under data parallelism (parallel/mesh.py) each
+unbroken one bit for bit). The write counts are the one-hot's column
+sums, not `bincount`, which on the card reads the largest id back to the
+host to size its output. Under data parallelism (parallel/mesh.py) each
 rank holds a share of the batch: the product and the write counts are
 summed over the data group, so that a speaker whose utterances fall on
 two ranks gets both contributions, as in the global batch.
@@ -91,6 +93,8 @@ def memory_write_slot(state: MemorySlots, spk_idx: torch.Tensor,
 
     old = state.vectors[:, slot, :]
     onehot = _one_hot(spk_idx, old.shape[0], old.dtype)
+    # writes per row, exact in float32 up to 2^24 rows of a batch
+    counts = batch_sum(onehot.sum(dim=0))
     if mode == "keras":
         incoming = vec / _safe_l2(vec)
         new = old + batch_sum(onehot.t() @ incoming)
@@ -101,12 +105,9 @@ def memory_write_slot(state: MemorySlots, spk_idx: torch.Tensor,
         new = torch.where(norm > 0, summed / torch.clamp(norm, min=1e-12),
                           summed)
         # only touched rows renormalize in the reference
-        touched = batch_sum(onehot.sum(dim=0)) > 0
-        new = torch.where(touched[:, None], new, old)
+        new = torch.where((counts > 0)[:, None], new, old)
     else:
         raise ValueError(f"unknown memory mode {mode!r}")
-    counts = batch_sum(torch.bincount(spk_idx.long(),
-                                      minlength=old.shape[0]))
     age = state.age.clone()
     age[:, slot] += counts.to(age.dtype)
     return MemorySlots(_with_slot(state.vectors, slot, new), age)

@@ -72,7 +72,9 @@ def apply_speech_query(params: SpeechQuery, clean_feat: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
                        kernels: bool = False) -> torch.Tensor:
     """clean features (B, T, F) -> voiceprint (B, 2 * (E // 2))."""
-    return masked_mean_pool(query_rnn(params.rnn, clean_feat, kernels), mask)
+    with span("voiceprint"):
+        return masked_mean_pool(query_rnn(params.rnn, clean_feat, kernels),
+                                mask)
 
 
 # ---- image query ----------------------------------------------------------

@@ -177,8 +177,9 @@ def _extract(model: MemoryModel, memory: MemorySlots, feats: dict,
              cfg: Config, slot: int, spk_id: torch.Tensor):
     emb_map, _ = apply_encoder(model.encoder, feats["mix_feas"], cfg)
     query = memory_read(memory, spk_id, slot)                 # (B, E)
-    masks = apply_mask_head(model.mask_head, emb_map, query[:, None, :],
-                            cfg.replace(mask_head="align"))
+    with span("align_head"):
+        masks = apply_mask_head(model.mask_head, emb_map, query[:, None, :],
+                                cfg.replace(mask_head="align"))
     return masks, masks[:, 0] * feats["mix_mag"]
 
 
@@ -201,15 +202,17 @@ def make_memory_train_step(cfg: Config, query_source: str = "speech",
             # path)
             old = MemorySlots(state.memory.vectors.detach(),
                               state.memory.age)
-            mem = memory_write_slot(old, spk_id, vp, slot, mesh=mesh)
+            with span("memory_write"):
+                mem = memory_write_slot(old, spk_id, vp, slot, mesh=mesh)
             masks, pred = _extract(state.model, mem, feats, cfg, slot,
                                    spk_id)
             loss = _memory_loss(pred, masks, feats, cfg)
         grad_norm = _backward_and_update(list(state.model.parameters()),
                                          state.opt_state, opt, loss, mesh)
         # the out-of-graph persistent update (update_memory semantics)
-        state.memory = memory_write_slot(state.memory, spk_id, vp.detach(),
-                                         slot, mesh=mesh)
+        with span("memory_write"):
+            state.memory = memory_write_slot(state.memory, spk_id,
+                                             vp.detach(), slot, mesh=mesh)
         state.step += 1
         return state, mean_metrics({"loss": loss.detach(),
                                     "grad_norm": grad_norm}, mesh)

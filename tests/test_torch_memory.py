@@ -299,17 +299,51 @@ def test_memory_train_step_matches_jax(query_source, over):
 
 def test_memory_step_opens_forward_backward_optimizer():
     """The memory step's phases under the profiler: its forward (the
-    voiceprint, the in-graph write and the extraction), backward and
-    optimizer, each once."""
+    voiceprint, the in-graph write and the align head inside it),
+    backward and optimizer, each once, and the persistent write after
+    the update, outside the forward."""
     from torch.profiler import ProfilerActivity, profile
     cfg_j, _, cfg_t, state_t = _state()
     feats = _t(_feats(cfg_j))
     step = tmt.make_memory_train_step(cfg_t)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step(state_t, feats)
-    names = [e.name for e in prof.events() if e.name.startswith("dl4ss.")]
-    assert sorted(names) == ["dl4ss.backward", "dl4ss.forward",
-                             "dl4ss.optimizer"]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name[6:])
+                   for e in prof.events() if e.name.startswith("dl4ss."))
+    assert sorted(n for _, _, n in spans) == [
+        "align_head", "backward", "forward", "memory_write", "memory_write",
+        "optimizer", "voiceprint"]
+    (f0, f1), = [(s, t) for s, t, n in spans if n == "forward"]
+    inside = {n for s, t, n in spans if f0 <= s and t <= f1 and n != "forward"}
+    assert inside == {"voiceprint", "memory_write", "align_head"}
+    opt_end = max(t for _, t, n in spans if n == "optimizer")
+    assert spans[-1][2] == "memory_write" and spans[-1][0] >= opt_end
+
+
+@pytest.mark.parametrize("mode", ["keras", "torch"])
+@pytest.mark.parametrize("spk", [[2, 1, 2, 4], [3, 3, 3, 0], [4, 4, 4, 4]],
+                         ids=["one-duplicate", "three-duplicates", "one-row"])
+def test_write_counts_equal_bincount(mode, spk):
+    """The write counts come from the one-hot's column sums (no host
+    sync on the card): the ages grow by exactly `bincount` of the ids,
+    with duplicates and with rows the batch leaves unused, in the written
+    slot alone."""
+    rng = np.random.default_rng(1)
+    vec, age = _random_memory(rng)
+    ids = torch.tensor(spk)
+    incoming = torch.as_tensor(rng.standard_normal((len(spk), 4)),
+                               dtype=torch.float32)
+    out = tmem.memory_write_slot(
+        tmem.MemorySlots(torch.as_tensor(vec), torch.as_tensor(age)), ids,
+        incoming, tmem.SLOT_VIDEO, mode)
+    want = torch.as_tensor(age).clone()
+    want[:, tmem.SLOT_VIDEO] += torch.bincount(ids, minlength=5).to(
+        torch.int32)
+    assert out.age.dtype == torch.int32
+    assert torch.equal(out.age, want)
+    unused = torch.bincount(ids, minlength=5) == 0
+    if mode == "torch":       # only touched rows change in this mode
+        assert torch.equal(out.vectors[unused], torch.as_tensor(vec)[unused])
 
 
 def test_memory_eval_step_and_enroll_match_jax():
