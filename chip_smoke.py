@@ -2409,10 +2409,11 @@ def main(argv=None) -> int:
             kind = "fwd" if "fwd_chain" in name else "bwd"
             cell = next(c for c in ("Gru", "Lstm") if c in name)
             dtype = "bf16" if "bfloat16" in name else "f32"
-            # the forward's body: the wide one, or the ticket (Lb0) or
-            # cluster (Lb1) body at its units a block
+            # the forward's body: the wide or tiled one, or the ticket
+            # (Lb0) or cluster (Lb1) body at its units a block
             units = name.split("EEELb")[0].rsplit("Li", 1)[-1]
             body = ("wide" if "wide" in name else
+                    "tiled" if "5tiled" in name else
                     f"cluster {units} units" if "ELb1E" in name else
                     "ticket" if "ELb0E" in name else "")
             info = " ".join(x.strip() for x in log[i + 1:i + 4])
@@ -3317,15 +3318,20 @@ def main(argv=None) -> int:
         time_row(name, r, 5 if slow else 20,
                  (2 if name == "lstm_bwd" else 3) if slow else 10)
     def fwd_sweep():
-        """K2 and K7 per layer, the resident, stepwise and (up to B=32)
-        cluster bodies, by batch at H=300 (f32; bf16 at B=1 and 16), beside
-        the body the rule names and the card's occupancy answer for the
-        cluster body's two tilings: the numbers the forward's
-        RESIDENT_MAX_CHUNKS and CLUSTER_UNITS follow. K7 also at H=600 in
+        """K2 and K7 per layer, the resident, stepwise, (up to B=32)
+        cluster and (from B=32) tiled bodies, by batch at H=300 up to the
+        bulk serving batch B=256 (f32; bf16 at B=1 and 16), beside the body
+        the rule names and the card's occupancy answer for the cluster
+        body's two tilings: the numbers the forward's RESIDENT_MAX_CHUNKS,
+        CLUSTER_UNITS and TILED_FROM follow; the rows at B=32 are the
+        crossover of the resident and tiled bodies, B=48, 49 and 56 around
+        that of K7's stepwise and tiled bodies. K7 also at H=600 in
         its wide and stepwise bodies at B=1, 16, 32 and 48, the numbers
         WIDE_MAX_BATCH follows; B=1 and 16 go on K7's row of the `kernels`
         line as `h600_ms`. Each body is held against the plain version
-        first (`check_bodies_on`) up to B=32, and at H=600 at B=16."""
+        first (`check_bodies_on`) up to B=32 and at B=256, and at H=600 at
+        B=16. B=256 goes on K2 and K7's rows of the `kernels` line as
+        `b256_ms`, by body."""
         sc = 1.0 / np.sqrt(H)
         for name in ("gru_fwd", "lstm_fwd"):
             for dt in (torch.float32, torch.bfloat16):
@@ -3339,8 +3345,10 @@ def main(argv=None) -> int:
                 ("lstm_fwd", 4, k2.lstm_scan_cuda, k2.lstm_scan_plain,
                  ("hs", "cs"))):
             w = tensor(rng.uniform(-sc, sc, (2, H, gates * H)))
-            for batch in (1, BATCH, 2 * BATCH, 3 * BATCH, 4 * BATCH,
-                          6 * BATCH, 8 * BATCH):
+            row = next(r for r in kernels if r["name"] == name)
+            for batch in (1, BATCH, 2 * BATCH, 3 * BATCH, 3 * BATCH + 1,
+                          7 * BATCH // 2, 4 * BATCH, 6 * BATCH, 8 * BATCH,
+                          16 * BATCH):
                 x = tensor(0.5 * rng.standard_normal((T, 2, batch,
                                                       gates * H)))
                 dts = ((torch.float32, torch.bfloat16) if batch <= BATCH
@@ -3349,7 +3357,7 @@ def main(argv=None) -> int:
                     xd, wd = x.to(dt), w.to(dt)
                     args = (xd, wd, bhn) if gates == 3 else (xd, wd)
                     label = "bf16" if dt == torch.bfloat16 else "f32"
-                    if batch <= 2 * BATCH:
+                    if batch <= 2 * BATCH or batch == 16 * BATCH:
                         check_bodies_on(
                             torch, f"{name} B={batch} {label}", name, fn,
                             plain, args, outs, TOL[name if label == "f32"
@@ -3357,11 +3365,16 @@ def main(argv=None) -> int:
                             rel=False)
                     parts = []
                     bodies = (k2.BODY_RESIDENT, k2.BODY_STEPWISE) + (
-                        (k2.BODY_CLUSTER,) if batch <= 2 * BATCH else ())
+                        (k2.BODY_CLUSTER,) if batch <= 2 * BATCH else ()) + (
+                        (k2.BODY_TILED,) if batch >= 2 * BATCH else ())
+                    ms = {}
                     for body in bodies:
-                        ms = device_ms(torch, lambda: fn(*args, body=body),
-                                       5 if batch <= 2 * BATCH else 3)
-                        parts.append(f"{body} {ms:.4f}")
+                        ms[body] = device_ms(
+                            torch, lambda: fn(*args, body=body),
+                            5 if batch <= 2 * BATCH else 3)
+                        parts.append(f"{body} {ms[body]:.4f}")
+                    if batch == 16 * BATCH:
+                        row["b256_ms"] = ms
                     rule = k2.default_body(dev, name, dt, H, batch)
                     units = k2.cluster_units(H, batch, 2, k2.forward_clusters(
                         dev, name, dt, H))

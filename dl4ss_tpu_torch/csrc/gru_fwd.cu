@@ -13,8 +13,8 @@
 // per layer, ~80 us at the f32 CUDA-core rate. The real limit is the 313
 // dependent steps.
 //
-// Design: two bodies, named to the entry point by the caller
-// (ops/rnn_kernels.py::rnn_body, by shape alone).
+// Design: four bodies, named to the entry point by the caller
+// (ops/rnn_kernels.py::rnn_body, by shape and the card's occupancy answer).
 //
 // The resident body (rnn_fwd_common.cuh): ONE persistent cooperative launch
 // per chunk of batch rows walks all steps of both directions, each block
@@ -22,9 +22,12 @@
 // ticket barrier per (direction, 4 rows). The cluster body is the same
 // chain with each (direction, 4 rows) one thread-block cluster that passes
 // h through distributed shared memory, in one launch. GruFwdCell below is
-// their gate math.
+// their gate math. The tiled body (rnn_fwd_tiled.cuh) takes the batches
+// past the resident body (B > 40 at H=300): one persistent launch per
+// layer whose blocks hold U in shared memory for 32 rows each, with the
+// same cell.
 //
-// The stepwise body, for the widths the resident one cannot hold (H > 304):
+// The stepwise body, for the widths past the persistent bodies (H > 304):
 // one kernel per step, launched from a C loop in the same library, so one
 // ctypes call per layer; each step costs the latency of one pass over U
 // plus a launch.
@@ -40,6 +43,7 @@
 // memory, where each (row, j) output gets its gate math and is written to
 // hs[t].
 #include "rnn_fwd_common.cuh"
+#include "rnn_fwd_tiled.cuh"
 
 namespace {
 
@@ -184,6 +188,9 @@ cudaError_t run(const void* xp, const void* wh, const void* bhn, void* hs,
     return dl4ss::fwd_chain<T, GruFwdCell>(args, groups, chunk, stream);
   if (body == dl4ss::BODY_CLUSTER)
     return dl4ss::fwd_cluster<T, GruFwdCell>(args, units, stream);
+  if (body == dl4ss::BODY_TILED)
+    return dl4ss::tiled::fwd_tiled<T, GruFwdCell>(args, groups, chunk,
+                                                  stream);
   if (body == dl4ss::BODY_STEPWISE)
     return run_stepwise<T>(xp, wh, bhn, hs, steps, D, B, H, stream);
   return cudaErrorInvalidValue;
@@ -193,12 +200,15 @@ cudaError_t run(const void* xp, const void* wh, const void* bhn, void* hs,
 
 // xp (T, D, B, 3H) and wh (D, H, 3H) in f32, or both in bf16 (bf16 != 0);
 // bhn (D, 1, H) f32; hs (T, D, B, H) in the input dtype. body: 1 resident,
-// 2 stepwise, 4 cluster; the resident and cluster bodies return an error
-// for a shape they cannot hold. Resident: tickets = `groups` zeroed 32-bit
-// counters, one per direction and 4 batch rows (any other count is
-// refused), and the batch runs in chunks of `chunk` rows (a multiple of 4),
-// one launch each. Cluster: one launch, `units` hidden units a block (24 or
-// 36; any other count is refused). What a body does not use may be null.
+// 2 stepwise, 4 cluster, 5 tiled; the resident, cluster and tiled bodies
+// return an error for a shape they cannot hold. Resident: tickets =
+// `groups` zeroed 32-bit counters, one per direction and 4 batch rows (any
+// other count is refused), and the batch runs in chunks of `chunk` rows (a
+// multiple of 4), one launch each. Cluster: one launch, `units` hidden
+// units a block (19 or 36; any other count is refused). Tiled: tickets =
+// `groups` zeroed counters, one per direction and 32 batch rows, and
+// chunks of `chunk` rows (a multiple of 32), one launch each. What a body
+// does not use may be null.
 extern "C" int dl4ss_gru_fwd(const void* xp, const void* wh, const void* bhn,
                              void* hs, void* tickets, int groups, int chunk,
                              int units, int steps, int D, int B, int H,

@@ -18,8 +18,11 @@
 // per layer, ~0.11 ms at the f32 CUDA-core rate. As for K2 (gru_fwd.cu) the
 // real limit is the 313 dependent steps.
 //
-// Design, after K2: four bodies, named to the entry point by the caller
-// (ops/rnn_kernels.py::rnn_body, by shape alone). The resident body is
+// Design, after K2: five bodies, named to the entry point by the caller
+// (ops/rnn_kernels.py::rnn_body, by shape and the card's occupancy answer).
+// The tiled body (rnn_fwd_tiled.cuh) takes the batches from B=52 on at
+// H <= 300, where it was measured to beat the stepwise body. The resident
+// body is
 // rnn_fwd_common.cuh's chain with LstmFwdCell below: c stays in the owner
 // thread's register for all steps. The cluster body is the same chain with
 // each (direction, 4 rows) one thread-block cluster that passes h through
@@ -44,6 +47,7 @@
 // KB at H=1024. Past H=5216 the block exceeds the 227 KB limit: the opt-in
 // then fails, the entry point returns its error and the wrapper raises.
 #include "rnn_fwd_common.cuh"
+#include "rnn_fwd_tiled.cuh"
 #include "rnn_fwd_wide.cuh"
 
 namespace {
@@ -198,6 +202,9 @@ cudaError_t run(const void* xp, const void* wh, void* hs, void* cs, void* c,
     return dl4ss::fwd_chain<T, LstmFwdCell>(args, groups, chunk, stream);
   if (body == dl4ss::BODY_CLUSTER)
     return dl4ss::fwd_cluster<T, LstmFwdCell>(args, units, stream);
+  if (body == dl4ss::BODY_TILED)
+    return dl4ss::tiled::fwd_tiled<T, LstmFwdCell>(args, groups, chunk,
+                                                   stream);
   if (body == dl4ss::BODY_WIDE)
     return dl4ss::wide::fwd_chain<T, LstmFwdCell>(
         {xp, wh, hs, cs, static_cast<unsigned int*>(tickets), steps, D, B, H,
@@ -212,15 +219,16 @@ cudaError_t run(const void* xp, const void* wh, void* hs, void* cs, void* c,
 
 // xp (T, D, B, 4H) and wh (D, H, 4H) in f32, or both in bf16 (bf16 != 0);
 // hs, cs (T, D, B, H) in the input dtype. body: 1 resident, 2 stepwise, 3
-// wide, 4 cluster; the resident, wide and cluster bodies return an error for
-// a shape they cannot hold. Resident: tickets = `groups` zeroed 32-bit
-// counters, one per direction and 4 batch rows (any other count is
-// refused), and the batch runs in chunks of `chunk` rows (a multiple of 4),
-// one launch each. Wide: tickets = `groups` = D zeroed counters, one
-// launch; `chunk` is not read. Cluster: one launch, `units` hidden units a
-// block (19 or 36; any other count is refused). Stepwise: c (D, B, H) f32
-// scratch (the cell carry; it need not be initialised). What a body does
-// not use may be null.
+// wide, 4 cluster, 5 tiled (as in gru_fwd.cu); the resident, wide, cluster
+// and tiled bodies return an error for a shape they cannot hold. Resident:
+// tickets = `groups` zeroed 32-bit counters, one per direction and 4 batch
+// rows (any other count is refused), and the batch runs in chunks of
+// `chunk` rows (a multiple of 4), one launch each. Wide: tickets =
+// `groups` = D zeroed counters, one launch; `chunk` is not read. Cluster:
+// one launch, `units` hidden units a block (19 or 36; any other count is
+// refused). Tiled: as in gru_fwd.cu. Stepwise: c (D, B, H) f32 scratch
+// (the cell carry; it need not be initialised). What a body does not use
+// may be null.
 extern "C" int dl4ss_lstm_fwd(const void* xp, const void* wh, void* hs,
                               void* cs, void* c, void* tickets, int groups,
                               int chunk, int units, int steps, int D, int B,

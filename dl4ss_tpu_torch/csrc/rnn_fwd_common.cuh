@@ -59,8 +59,18 @@
 // rows, one launch each (rnn_resident.cuh's `chunked`); ops/rnn_kernels.py
 // sizes them from the card's SM count, and names the cluster body only
 // where the card's occupancy query says every cluster of the launch is
-// resident at once. The stepwise body (one launch per step, in gru_fwd.cu /
-// lstm_fwd.cu) stays for the widths the registers cannot hold.
+// resident at once, and both bodies only up to B=40. Past it the time of
+// these bodies grows with every 4 rows, since each barrier group holds its
+// own copy of U and reads h once per FMA. There the tiled body
+// (rnn_fwd_tiled.cuh) takes over, where the stepwise body (one launch per
+// step, in gru_fwd.cu / lstm_fwd.cu) ran before (K7 from B=52, where it
+// was measured faster): at B=256, H=300 a GRU
+// layer is 86.5 GFLOP of h . U, 1.29 ms at the f32 FFMA rate, a step 2.2
+// MFLOP an SM, so the step is bound by arithmetic, not by the chain. It
+// holds each block's U once in shared memory for a group of 32 rows and
+// multiplies with register tiles of 4 rows x 5 units x NG gates a lane: a
+// U value serves 4 rows, an h value 5 * NG columns. The stepwise body
+// stays for the widths past every persistent body.
 #pragma once
 
 #include <atomic>

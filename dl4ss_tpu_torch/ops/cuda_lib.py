@@ -40,7 +40,8 @@ SOURCES = ("stft_features.cu", "gru_fwd.cu", "maskhead_fwd.cu",
            "lstm_bwd.cu", "stft_ri.cu", "istft_ri.cu")
 HEADERS = ("dl4ss_common.cuh", "maskhead_tile.cuh", "rnn_resident.cuh",
            "rnn_bwd_common.cuh", "rnn_fwd_common.cuh", "rnn_fwd_wide.cuh",
-           "fft_stages.cuh", "stft_tile.cuh", "istft_tile.cuh")
+           "rnn_fwd_tiled.cuh", "fft_stages.cuh", "stft_tile.cuh",
+           "istft_tile.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

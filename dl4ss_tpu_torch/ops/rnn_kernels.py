@@ -15,22 +15,26 @@ and the time order is the caller's (the reverse direction is flipped
 outside), so D only sizes the grid, the tickets and the rows a resident
 launch holds.
 
-All four kernels have two bodies each, the forwards a third (cluster) and
-K7 a fourth (wide). The resident one walks the whole chain of T steps in ONE persistent cooperative
-launch (per chunk of batch rows) with each block's slice of U in registers
+All four kernels have two bodies each, the forwards two more (cluster and
+tiled) and K7 a fifth (wide). The resident one walks the whole chain of T
+steps in ONE persistent cooperative launch (per chunk of batch rows) with
+each block's slice of U in registers
 and a ticket barrier in device memory between the steps: the forward's
 (csrc/rnn_fwd_common.cuh) holds the gate columns of its units, the
 backward's (csrc/rnn_bwd_common.cuh) their rows, after the gate recompute
 for all steps at once and before a split dU reduction. The stepwise one
 launches a kernel per step. The forward's cluster body is the resident
 chain with each barrier group one thread-block cluster, h passed through
-distributed shared memory, in one launch. K7's wide body
+distributed shared memory, in one launch. The forward's tiled body
+(csrc/rnn_fwd_tiled.cuh) takes the batches past the resident one: one
+persistent launch per layer whose blocks hold U in shared memory and run
+each step as a register-tiled product over 32 batch rows. K7's wide body
 (csrc/rnn_fwd_wide.cuh) is one persistent launch for the widths past the
 registers, with each direction's U held once in the blocks' shared memory
 for all batch rows. `rnn_body` is the only rule that picks between them,
 from the shape and the card's occupancy answer, for both passes; the launch
-names the body to the library, which refuses the resident, cluster and
-wide bodies where they cannot run. The backward's resident arithmetic,
+names the body to the library, which refuses the resident, cluster, tiled
+and wide bodies where they cannot run. The backward's resident arithmetic,
 which runs only on the card, has plain-torch mirrors here
 (`gru_bwd_resident_mirror`, `lstm_bwd_resident_mirror`) for the CPU tests;
 the forward's is the plain loop's, summed in another order.
@@ -60,9 +64,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # RESIDENT_ROWS and DU_SPLIT size scratch, so the launch passes the sizes it
 # allocated and the library refuses any but its own.
 BODY_RESIDENT, BODY_STEPWISE, BODY_WIDE = "resident", "stepwise", "wide"
-BODY_CLUSTER = "cluster"
+BODY_CLUSTER, BODY_TILED = "cluster", "tiled"
 _BODY_CODES = {BODY_RESIDENT: 1, BODY_STEPWISE: 2, BODY_WIDE: 3,
-               BODY_CLUSTER: 4}
+               BODY_CLUSTER: 4, BODY_TILED: 5}
 RESIDENT_MAX_HIDDEN = 304
 RESIDENT_UNITS = 24
 RESIDENT_ROWS = 4
@@ -97,6 +101,24 @@ WIDE_MAX_BATCH = 48
 # takes 16 blocks a cluster and B=16's 8 groups take 9. The library refuses
 # any other count.
 CLUSTER_UNITS = (19, 36)
+# The forward's tiled body (csrc/rnn_fwd_tiled.cuh) for H <= 304 where
+# the resident body is not named, in place of the stepwise one: a barrier
+# group is one direction and TILED_ROWS batch rows, a block TILED_UNITS
+# hidden units with their gate columns of U in shared memory
+# (`tiled_smem_bytes`), every block of a launch on an SM at once (a batch
+# whose grid does not fit runs in chunks of rows, `tiled_chunk_rows`), h
+# passed by a ticket in device memory. TILED_FROM, by gate count, is the
+# least batch at which it was measured to beat the stepwise body on an
+# NVIDIA H100 80GB HBM3 at H=300 (PERF.md, PR 24): K2's at every batch from
+# 32 on (3.74-3.84 ms a layer against 3.88-4.01 at B=41-96), so from B=41,
+# where the resident body stops; K7's from B=52 (5.05 against 5.17), not
+# at B=50 (5.07 against 5.02) nor below (at 48 5.13 against 3.26), where
+# the stepwise grid of 8-row tiles takes at most a light second wave of
+# the 132 SMs. Like RESIDENT_UNITS these steer the rule only: the library
+# refuses what it cannot run.
+TILED_FROM = {3: 41, 4: 52}
+TILED_ROWS = 32
+TILED_UNITS = 40
 # Launches of K2, K5, K7 and K8 by the body that ran, keyed (kernel name,
 # body); cuda_lib.LAUNCHES counts both bodies under the kernel's name.
 BODY_LAUNCHES: collections.Counter = collections.Counter()
@@ -145,6 +167,31 @@ def wide_smem_bytes(hidden: int, batch: int) -> int:
         tr * _ceil_div(batch, tr) * (kq | 1), 2 * tr * WIDE_THREADS))
 
 
+def tiled_smem_bytes(hidden: int, gates: int) -> int:
+    """Shared memory of a block of the tiled body, as the library sizes it
+    (csrc/rnn_fwd_tiled.cuh, `smem_bytes`): U in ceil(H / 4) rows of
+    gates * TILED_UNITS + 1 float4 and one buffer of TILED_ROWS rows of h
+    at ceil(H / 4) | 1 float4 a row."""
+    kq = _ceil_div(hidden, 4)
+    return 16 * ((gates * TILED_UNITS + 1) * kq + TILED_ROWS * (kq | 1))
+
+
+def tiled_groups(batch: int, directions: int = 2) -> int:
+    """Barrier groups of the tiled body, one ticket each: one per direction
+    and tile of TILED_ROWS batch rows."""
+    return directions * _ceil_div(batch, TILED_ROWS)
+
+
+def tiled_chunk_rows(hidden: int, directions: int = 2,
+                     sms: int = H100_SMS) -> int:
+    """Batch rows per launch of the tiled body: the most tiles of
+    TILED_ROWS rows whose blocks, ceil(H / TILED_UNITS) per direction and
+    tile and one an SM, fit `sms` SMs at once (256 rows at H=300 on 132
+    SMs, both directions); 0 where not one tile fits."""
+    per_tile = directions * _ceil_div(hidden, TILED_UNITS)
+    return TILED_ROWS * (sms // per_tile)
+
+
 def cluster_units(hidden: int, batch: int, directions: int = 2,
                   clusters: Optional[Mapping[int, int]] = None) -> int:
     """The hidden units a block of the forward's cluster body for this
@@ -171,21 +218,30 @@ def rnn_body(hidden: int, batch: int, directions: int = 2,
     and the batch takes at most the pass's RESIDENT_MAX_CHUNKS launches of
     the grid that fits the card's `sms` SMs at once (at H=300 on 132 SMs
     20 rows a launch: the forward's resident body up to B=40, the
-    backward's up to B=140). Past H=304, K7's forward
-    (`gates` 4; K2 passes 3) takes the wide body where its D *
+    backward's up to B=140). Past it a forward at H <= 304 takes the tiled
+    body from TILED_FROM rows on (K2 41, K7 52; `gates` 3 or 4) where one
+    tile's blocks fit the `sms` SMs and a block fits SMEM_PER_BLOCK
+    (`tiled_smem_bytes`: K2 up to H=304, K7 up to H=300). Past H=304, K7's
+    forward (`gates` 4; K2 passes 3) takes the wide body where its D *
     ceil(H / WIDE_UNITS) blocks fit the `sms` SMs (H <= 660 for both
     directions on 132), a block fits SMEM_PER_BLOCK (at H=660 up to B=48)
-    and B <= WIDE_MAX_BATCH. Every other shape, every backward
-    past H=304 among them, takes the stepwise body. The dtype does not
+    and B <= WIDE_MAX_BATCH. Every other shape, every backward past H=304
+    among them, takes the stepwise body. The dtype does not
     enter: U is held in f32 either way. The launch is told the body by
-    name; the library only refuses the resident, cluster or wide body on a
-    shape it cannot take."""
+    name; the library only refuses the resident, cluster, tiled or wide
+    body on a shape it cannot take."""
     if not backward and cluster_units(hidden, batch, directions, clusters):
         return BODY_CLUSTER
     if hidden <= RESIDENT_MAX_HIDDEN:
         chunks = resident_chunks(batch, hidden, directions, sms)
         most = RESIDENT_MAX_CHUNKS["backward" if backward else "forward"]
-        return BODY_RESIDENT if 0 < len(chunks) <= most else BODY_STEPWISE
+        if 0 < len(chunks) <= most:
+            return BODY_RESIDENT
+        if (not backward and batch >= TILED_FROM[gates]
+                and tiled_chunk_rows(hidden, directions, sms)
+                and tiled_smem_bytes(hidden, gates) <= SMEM_PER_BLOCK):
+            return BODY_TILED
+        return BODY_STEPWISE
     if (not backward and gates == 4 and batch <= WIDE_MAX_BATCH
             and directions * _ceil_div(hidden, WIDE_UNITS) <= sms
             and wide_smem_bytes(hidden, batch) <= SMEM_PER_BLOCK):
@@ -239,12 +295,16 @@ def default_body(dev, name: str, dtype, hidden: int, batch: int,
 def _forward_launch(name: str, dev, dtype, hidden: int, batch: int,
                     directions: int, body: Optional[str]):
     """The forward's body (`body`, else the rule's) and its scratch: the
-    tickets, their count and the rows a launch of the resident body, or
-    the units a block of the cluster body."""
+    tickets, their count and the rows a launch of the resident or tiled
+    body, or the units a block of the cluster body."""
     chosen = body or default_body(dev, name, dtype, hidden, batch,
                                   directions)
     tickets = groups = chunk = units = 0
-    if chosen == BODY_CLUSTER:
+    if chosen == BODY_TILED:
+        groups = tiled_groups(batch, directions)
+        tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
+        chunk = tiled_chunk_rows(hidden, directions, _sms(dev))
+    elif chosen == BODY_CLUSTER:
         units = (cluster_units(hidden, batch, directions, forward_clusters(
             dev, name, dtype, hidden)) or CLUSTER_UNITS[-1])
     elif chosen == BODY_RESIDENT:
@@ -315,9 +375,10 @@ def gru_scan_cuda(xp: torch.Tensor, wh: torch.Tensor, bh_n: torch.Tensor,
                   body: Optional[str] = None) -> torch.Tensor:
     """K2 on the card: csrc/gru_fwd.cu, one ctypes call per layer on the
     current stream. The cluster body makes one persistent launch for all
-    steps; the resident body one per chunk of rows; the stepwise body one
-    launch per step. `body` forces one for a check or a timing (a forced
-    cluster body whose clusters do not all fit runs at CLUSTER_UNITS[-1]);
+    steps; the resident and tiled bodies one per chunk of rows; the
+    stepwise body one launch per step. `body` forces one for a check or a
+    timing (a forced cluster body whose clusters do not all fit runs at
+    CLUSTER_UNITS[-1]);
     by default `rnn_body` names it from the shape and the card's occupancy
     answer. Same contract as `gru_scan_plain`."""
     t, d, b, g3 = xp.shape

@@ -340,24 +340,27 @@ def _check_bodies(k, name, cuda, plain, args, h, tol, body, outs,
                   rtol=None):
     """One body of K2, K5, K7 or K8 against the plain version. The resident
     and cluster bodies must refuse a width their registers cannot hold
-    (H > 304), the wide body every kernel but K7, the cluster body every
-    backward, and nothing may fall back: no launch is counted; a batch past
-    one launch's grid the resident body walks in chunks, the cluster body
-    in waves of clusters. The stepwise body takes every shape that fits its
-    shared memory, the wide body every K7 shape the card holds (forced below
-    H=305 too). The resident, cluster and wide bodies are also held to the
-    stepwise one, the cluster body bit for bit to the resident one (the
-    same column split), and two back-to-back calls on one stream must agree
-    bit for bit: that guards the barrier's tickets, which each call gets
-    zeroed, and the cluster body's inboxes. `rtol` defaults to `tol`."""
+    (H > 304), the tiled body one past its shared memory (K2 and K7 at
+    H=600), the wide body every kernel but K7, the cluster and tiled bodies
+    every backward, and nothing may fall back: no launch is counted; a
+    batch past one launch's grid the resident and tiled bodies walk in
+    chunks, the cluster body in waves of clusters. The stepwise body takes
+    every shape that fits its shared memory, the wide body every K7 shape
+    the card holds (forced below H=305 too). The resident, cluster, wide
+    and tiled bodies are also held to the stepwise one, the cluster body
+    bit for bit to the resident one (the same column split), and two
+    back-to-back calls on one stream must agree bit for bit: that guards
+    the barrier's tickets, which each call gets zeroed, and the cluster
+    body's inboxes. `rtol` defaults to `tol`."""
     from dl4ss_tpu_torch.ops import cuda_lib
     rtol = tol if rtol is None else rtol
     backward = name.endswith("_bwd")
     rule = k.default_body(args[0].device, name, args[0].dtype, h,
                           args[0].shape[2], args[0].shape[1])
-    if ((body in ("resident", "cluster") and h > k.RESIDENT_MAX_HIDDEN)
+    if ((body in ("resident", "cluster", "tiled")
+         and h > k.RESIDENT_MAX_HIDDEN)
             or (body == "wide" and name != "lstm_fwd")
-            or (body == "cluster" and backward)):
+            or (body in ("cluster", "tiled") and backward)):
         if h > k.RESIDENT_MAX_HIDDEN:
             assert rule == ("wide" if name == "lstm_fwd" else "stepwise")
         elif backward:
@@ -381,7 +384,7 @@ def _check_bodies(k, name, cuda, plain, args, h, tol, body, outs,
         assert g.shape == r.shape and g.dtype == r.dtype, what
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=rtol,
                                    msg=what)
-    if body in ("resident", "wide", "cluster"):
+    if body in ("resident", "wide", "cluster", "tiled"):
         for what, g, g2, r in zip(outs, got, outputs(cuda, body=body),
                                   outputs(cuda, body="stepwise")):
             assert torch.equal(g, g2), what
@@ -403,13 +406,14 @@ FWD_SHAPES = [(7, 1, 37), (6, 16, 37), (5, 21, 37), (4, 32, 37),
 @pytest.mark.parametrize("t,b,h", FWD_SHAPES + [(3, 5, 600)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("body", ["resident", "stepwise", "cluster"])
+@pytest.mark.parametrize("body", ["resident", "stepwise", "cluster",
+                                  "tiled"])
 def test_k2_gru_fwd_bodies(dev, t, b, h, dtype, tol, body):
-    """K2, all three bodies, against its plain version. f32: summation
+    """K2, all four bodies, against its plain version. f32: summation
     order only (1e-4). bf16: h is carried in bf16, so an order difference
     can flip one rounding and carry it on through the steps (2e-2, the
-    repo's bar for bf16 forward kernels). H=600 is past the resident and
-    cluster bodies."""
+    repo's bar for bf16 forward kernels). H=600 is past the resident,
+    cluster and tiled bodies."""
     from dl4ss_tpu_torch.ops import rnn_kernels as k
     rng = np.random.default_rng(16)
     s = 1 / np.sqrt(h)
@@ -431,12 +435,13 @@ WIDE_SHAPES = [(3, 1, 600), (3, 5, 600), (3, 16, 600), (2, 48, 600),
 @pytest.mark.parametrize("t,b,h", FWD_SHAPES + WIDE_SHAPES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("body", ["resident", "stepwise", "wide", "cluster"])
+@pytest.mark.parametrize("body", ["resident", "stepwise", "wide", "cluster",
+                                  "tiled"])
 def test_k7_lstm_fwd_bodies(dev, t, b, h, dtype, tol, body):
-    """K7, all four bodies, hs and cs against its plain version;
-    tolerances as for K2. Past H=304 the resident and cluster bodies refuse
-    and the rule names the wide one; below it the wide body runs when
-    forced."""
+    """K7, all five bodies, hs and cs against its plain version;
+    tolerances as for K2. Past H=304 the resident, cluster and tiled bodies
+    refuse and the rule names the wide one; below it the wide body runs
+    when forced."""
     from dl4ss_tpu_torch.ops import rnn_kernels as k
     rng = np.random.default_rng(17)
     s = 1 / np.sqrt(h)
@@ -485,6 +490,70 @@ def test_one_direction_kernels(dev, t, b, h, cell, body):
                   (xp, wh, torch.cat([zeros, hs[:-1]]),
                    torch.cat([zeros, cs[:-1]]), cs, dhs), h, 1e-4, body,
                   ("dxp", "dU"))
+
+
+# the tiled body (B > 40 at H <= 304): one row tile past the resident
+# body's last batch (B=41), two tiles (64), the serving cell's batch (256:
+# 16 groups of 8 blocks, 128 of the 132 SMs) and one row past it (257: a
+# second launch of one ragged tile), over T=313 and T=1 (no product at all)
+TILED_SHAPES = [(t, b) for b in (41, 64, 256, 257) for t in (313, 1)]
+
+
+@pytest.mark.parametrize("name", ["gru_fwd", "lstm_fwd"])
+@pytest.mark.parametrize("t,b", TILED_SHAPES)
+@pytest.mark.parametrize("d", [2, 1])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_k2_k7_tiled_body(dev, name, t, b, d, dtype, tol):
+    """K2 and K7's tiled body at H=300, both directions and one, against
+    the plain version and the stepwise body at the bars of the other
+    bodies, and two calls bit for bit (`_check_bodies`), forced where the
+    rule names another body: the resident one where it holds the batch in
+    its two launches (one direction at B=41 and 64: 40 rows a launch), or
+    K7's stepwise one below TILED_FROM (B=41)."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    rng = np.random.default_rng(20)
+    h = 300
+    gates = 3 if name == "gru_fwd" else 4
+    s = 1 / np.sqrt(h)
+    args = (_t(0.5 * rng.standard_normal((t, d, b, gates * h)), dev, dtype),
+            _t(rng.uniform(-s, s, (d, h, gates * h)), dev, dtype))
+    if name == "gru_fwd":
+        args += (_t(rng.uniform(-s, s, (d, 1, h)), dev),)
+    resident = (len(k.resident_chunks(b, h, d, k._sms(dev)))
+                <= k.RESIDENT_MAX_CHUNKS["forward"])
+    assert k.default_body(dev, name, dtype, h, b, d) == (
+        "resident" if resident else
+        "tiled" if b >= k.TILED_FROM[gates] else "stepwise")
+    cuda, plain, outs = ((k.gru_scan_cuda, k.gru_scan_plain, ("hs",))
+                         if name == "gru_fwd" else
+                         (k.lstm_scan_cuda, k.lstm_scan_plain, ("hs", "cs")))
+    _check_bodies(k, name, cuda, plain, args, h, tol, "tiled", outs,
+                  rtol=0)
+
+
+def test_k2_default_call_at_the_bulk_serving_shape(dev):
+    """The serving stack's two BiGRU layers at the bulk cell's shape (T=313
+    frames of 5 s, B=256, H=300) by default: one tiled launch of K2 a
+    layer and no stepwise one, and the stack's output within the f32 bar
+    of the plain route's."""
+    from dl4ss_tpu_torch.ops import cuda_lib
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    from dl4ss_tpu_torch.ops.rnn import bidirectional_rnn, rnn_init
+    gen = torch.Generator().manual_seed(21)
+    layers = rnn_init("gru", 129, 300, 2, gen, device=dev)
+    x = torch.randn((256, 313, 129), generator=gen).to(dev)
+    before = dict(k.BODY_LAUNCHES), cuda_lib.LAUNCHES["gru_fwd"]
+    with torch.inference_mode():
+        got = bidirectional_rnn(layers, x, "gru", use_pallas=True)
+        ref = bidirectional_rnn(layers, x, "gru")
+    torch.cuda.synchronize()
+    ran = {key: n - before[0].get(key, 0) for key, n in
+           k.BODY_LAUNCHES.items() if key[0] == "gru_fwd"}
+    assert ran.get(("gru_fwd", "tiled")) == 2
+    assert ran.get(("gru_fwd", "stepwise"), 0) == 0
+    assert cuda_lib.LAUNCHES["gru_fwd"] - before[1] == 2
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
 
 
 def test_k2_k7_refuse_a_drifted_ticket_count(dev, monkeypatch):

@@ -71,3 +71,20 @@ def test_cluster_tilings_match_the_library():
             r"using ClusterTiling(\d+) = dl4ss::ResidentTiling<"
             r"\d+, \d+, \d+, \d+, \d+, \1>;", text))
         assert units == k.CLUSTER_UNITS, src
+
+
+def test_tiled_constants_match_the_library():
+    """The tiled body's rows a barrier group, units a block, body code and
+    shared-memory limit, which `rnn_body` and `tiled_smem_bytes` follow, as
+    csrc/rnn_fwd_tiled.cuh has them."""
+    from dl4ss_tpu_torch.ops import rnn_kernels as k
+    text = (cuda_lib.CSRC / "rnn_fwd_tiled.cuh").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr (?:int|size_t) {name} = (\d+);",
+                             text).group(1))
+    assert const("ROWS") == k.TILED_ROWS
+    assert const("UNITS") == k.TILED_UNITS
+    assert const("BODY_TILED") == k._BODY_CODES[k.BODY_TILED]
+    assert const("SMEM_MAX") == k.SMEM_PER_BLOCK
+    assert "rnn_fwd_tiled.cuh" in cuda_lib.HEADERS

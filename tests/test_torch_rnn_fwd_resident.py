@@ -8,7 +8,8 @@ another summation order. Here the routes a user calls (`gru_scan`,
 JAX kernels (`pallas_gru_scan`, `pallas_lstm_scan` in interpret mode) at
 batches that cross a chunk of the resident body and a ragged row tile, and
 the rule `rnn_body`, with the card's occupancy answer passed in, and its
-chunk plan to the shapes the main paths and the card tests use.
+chunk plans (the resident and the tiled body's) to the shapes the main
+paths and the card tests use.
 """
 
 import jax.numpy as jnp
@@ -89,16 +90,21 @@ WIDE = {(305, 1), (600, 1), (600, 5), (600, 16), (600, 48), (660, 1),
     (300, 41), (300, 128),
     (37, 32), (8, 512), (304, 16), (305, 1), (600, 5), (600, 16),
     (600, 1), (600, 48), (600, 49), (660, 1), (660, 48), (660, 49),
-    (661, 1)])
+    (661, 1), (300, 256), (300, 257), (304, 41), (37, 40), (37, 41),
+    (300, 48), (300, 49), (300, 51), (300, 52), (300, 56), (300, 64),
+    (37, 300), (304, 64)])
 def test_rnn_body_and_its_chunks(hidden, batch):
-    """Resident where H <= 304 and the batch needs at most the forward's
-    RESIDENT_MAX_CHUNKS launches (2: the measurements at B=32 and B=48 on
-    the card) of the grid that fits the 132 SMs, each
-    launch 2 * ceil(rows / 4) * ceil(H / 24) blocks; the chunks cover every
-    row once, in order. Past H=304 K7's forward takes the wide body where
-    its 2 * ceil(H / 10) blocks fit the SMs (H <= 660) and B <= 48 (at
-    H=660 also the last row a block's shared memory holds); K2's forward
-    and every backward take the stepwise one."""
+    """Resident where H <= 304 and the batch needs at most the pass's
+    RESIDENT_MAX_CHUNKS launches (the forward's 2: the measurements at B=32
+    and B=48 on the card) of the grid that fits the 132 SMs, each launch
+    2 * ceil(rows / 4) * ceil(H / 24) blocks; the chunks cover every row
+    once, in order. Past that a forward at H <= 304 takes the tiled body
+    from TILED_FROM rows on (K2 41, K7 52, where it beat the stepwise
+    body; K2 up to H=304, K7 up to H=300, where its block fits the shared
+    memory), and the stepwise one below. Past H=304 K7's forward takes
+    the wide body where its 2 * ceil(H / 10) blocks fit the SMs (H <= 660)
+    and B <= 48 (at H=660 also the last row a block's shared memory
+    holds); K2's forward and every backward take the stepwise one."""
     rows = k.resident_chunk_rows(hidden)
     chunks = k.resident_chunks(batch, hidden)
     assert [r for r0, n in chunks for r in range(r0, r0 + n)] == list(
@@ -109,12 +115,25 @@ def test_rnn_body_and_its_chunks(hidden, batch):
     want = ("resident" if hidden <= 304
             and len(chunks) <= k.RESIDENT_MAX_CHUNKS["forward"]
             else "stepwise")
-    assert k.rnn_body(hidden, batch, gates=3) == want
+
+    def forward(gates):
+        tiled = (want == "stepwise" and hidden <= 304
+                 and batch >= k.TILED_FROM[gates]
+                 and (gates == 3 or hidden <= 300))
+        return "tiled" if tiled else want
+    assert k.rnn_body(hidden, batch, gates=3) == forward(3)
     if hidden <= 304:
-        assert k.rnn_body(hidden, batch) == want
+        assert k.rnn_body(hidden, batch) == forward(4)
+        back = ("resident" if 0 < len(chunks) <= k.RESIDENT_MAX_CHUNKS[
+            "backward"] else "stepwise")
+        assert k.rnn_body(hidden, batch, backward=True) == back
+        assert k.rnn_body(hidden, batch, gates=3, backward=True) == back
     if hidden == 300:
         assert rows == 20
         assert want == ("resident" if batch <= 40 else "stepwise")
+        assert forward(3) == ("resident" if batch <= 40 else "tiled")
+        assert forward(4) == ("resident" if batch <= 40 else "stepwise"
+                              if batch <= 51 else "tiled")
     if hidden > 304:
         assert want == "stepwise"
         assert k.rnn_body(hidden, batch) == (
@@ -123,6 +142,61 @@ def test_rnn_body_and_its_chunks(hidden, batch):
         assert k.rnn_body(hidden, batch, backward=True) == "stepwise"
         fits = k.wide_smem_bytes(hidden, batch) <= k.SMEM_PER_BLOCK
         assert fits == ((hidden, batch) not in {(660, 49)})
+
+
+@pytest.mark.parametrize("hidden,batch,directions,launches", [
+    (300, 41, 2, [(0, 41)]), (300, 256, 2, [(0, 256)]),
+    (300, 257, 2, [(0, 256), (256, 1)]), (300, 512, 1, [(0, 512)]),
+    (300, 513, 1, [(0, 512), (512, 1)]), (8, 512, 2, [(0, 512)]),
+    (37, 2112, 2, [(0, 2112)]), (304, 64, 2, [(0, 64)])])
+def test_tiled_body_chunks_and_shared_memory(hidden, batch, directions,
+                                             launches):
+    """The tiled body's plan as the library walks it: one launch per chunk
+    of tiled_chunk_rows rows, the most 32-row tiles whose blocks (D *
+    ceil(H / 40) a tile, one an SM) fit the 132 SMs: 256 rows at H=300 for
+    both directions, 512 for one, 2112 at H <= 40 (66 tiles of 2 blocks).
+    A block holds U in ceil(H / 4) rows of 40 * gates + 1 float4 and 32
+    rows of h at ceil(H / 4) | 1 float4 each: K2 fits the 232,448 bytes up
+    to H=304, K7 up to H=300. The rule names the body where the resident
+    one needs more than its 2 launches, K7's from B=52; at H=8 the resident
+    body still holds B=512."""
+    step = k.tiled_chunk_rows(hidden, directions)
+    got = [(r, min(step, batch - r)) for r in range(0, batch, step)]
+    assert got == launches
+    assert k.tiled_groups(batch, directions) == directions * -(-batch // 32)
+    kq = -(-hidden // 4)
+    for gates in (3, 4):
+        assert k.tiled_smem_bytes(hidden, gates) == 16 * (
+            (40 * gates + 1) * kq + 32 * (kq | 1))
+    assert k.tiled_smem_bytes(300, 3) == 183600
+    assert k.tiled_smem_bytes(300, 4) == 231600
+    fits = k.tiled_smem_bytes(hidden, 4) <= k.SMEM_PER_BLOCK
+    assert fits == (hidden <= 300)
+    assert k.tiled_smem_bytes(hidden, 3) <= k.SMEM_PER_BLOCK
+    resident = len(k.resident_chunks(batch, hidden, directions)) <= 2
+    assert resident == ((hidden, batch) == (8, 512))
+    assert k.rnn_body(hidden, batch, directions, gates=3) == (
+        "resident" if resident else "tiled")
+    assert k.rnn_body(hidden, batch, directions) == (
+        "resident" if resident else "tiled" if fits and batch >= 52
+        else "stepwise")
+
+
+@pytest.mark.parametrize("gates,first", [(3, 41), (4, 52)])
+def test_tiled_body_starts_where_it_beat_the_stepwise_one(gates, first):
+    """The tiled body's first batch, by gate count, where it was measured
+    to beat the stepwise body at H=300: K2's at B=41, the first row past
+    the resident body's two launches; K7's at B=52. Below it the forward
+    keeps the body it had; no backward ever takes it."""
+    assert k.TILED_FROM[gates] == first
+    assert k.resident_chunk_rows(300) * k.RESIDENT_MAX_CHUNKS["forward"] == 40
+    assert k.rnn_body(300, first, gates=gates) == "tiled"
+    assert k.rnn_body(300, first - 1, gates=gates) == (
+        "resident" if first == 41 else "stepwise")
+    assert k.rnn_body(300, 256, gates=gates) == "tiled"
+    assert k.rnn_body(300, 256, gates=gates, backward=True) == "stepwise"
+    assert k.rnn_body(300, first, gates=gates,
+                      clusters={19: 7, 36: 9}) == "tiled"
 
 
 def test_rnn_body_takes_the_sm_count_from_its_argument():
@@ -202,7 +276,7 @@ def test_rnn_body_takes_the_occupancy_answer_from_its_argument():
     assert k.cluster_units(300, 1, 2, {19: 2}) == 19
     assert k.cluster_units(300, 1, 2, {19: 1, 36: 2}) == 36
     assert k.rnn_body(300, 1, directions=1, clusters={19: 1}) == "cluster"
-    assert k.rnn_body(300, 128, clusters=H100_CLUSTERS) == "stepwise"
+    assert k.rnn_body(300, 128, clusters=H100_CLUSTERS) == "tiled"
     assert k.rnn_body(300, 128, clusters={19: 64}) == "cluster"
     assert k.rnn_body(600, 64, gates=4, clusters=H100_CLUSTERS) == "stepwise"
     assert k.rnn_body(300, 16, backward=True,
