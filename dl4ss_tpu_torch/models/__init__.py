@@ -18,3 +18,4 @@ from dl4ss_tpu_torch.models.query import (  # noqa: F401
 from dl4ss_tpu_torch.models.separator import (  # noqa: F401
     init_separator, separate, separate_dense, recursive_separate,
     classify_speakers, Separator, SeparatorOutput)
+from dl4ss_tpu_torch.models.dprnn import DPRNN, DPRNNConfig  # noqa: F401

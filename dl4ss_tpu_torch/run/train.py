@@ -43,6 +43,15 @@ checkpoint, and --resume / --init-from carry the memory. `--mode video` /
 `image-query` train the separator on lip-frame (synthetic, or
 --video-root) or digit-glyph queries; the Inception trunk is frozen.
 
+    python -m dl4ss_tpu_torch.run.train --preset tdaa --mode tasnet \
+        --set max_len_seconds=4 --batch-size 4 --set learning_rate=1e-3 \
+        --set lr_schedule=constant --set grad_clip_norm=5
+
+`--mode tasnet` trains DPRNN-TasNet (models/dprnn.py) at the paper's
+widths on waveforms drawn from the bank, negative SI-SNR under uPIT, the
+data and optimizer fields from the preset and its overrides (the model's
+speakers are the preset's max_mix); it writes no checkpoint.
+
     python -m dl4ss_tpu_torch.run.train --preset synth_tiny --device cpu \
         --dp 2 --epochs 1 --epoch-size 2
     python -m dl4ss_tpu_torch.run.train --preset torch_multi --dp auto
@@ -84,14 +93,16 @@ def build_parser() -> argparse.ArgumentParser:
     p = add_common_args(argparse.ArgumentParser(description=__doc__))
     p.add_argument("--mode", default="joint",
                    choices=["joint", "dense", "adversarial", "classifier",
-                            "memory", "video", "image-query"],
+                            "memory", "video", "image-query", "tasnet"],
                    help="dense = the all-speaker channel layout "
                         "(Torch_multi/main_run.py:473-506); adversarial = "
                         "TDAA's two-phase discriminator trainer; memory = "
                         "Cocktail target extraction with the speaker "
                         "memory; video = GRID audio-visual query training "
                         "(main_run.py:226-256); image-query = "
-                        "MNIST-digit-conditioned separation (Multi_modal)")
+                        "MNIST-digit-conditioned separation (Multi_modal); "
+                        "tasnet = DPRNN-TasNet on waveforms "
+                        "(arXiv:1910.06379)")
     p.add_argument("--query-source", default="speech",
                    choices=["speech", "image", "video"],
                    help="memory mode: voiceprint (Cocktail), MNIST digit "
@@ -234,6 +245,13 @@ def main(argv=None):
                          "training uses --list-dir / --data-root")
     if args.noise_wavs and (args.list_dir or args.mode in _QUERY_MODES):
         raise SystemExit(_NOISE_REFUSAL)
+    if args.mode == "tasnet" and (args.list_dir or args.file_lists
+                                  or args.noise_wavs or args.checkpoint_dir
+                                  or args.resume or args.init_from
+                                  or args.dp or args.mp):
+        raise SystemExit("--mode tasnet trains from the bank on one device "
+                         "and writes no checkpoint: drop the list, noise, "
+                         "checkpoint and mesh options")
     if args.dis_sp and args.mode != "adversarial":
         raise SystemExit("--dis-sp only applies to --mode adversarial")
     if args.init_from and args.resume:
@@ -315,6 +333,8 @@ def main(argv=None):
             f"but the checkpoint was trained with {ck_cfg.num_speakers}; "
             f"resume with the original data/lists")
     print(cfg.log_config())
+    if args.mode == "tasnet":
+        return _run_tasnet_mode(cfg, bank, args, device)
     if args.mode == "memory":
         return _run_memory_mode(cfg, bank, args, device)
     if args.mode in ("video", "image-query"):
@@ -379,6 +399,19 @@ def _run_query_mode(cfg, bank, args, device):
         raise
     if sdr:
         print(f"final SI-SDR: {sdr[-1]:.2f} dB (best {max(sdr):.2f})")
+    return state
+
+
+def _run_tasnet_mode(cfg, bank, args, device):
+    """DPRNN-TasNet on the bank's waveforms (train/tasnet_trainer.py)."""
+    from dl4ss_tpu_torch.models.dprnn import DPRNNConfig
+    from dl4ss_tpu_torch.train.tasnet_trainer import tasnet_train_loop
+    m = DPRNNConfig(speakers=cfg.max_mix)
+    state, sdr = tasnet_train_loop(
+        cfg, m, bank, seed=args.seed, max_epochs=args.epochs,
+        epoch_size=args.epoch_size, metrics_path=args.metrics, device=device)
+    if sdr:
+        print(f"final SI-SNR: {sdr[-1]:.2f} dB (best {max(sdr):.2f})")
     return state
 
 

@@ -92,7 +92,7 @@ WIDE = {(305, 1), (600, 1), (600, 5), (600, 16), (600, 48), (660, 1),
     (600, 1), (600, 48), (600, 49), (660, 1), (660, 48), (660, 49),
     (661, 1), (300, 256), (300, 257), (304, 41), (37, 40), (37, 41),
     (300, 48), (300, 49), (300, 51), (300, 52), (300, 56), (300, 64),
-    (37, 300), (304, 64)])
+    (37, 300), (304, 64), (128, 1028), (128, 1000)])
 def test_rnn_body_and_its_chunks(hidden, batch):
     """Resident where H <= 304 and the batch needs at most the pass's
     RESIDENT_MAX_CHUNKS launches (the forward's 2: the measurements at B=32
@@ -148,13 +148,17 @@ def test_rnn_body_and_its_chunks(hidden, batch):
     (300, 41, 2, [(0, 41)]), (300, 256, 2, [(0, 256)]),
     (300, 257, 2, [(0, 256), (256, 1)]), (300, 512, 1, [(0, 512)]),
     (300, 513, 1, [(0, 512), (512, 1)]), (8, 512, 2, [(0, 512)]),
-    (37, 2112, 2, [(0, 2112)]), (304, 64, 2, [(0, 64)])])
+    (37, 2112, 2, [(0, 2112)]), (304, 64, 2, [(0, 64)]),
+    (128, 1028, 2, [(0, 512), (512, 512), (1024, 4)]),
+    (128, 1000, 2, [(0, 512), (512, 488)])])
 def test_tiled_body_chunks_and_shared_memory(hidden, batch, directions,
                                              launches):
     """The tiled body's plan as the library walks it: one launch per chunk
     of tiled_chunk_rows rows, the most 32-row tiles whose blocks (D *
     ceil(H / 40) a tile, one an SM) fit the 132 SMs: 256 rows at H=300 for
-    both directions, 512 for one, 2112 at H <= 40 (66 tiles of 2 blocks).
+    both directions, 512 for one, 2112 at H <= 40 (66 tiles of 2 blocks),
+    512 at H=128 for both (DPRNN-TasNet's 1,028 intra-chunk rows in three
+    launches, its 1,000 inter-chunk rows in two).
     A block holds U in ceil(H / 4) rows of 40 * gates + 1 float4 and 32
     rows of h at ceil(H / 4) | 1 float4 each: K2 fits the 232,448 bytes up
     to H=304, K7 up to H=300. The rule names the body where the resident

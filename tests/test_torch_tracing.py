@@ -163,3 +163,24 @@ def test_only_the_eight_phases_exist():
                            spk_idx=torch.tensor([[0, 1], [2, 3]]))
 
     assert set(_spans(both)) == PHASES
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
+def test_tasnet_step_opens_its_phases(kernels):
+    """A DPRNN-TasNet step (2 blocks): the sample, then inside `forward`
+    the encoder, each block's intra- and inter-chunk halves and the
+    decoder, then backward and optimizer."""
+    from dl4ss_tpu_torch.models.dprnn import DPRNNConfig
+    from dl4ss_tpu_torch.train.tasnet_trainer import (create_tasnet_state,
+                                                      make_tasnet_train_step)
+    cfg = preset("synth_tiny").replace(max_len_seconds=0.05,
+                                       use_pallas_rnn=kernels)
+    m = DPRNNConfig(filters=4, bottleneck=4, hidden=4, blocks=2, chunk=20,
+                    hop=10)
+    state = create_tasnet_state(cfg, m, 0, device="cpu")
+    step = make_tasnet_train_step(cfg)
+    bank = _bank(cfg)
+    assert _spans(lambda: step(state, bank)) == {
+        "sample": 1, "forward": 1, "tasnet_encoder": 1, "intra_chunk": 2,
+        "inter_chunk": 2, "tasnet_decoder": 1, "backward": 1,
+        "optimizer": 1}
